@@ -7,16 +7,32 @@ Phases, each of which raises on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
      sources at once;
-  3. each kernel against its plain PyTorch version on the card, bit-exact
-     (``torch.equal``), at the main-path shape, ragged row counts,
-     L in {4, 8, 16} and inputs on codebook midpoints;
+  AgileNN offload inference (slice 1):
+  3. each offload kernel against its plain PyTorch version on the card,
+     bit-exact (``torch.equal``), at the main-path shape, ragged row
+     counts, L in {4, 8, 16} and inputs on codebook midpoints;
   4. the AgileNN deployment path at the paper's width
      (``AgileNNConfig(image_size=96)``, B = 256, seed-0 params, shuffled
      mapping) through its entry points, with every launch count set to 0
      just before and read just after; the outputs are checked against the
      port's own CPU run of the same params;
-  5. each kernel's time (CUDA events, median of 30 launches, L2 flushed),
-     its plain version's, its bound, and images/s of the whole path.
+  5. each offload kernel's time (CUDA events, median of 30 launches, L2
+     flushed), its plain version's, its bound, and images/s of the path;
+  dense LLM serving (slice 2):
+  6. RMSNorm, flash attention and paged decode attention against their
+     plain versions on the card (atol = rtol = 2e-5): ragged row counts
+     and widths; causal, window, q_offset, ragged kv_valid_len, T and S
+     off the tile, D 64 and 128; per-row attend_len, S off the page,
+     G in {1, 4, 7, 8};
+  7. qwen2-0.5b at full width (seed-0 params, fp32, TF32 off) through
+     ``ServeEngine(max_len=1024).generate``: 8 prompts of 512 tokens, 32
+     new tokens, greedy, then once sampled, with every launch count set
+     to 0 just before and read just after;
+  8. the same params on the card and on the CPU (B = 2, T = 128, 8
+     tokens): prefill logits within 1e-3, greedy tokens equal unless the
+     CPU's top-2 margin at the first divergence is within the tolerance;
+  9. each LLM kernel's time, its plain version's, the library call's and
+     its bound; prefill and decode tokens/s and the time by part.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -36,7 +52,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import tree_to  # noqa: E402
 from repro_torch.compress.quantize import dequantize  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.agilenn_cifar import AgileNNConfig  # noqa: E402
 from repro_torch.core.agile import (  # noqa: E402
     agile_forward,
@@ -44,23 +62,35 @@ from repro_torch.core.agile import (  # noqa: E402
     init_agile_params,
     offload_payload_arrays,
     remote_forward,
-    tree_to,
 )
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.common import auto_page_size  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import DEFAULT_PAGE  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.offload_fused.kernel import offload_fused_cuda  # noqa: E402
 from repro_torch.kernels.offload_fused.ops import fused_offload  # noqa: E402
 from repro_torch.kernels.offload_fused.ref import offload_fused_ref  # noqa: E402
 from repro_torch.kernels.quantize.kernel import quantize_cuda  # noqa: E402
 from repro_torch.kernels.quantize.ref import quantize_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda  # noqa: E402
 from repro_torch.kernels.topk_split.ref import channel_permute_ref  # noqa: E402
+from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     extractor_apply,
     local_nn_apply,
     remote_nn_apply,
 )
-from repro_torch.nn.linear import conv2d  # noqa: E402
-from repro_torch.nn.norm import groupnorm  # noqa: E402
+from repro_torch.nn.activations import swiglu_ffn  # noqa: E402
+from repro_torch.nn.attention import project_qkv  # noqa: E402
+from repro_torch.nn.linear import conv2d, dense  # noqa: E402
+from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
+from repro_torch.nn.rope import apply_rope  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.offload import measure_payload, run_offload_inference  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
@@ -72,6 +102,19 @@ TIMING_REPS = 30
 # logits of the card vs the CPU on rows whose indices agree: fp32 convs
 # sum in another order (cuDNN vs the CPU), through 6 GroupNorm blocks
 LOGIT_TOL = 1e-3
+OFFLOAD_KERNELS = ("offload_fused", "quantize", "topk_split")
+
+# the LLM serving path: qwen2-0.5b at full width, fp32, seed-0 params
+LLM_ARCH = "qwen2-0.5b"
+LLM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 8, 512, 32, 1024
+# kernel vs plain on the card: the JAX package's own bars for these
+# oracles (atol = rtol = 2e-5, tests/test_decode_attention.py)
+LLM_KERNEL_TOL = 2e-5
+# card vs the port's CPU run, at a smaller batch: fp32 sums in another
+# order over 24 layers and a 151,936-wide readout
+LLM_LOGIT_TOL = 1e-3
+CPU_BATCH, CPU_PROMPT, CPU_NEW, CPU_MAX_LEN = 2, 128, 8, 256
 
 
 def check(cond, msg: str) -> None:
@@ -86,19 +129,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
+def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
     """Median device time of one call of ``fn``, by CUDA events.
 
-    Before each call the L2 is flushed and the stream is held busy while
-    the host enqueues the call, so the events time the device work alone,
-    not the host's launch overhead."""
+    Before each call the L2 is flushed and the stream is held busy for
+    ``hold_cycles`` while the host enqueues the call, so the events time
+    the device work alone, not the host's launch overhead."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(5_000_000)
+        torch.cuda._sleep(hold_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -180,10 +223,10 @@ def phase_main_path(cfg, params, images):
     logits, internals = agile_forward(cfg, params, images)
     logits_2p, internals_2p = agile_forward(cfg, params, images, use_fused=False)
     torch.cuda.synchronize()
-    launches = {n: kern.launches for n, kern in _build.KERNELS.items()}
-    print(f"phase 4: launches on the main path: {launches}")
+    launches = {n: _build.KERNELS[n].launches for n in OFFLOAD_KERNELS}
+    print(f"phase 4: launches on the offload path: {launches}")
     for n, count in launches.items():
-        check(count > 0, f"kernel {n} was not launched on the main path")
+        check(count > 0, f"kernel {n} was not launched on the offload path")
 
     B, F = images.shape[0], cfg.image_size // 4
     R = cfg.extractor_channels - cfg.agile.k
@@ -320,6 +363,319 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
     return rows, path
 
 
+def close_err(out, ref, tol: float, what: str) -> float:
+    """The kernel's output against its plain version within ``tol`` abs +
+    rel; the largest |difference|."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"{what}: shape/dtype {tuple(out.shape)} {out.dtype} vs "
+          f"{tuple(ref.shape)} {ref.dtype}")
+    err = (out.double() - ref.double()).abs().max().item() if out.numel() else 0.0
+    check(torch.allclose(out, ref, atol=tol, rtol=tol),
+          f"{what}: kernel differs from its plain version by {err}")
+    return err
+
+
+def phase_llm_kernels():
+    """The three LLM kernels vs their plain versions on the card, at the
+    main path's shapes and off them; returns max |err| per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    errs = dict.fromkeys(LLM_KERNELS, 0.0)
+    cases = dict.fromkeys(LLM_KERNELS, 0)
+
+    def note(name, err):
+        errs[name] = max(errs[name], err)
+        cases[name] += 1
+
+    for N in (1, 7, 4096 + 3):
+        for d in (128, 896, 2048):
+            x, sc = randn(N, d) * 3, 1 + 0.1 * randn(d)
+            note("rmsnorm", close_err(rmsnorm_cuda(x, sc), rmsnorm_ref(x, sc),
+                                      LLM_KERNEL_TOL, f"rmsnorm N={N} d={d}"))
+    # (B, T, S, Hq, Hkv, D, causal, window, q_offset, kv_valid_len)
+    flash_cases = [
+        (LLM_BATCH, LLM_PROMPT, LLM_PROMPT, 14, 2, 64, True, 0, 0, None),
+        (2, 100, 100, 4, 2, 64, True, 64, 0, None),
+        (2, 37, 137, 6, 2, 128, True, 0, 100, None),
+        (3, 77, 77, 8, 8, 128, True, 0, 0, [77, 1, 40]),
+        (2, 130, 130, 14, 2, 64, True, 0, 0, [130, 65]),
+        (2, 50, 200, 4, 1, 64, False, 0, 0, None),
+        (1, 10, 20, 4, 2, 64, True, 4, 50, None),       # no live key: 0
+    ]
+    for B, T, S, Hq, Hkv, D, causal, window, q_off, valid in flash_cases:
+        q, k, v = randn(B, T, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        kw = dict(causal=causal, window=window, q_offset=q_off,
+                  kv_valid_len=None if valid is None
+                  else torch.tensor(valid, device="cuda"))
+        note("flash_attention", close_err(
+            flash_attention_cuda(q, k, v, **kw), flash_attention_ref(q, k, v, **kw),
+            LLM_KERNEL_TOL, f"flash_attention {(B, T, S, Hq, Hkv, D)} {kw}"))
+    # (B, S, Hq, Hkv, D): G = 7, 4, 1, 8; S off the page in two
+    for B, S, Hq, Hkv, D in ((LLM_BATCH, LLM_MAX_LEN, 14, 2, 64),
+                             (3, 1000, 14, 2, 64), (3, 1024, 8, 2, 64),
+                             (3, 300, 4, 4, 128), (3, 200, 16, 2, 128)):
+        page = auto_page_size(S) or DEFAULT_PAGE
+        q, k, v = randn(B, 1, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        rows = torch.tensor(([1, page, S] * B)[:B], dtype=torch.int32,
+                            device="cuda")
+        for attend in (rows, LLM_PROMPT + LLM_NEW // 2 if S > LLM_PROMPT else S // 2):
+            note("decode_attention", close_err(
+                decode_attention_cuda(q, k, v, attend, page_size=page),
+                decode_attention_ref(q, k, v, attend), LLM_KERNEL_TOL,
+                f"decode_attention {(B, S, Hq, Hkv, D)} page {page} "
+                f"attend {attend}"))
+    torch.cuda.synchronize()
+    print(f"phase 6: LLM kernels vs their plain versions, within "
+          f"{LLM_KERNEL_TOL} abs + rel: cases {cases}, max |err| {errs}")
+    return errs
+
+
+def phase_llm_path(cfg, params, card):
+    """The serving path through ServeEngine.generate at full width, launch
+    counts from 0: one greedy call, then one sampled call."""
+    L = cfg.n_layers
+    prompts = np.random.RandomState(2).randint(0, cfg.vocab, (LLM_BATCH, LLM_PROMPT))
+    eng = ServeEngine(cfg, params, max_len=LLM_MAX_LEN, seed=0)
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = eng.generate([Request(tokens=p, max_new_tokens=LLM_NEW)
+                           for p in prompts])
+    generate_s = time.perf_counter() - t0
+    sampled = eng.generate([Request(tokens=p, max_new_tokens=LLM_NEW,
+                                    temperature=0.8) for p in prompts])
+    torch.cuda.synchronize()
+    launches = {n: _build.KERNELS[n].launches for n in LLM_KERNELS}
+    print(f"phase 7: launches on the LLM serving path: {launches}")
+    for n, count in launches.items():
+        check(count > 0, f"kernel {n} was not launched on the LLM serving path")
+    # each call: one prefill and steps - 1 decode steps, 2L + 1 norms each
+    forwards = greedy[0].steps + sampled[0].steps
+    expect = {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": 2 * L,
+              "decode_attention": L * (forwards - 2)}
+    check(launches == expect, f"launches {launches}, expected {expect}")
+    for c in greedy + sampled:
+        check(c.steps == LLM_NEW and len(c.tokens) == LLM_NEW
+              and c.tokens.min() >= 0 and c.tokens.max() < cfg.vocab,
+              f"completion of {len(c.tokens)} tokens, {c.steps} steps")
+    differ = sum(int(np.any(g.tokens != s.tokens)) for g, s in zip(greedy, sampled))
+    check(differ > 0, "sampling at temperature 0.8 gave the greedy tokens")
+    print(f"phase 7: {cfg.name} at full width ({L} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}): ServeEngine.generate of {LLM_BATCH} x "
+          f"{LLM_PROMPT}-token prompts, {LLM_NEW} tokens each, greedy in "
+          f"{generate_s:.3f} s; the sampled call differs from greedy on "
+          f"{differ} of {LLM_BATCH} rows  [{card}]")
+    return launches, {"generate_s": generate_s,
+                      "greedy_tokens_row0": greedy[0].tokens.tolist()}
+
+
+def cpu_margin(cfg, cpu, prompt, tokens, step: int):
+    """The CPU's top-2 logit margin at decode position ``step`` of one row,
+    fed its own greedy ``tokens``, and the top logit's size."""
+    logits, cache, T = bb.prefill(cfg, cpu, {"tokens": torch.as_tensor(prompt[None])},
+                                  max_len=CPU_MAX_LEN)
+    for i in range(step):
+        logits, cache = bb.decode_step(cfg, cpu, torch.tensor([[int(tokens[i])]]),
+                                       cache, T + i)
+    top = logits[0].topk(2).values
+    return (top[0] - top[1]).item(), top[0].abs().item()
+
+
+def phase_llm_vs_cpu(cfg, params):
+    """The same params and prompts on the card and on the CPU: prefill
+    logits within LLM_LOGIT_TOL, greedy tokens equal up to a near-tie."""
+    cpu = tree_to(params, "cpu")
+    prompts = np.random.RandomState(3).randint(0, cfg.vocab, (CPU_BATCH, CPU_PROMPT))
+    lg, _, _ = bb.prefill(cfg, params, {"tokens": torch.as_tensor(prompts, device="cuda")},
+                          max_len=CPU_MAX_LEN)
+    lc, _, _ = bb.prefill(cfg, cpu, {"tokens": torch.as_tensor(prompts)},
+                          max_len=CPU_MAX_LEN)
+    diff = (lg.cpu() - lc).abs().max().item()
+    print(f"phase 8: prefill logits |card - CPU| max {diff:.3e} "
+          f"(B={CPU_BATCH}, T={CPU_PROMPT}; tolerance {LLM_LOGIT_TOL} abs + rel)")
+    check(torch.allclose(lg.cpu(), lc, atol=LLM_LOGIT_TOL, rtol=LLM_LOGIT_TOL),
+          f"prefill logits differ from the CPU run by {diff}")
+    reqs = [Request(tokens=p, max_new_tokens=CPU_NEW) for p in prompts]
+    card = ServeEngine(cfg, params, max_len=CPU_MAX_LEN).generate(reqs)
+    host = ServeEngine(cfg, cpu, max_len=CPU_MAX_LEN, device="cpu").generate(reqs)
+    same = 0
+    for b, (c, h) in enumerate(zip(card, host)):
+        split = np.flatnonzero(c.tokens != h.tokens)
+        if split.size == 0:
+            same += 1
+            continue
+        i = int(split[0])
+        margin, top = cpu_margin(cfg, cpu, prompts[b], h.tokens, i)
+        bar = 2 * (LLM_LOGIT_TOL + LLM_LOGIT_TOL * top)
+        print(f"phase 8: row {b}: greedy tokens diverge at step {i}; the CPU's "
+              f"top-2 margin there is {margin:.3e} (a swap needs < {bar:.3e})")
+        check(margin <= bar, f"row {b} diverges at step {i} with a CPU top-2 "
+              f"margin of {margin}, beyond the logit tolerance")
+    print(f"phase 8: greedy tokens ({CPU_NEW} per row) equal on the card and "
+          f"the CPU on {same} of {CPU_BATCH} rows")
+    return {"prefill_logit_max_abs_diff_vs_cpu": diff,
+            "greedy_rows_equal_vs_cpu": same}
+
+
+def phase_llm_timing(cfg, params, launches, errs, card):
+    """Each LLM kernel's time, its plain version's, one library call's and
+    its bound at the main path's shapes; then the path itself."""
+    B, T, L = LLM_BATCH, LLM_PROMPT, cfg.n_layers
+    Hq, Hkv, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    G, S, attend = Hq // Hkv, LLM_MAX_LEN, LLM_PROMPT + LLM_NEW // 2
+    page = auto_page_size(S) or DEFAULT_PAGE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, scale = randn(B * T, d), 1 + 0.1 * randn(d)
+    q, k, v = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    qd, kc, vc = randn(B, 1, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    # the library calls' layouts, made before any timing: heads first,
+    # kv heads repeated to the query heads
+    def heads_first(t, rep=1):
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+    qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
+    qdt, kct, vct = heads_first(qd), heads_first(kc, G), heads_first(vc, G)
+    live = (torch.arange(S, device="cuda") < attend)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = {
+        "flash_attention": (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+                            - flash_attention_cuda(q, k, v)).abs().max().item(),
+        "decode_attention": (sdpa(qdt, kct, vct, attn_mask=live).transpose(1, 2)
+                             - decode_attention_cuda(qd, kc, vc, attend,
+                                                     page_size=page)).abs().max().item(),
+    }
+    print(f"phase 9: |library call - kernel| max, the same function: {lib_err}")
+    pairs = B * Hq * T * (T + 1) // 2          # live (query, key) pairs, causal
+    specs = [
+        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/kernels/rmsnorm/kernel.py:25",
+         lambda: rmsnorm_cuda(x, scale), lambda: rmsnorm_ref(x, scale),
+         lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-6),
+         (2 * B * T * d + d) * 4, 4 * B * T * d),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/attention/kernel.py:78",
+         lambda: flash_attention_cuda(q, k, v), lambda: flash_attention_ref(q, k, v),
+         lambda: sdpa(qt, kt, vt, is_causal=True),
+         (2 * B * T * Hq * D + 2 * B * T * Hkv * D) * 4, 4 * D * pairs),
+        ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention/kernel.py:79",
+         lambda: decode_attention_cuda(qd, kc, vc, attend, page_size=page),
+         lambda: decode_attention_ref(qd, kc, vc, attend),
+         lambda: sdpa(qdt, kct, vct, attn_mask=live),
+         (2 * B * Hq * D + 2 * B * attend * Hkv * D) * 4, 4 * B * Hq * attend * D),
+    ]
+    rows = []
+    for name, src, replaces, kern, plain, library, nbytes, ops in specs:
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(library)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms})
+        print(f"phase 9: {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes} B, {ops} ops), {launches[name]} launches on the "
+              f"serving path  [{card}]")
+
+    # the path: prefill of B x T, then one decode step at depth T
+    tokens = torch.as_tensor(np.random.RandomState(5).randint(0, cfg.vocab, (B, T)),
+                             device="cuda")
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache, _ = bb.prefill(cfg, params, {"tokens": tokens}, max_len=S)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(host)
+    step_tok = tokens[:, :1]
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bb.decode_step(cfg, params, step_tok, cache, T)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    step_s = statistics.median(host)
+    hold = 200_000_000          # about 0.1 s: longer than any call's enqueue
+    prefill_dev = time_ms(lambda: bb.prefill(cfg, params, {"tokens": tokens},
+                                             max_len=S), reps=3, hold_cycles=hold)
+    step_dev = time_ms(lambda: bb.decode_step(cfg, params, step_tok, cache, T),
+                       reps=10, hold_cycles=hold)
+
+    # one layer's parts at the prefill and the decode shape, device time
+    p = params["blocks"][0]
+    xp, xd = randn(B, T, d), randn(B, 1, d)
+    hf = randn(B, T, cfg.d_ff)
+    w = bb._readout_weight(cfg, params)
+
+    def qkv(h):
+        return project_qkv(p["attn"], h, n_heads=Hq, n_kv_heads=Hkv, head_dim=D)
+
+    pos_p = torch.arange(T, device="cuda")[None, :]
+    pos_d = torch.full((B, 1), T, device="cuda")
+    parts = {
+        "prefill": {
+            "rmsnorm": (lambda: rmsnorm(p["norm"], xp), 2 * L + 1),
+            "qkv_proj": (lambda: qkv(xp), L),
+            "rope": (lambda: (apply_rope(q, pos_p, cfg.rope_theta),
+                              apply_rope(k, pos_p, cfg.rope_theta)), L),
+            "flash_attention": (lambda: flash_attention_cuda(q, k, v), L),
+            "o_proj": (lambda: dense(p["attn"]["wo"], q.reshape(B, T, Hq * D)), L),
+            "ffn_gate_up": (lambda: (dense(p["ffn"]["gate"], xp),
+                                     dense(p["ffn"]["up"], xp)), L),
+            "ffn_down": (lambda: dense(p["ffn"]["down"], hf), L),
+            "readout": (lambda: xp[:, -1] @ w, 1),
+        },
+        "decode": {
+            "rmsnorm": (lambda: rmsnorm(p["norm"], xd), 2 * L + 1),
+            "qkv_proj": (lambda: qkv(xd), L),
+            "rope": (lambda: (apply_rope(qd, pos_d, cfg.rope_theta),
+                              apply_rope(qd[:, :, :Hkv], pos_d, cfg.rope_theta)), L),
+            "decode_attention": (lambda: decode_attention_cuda(
+                qd, kc, vc, attend, page_size=page), L),
+            "o_proj": (lambda: dense(p["attn"]["wo"], qd.reshape(B, 1, Hq * D)), L),
+            "ffn": (lambda: swiglu_ffn(p["ffn"], xd), L),
+            "readout": (lambda: xd[:, 0] @ w, 1),
+        },
+    }
+    breakdown = {}
+    for phase, stages in parts.items():
+        breakdown[phase] = {}
+        for name, (fn, count) in stages.items():
+            one = time_ms(fn, reps=10)
+            breakdown[phase][name] = {"ms_each": one, "per_forward": count,
+                                      "ms_per_forward": one * count}
+        total = sum(v["ms_per_forward"] for v in breakdown[phase].values())
+        print(f"phase 9: {phase} by part (ms per forward, device, L2 flushed "
+              f"before each): " + ", ".join(
+                  f"{n} {v['ms_per_forward']:.3f} ({v['per_forward']} x "
+                  f"{v['ms_each']:.4f})" for n, v in breakdown[phase].items())
+              + f"; sum {total:.3f}  [{card}]")
+    path = {"prefill_host_ms": prefill_s * 1e3, "prefill_device_ms": prefill_dev,
+            "prefill_tokens_per_s": B * T / prefill_s,
+            "decode_step_host_ms": step_s * 1e3, "decode_step_device_ms": step_dev,
+            "decode_tokens_per_s": B / step_s,
+            "decode_device_idle_share": 1 - step_dev / (step_s * 1e3),
+            "prefill_device_idle_share": 1 - prefill_dev / (prefill_s * 1e3),
+            "breakdown": breakdown}
+    print(f"phase 9: prefill B={B} x T={T}: {prefill_s * 1e3:.3f} ms host "
+          f"({path['prefill_tokens_per_s']:.0f} tokens/s), {prefill_dev:.3f} ms "
+          f"device; decode step B={B} at depth {T}: {step_s * 1e3:.3f} ms host "
+          f"({path['decode_tokens_per_s']:.1f} tokens/s), {step_dev:.3f} ms device "
+          f"(device idle {path['decode_device_idle_share']:.1%} of the step)  [{card}]")
+    return rows, path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -359,6 +715,19 @@ def main() -> int:
     rows, path = phase_timing(cfg, params, images, raw, centers, perm, k,
                               launches, errs, card)
 
+    llm_errs = phase_llm_kernels()
+    llm_cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    llm_params = bb.init_params(llm_cfg, seed=0)
+    init_s = time.perf_counter() - t0
+    print(f"phase 7: {LLM_ARCH} seed-0 params ({llm_cfg.param_dtype}, drawn on "
+          f"the CPU, moved to the card) in {init_s:.1f} s")
+    llm_launches, llm_path = phase_llm_path(llm_cfg, llm_params, card)
+    llm_checks = phase_llm_vs_cpu(llm_cfg, llm_params)
+    llm_rows, llm_timing = phase_llm_timing(llm_cfg, llm_params, llm_launches,
+                                            llm_errs, card)
+    rows += llm_rows
+
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -366,7 +735,12 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "build_s": build_s,
                        "config": {"image_size": cfg.image_size, "batch": BATCH},
-                       "kernels": rows, "path": path, "checks": path_checks},
+                       "kernels": rows, "path": path, "checks": path_checks,
+                       "llm": {"arch": LLM_ARCH, "batch": LLM_BATCH,
+                               "prompt": LLM_PROMPT, "new_tokens": LLM_NEW,
+                               "max_len": LLM_MAX_LEN, "init_s": init_s,
+                               "path": llm_path, "checks": llm_checks,
+                               "timing": llm_timing}},
                       f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree_to
 from repro_torch.compress.quantize import dequantize, hard_indices, quantizer_init
 from repro_torch.configs.agilenn_cifar import AgileNNConfig
 from repro_torch.core.combiner import alpha_value, combine_predictions, combiner_init
@@ -39,17 +39,6 @@ from repro_torch.models.cnn import (
     remote_nn_apply,
     remote_nn_init,
 )
-
-
-def tree_to(tree, device):
-    """The parameter tree with every tensor moved to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
 
 
 def init_agile_params(cfg: AgileNNConfig, seed: int = 0, *, device=None) -> dict:

@@ -95,12 +95,17 @@ def build(names) -> dict[str, Path]:
 
 def check_operand(t, what: str, dtype, device=None) -> None:
     """Raise ValueError unless ``t`` is a contiguous CUDA tensor of
-    ``dtype`` (on ``device`` when given): what the kernels take."""
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+    ``dtype`` (on ``device`` when given): what the kernels take.  The type
+    is checked before the device, so a wrong dtype is named as such on
+    any device."""
+    if not isinstance(t, torch.Tensor):
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, got "
-                         f"{getattr(t, 'device', type(t))}")
+                         f"{type(t)}")
     if t.dtype != dtype:
         raise ValueError(f"{what}: the CUDA kernel takes {dtype}, got {t.dtype}")
+    if not t.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, got "
+                         f"{t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel takes a contiguous tensor")
     if device is not None and t.device != device:

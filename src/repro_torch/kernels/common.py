@@ -4,6 +4,20 @@ from __future__ import annotations
 import torch
 
 
+def round_up(x: int, m: int) -> int:
+    """Smallest multiple of m that is >= x."""
+    return -(-x // m) * m
+
+
+def auto_page_size(S: int, candidates: tuple[int, ...] = (128, 64, 32)) -> int:
+    """Largest candidate page size that divides a cache of width S into at
+    least two pages; 0 when none does."""
+    for p in candidates:
+        if S % p == 0 and S // p >= 2:
+            return p
+    return 0
+
+
 def nearest_center_scan(xf: torch.Tensor, centers_f32: torch.Tensor):
     """Nearest-center search, the arithmetic of the CUDA kernels.
 

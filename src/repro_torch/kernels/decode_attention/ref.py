@@ -1,0 +1,32 @@
+"""Plain PyTorch version of decode attention: the dense oracle of
+``repro.kernels.decode_attention.ref`` (one fp32 einsum of the query
+against the whole cache width, a masked softmax, a second einsum)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_attention_ref(q, k_cache, v_cache, attend_len):
+    """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); attend_len: an int or a
+    () / (B,) tensor, the count of valid cache slots per row.  Returns
+    (B, 1, Hq, D) in q.dtype."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, 1, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bhgts", qg.float(), k_cache.float()) * scale
+    attend = torch.as_tensor(attend_len, device=q.device)
+    slots = torch.arange(S, device=q.device)
+    if attend.dim() == 0:
+        valid = slots < attend
+    else:
+        valid = (slots[None, :] < attend[:, None])[:, None, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, D).to(q.dtype)

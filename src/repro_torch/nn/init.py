@@ -27,3 +27,7 @@ def lecun_normal(gen: torch.Generator, shape, fan_in: int | None = None):
 def he_normal(gen: torch.Generator, shape, fan_in: int | None = None):
     fan = fan_in if fan_in is not None else shape[0]
     return _truncated_normal(gen, shape, math.sqrt(2.0 / max(1, fan)))
+
+
+def normal(gen: torch.Generator, shape, std: float = 0.02):
+    return std * torch.randn(shape, generator=gen, dtype=torch.float32)

@@ -1,4 +1,4 @@
-"""Dense and conv primitives on channels-last tensors.
+"""Dense, conv and embedding primitives on channels-last tensors.
 
 Weights: dense ``w`` is (in, out) as in the JAX package; conv ``w`` is
 OIHW, torch's layout (the JAX package keeps HWIO; ``repro_torch.bridge``
@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.init import he_normal, lecun_normal
+from repro_torch.nn.init import he_normal, lecun_normal, normal
 
 
 # ---------------------------------------------------------------- dense ----
@@ -61,3 +61,17 @@ def conv2d(params, x, *, stride: int = 1, groups: int = 1):
         xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
     y = F.conv2d(xc, w, params.get("b"), stride=stride, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+# ------------------------------------------------------------ embedding ----
+def embedding_init(gen: torch.Generator, vocab: int, dim: int) -> dict:
+    return {"table": normal(gen, (vocab, dim), std=0.02)}
+
+
+def embedding(params, ids):
+    return params["table"][ids]
+
+
+def embedding_attend(params, x):
+    """Tied-readout logits: x @ table.T."""
+    return x @ params["table"].T

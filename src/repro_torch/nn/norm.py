@@ -3,16 +3,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+
 
 def groupnorm_init(dim: int) -> dict:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
+def rmsnorm_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim)}
+
+
 def rmsnorm(params, x, *, eps: float = 1e-6):
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    y = x32 * (var + eps) ** -0.5
-    return (y * params["scale"].float()).to(x.dtype)
+    """The RMSNorm kernel (``kernels/rmsnorm``) on CUDA tensors, its plain
+    version on CPU tensors."""
+    return rmsnorm_op(x, params["scale"], eps=eps)
 
 
 def layernorm(params, x, *, eps: float = 1e-5):

@@ -12,6 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
+# every kernel of the port, by the name of its csrc/<name>.cu
+KERNEL_NAMES = ["decode_attention", "flash_attention", "offload_fused",
+                "quantize", "rmsnorm", "topk_split"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -32,9 +35,12 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
-    from repro_torch.bridge import params_from_numpy
+    from repro_torch.bridge import backbone_params_from_numpy, params_from_numpy
+    from repro_torch.configs import get_config
     from repro_torch.configs.agilenn_cifar import gateway_demo_config
     from repro_torch.core.agile import init_agile_params
+    from repro_torch.models.backbone import init_cache, init_params
+    from repro_torch.serve.engine import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gateway_demo_config()
@@ -44,6 +50,20 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
         params_from_numpy({"quant": {"centers": [0.0, 1.0]}})
     p = init_agile_params(cfg, 0, device="cpu")
     assert p["quant"]["centers"].device.type == "cpu"
+
+    llm = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(llm, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(llm, 1, 8)
+    params = init_params(llm, 0, device="cpu")
+    assert params["blocks"][0]["attn"]["wq"]["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(llm, params)
+    assert ServeEngine(llm, params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        backbone_params_from_numpy({"embed": {"table": [[0.0]]}, "blocks": []},
+                                   llm)
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():
@@ -63,14 +83,21 @@ assert b.find_nvcc() is None
 import repro_torch.kernels as K
 for m in pkgutil.walk_packages(K.__path__, "repro_torch.kernels."):
     importlib.import_module(m.name)
+from repro_torch.kernels.attention.ops import flash_attention_op
+from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.offload_fused.ops import fused_offload
 from repro_torch.kernels.quantize.ops import quantize_op
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 from repro_torch.kernels.topk_split.ops import split_op
 x, c = torch.randn(3, 4, 24), torch.linspace(-2, 2, 8)
 fused_offload(x, c, perm=tuple(range(24))[::-1], k=5)
 quantize_op(x, c)
 split_op(x, perm=tuple(range(24)), k=5)
-assert sorted(b.KERNELS) == ["offload_fused", "quantize", "topk_split"]
+rmsnorm_op(torch.randn(5, 64), torch.ones(64))
+q, kv = torch.randn(2, 9, 4, 64), torch.randn(2, 9, 2, 64)
+flash_attention_op(q, kv, kv, window=4, kv_valid_len=torch.tensor([9, 3]))
+decode_attention_op(q[:, :1], kv, kv, torch.tensor([9, 3]))
+assert sorted(b.KERNELS) == KERNEL_NAMES, sorted(b.KERNELS)
 assert all(k._lib is None and k.launches == 0 for k in b.KERNELS.values())
 print("ok")
 """
@@ -78,6 +105,7 @@ print("ok")
     env["PATH"] = os.path.dirname(sys.executable)
     env["CUDA_HOME"] = str(ROOT / "no-cuda-here")
     env["PYTHONPATH"] = str(ROOT / "src")
+    code = f"KERNEL_NAMES = {KERNEL_NAMES!r}\n" + code
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
@@ -89,5 +117,54 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["offload_fused", "quantize", "topk_split"])
+        _build.build(KERNEL_NAMES)
     assert not any(tmp_path.iterdir())
+
+
+def test_every_kernel_has_its_source():
+    assert sorted(p.stem for p in (ROOT / "src" / "repro_torch" / "csrc")
+                  .glob("*.cu")) == KERNEL_NAMES
+
+
+def _llm_wrapper_calls(dtype=torch.float32, D=64, where="cpu"):
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+
+    x = torch.zeros(4, 96, dtype=dtype, device=where)
+    q = torch.zeros(2, 5, 4, D, dtype=dtype, device=where)
+    kv = torch.zeros(2, 7, 2, D, dtype=dtype, device=where)
+    return {
+        "rmsnorm": lambda: rmsnorm_cuda(x, torch.ones(96, dtype=dtype)),
+        "flash_attention": lambda: flash_attention_cuda(q, kv, kv),
+        "decode_attention": lambda: decode_attention_cuda(q[:, :1], kv, kv, 3),
+    }
+
+
+@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention"])
+def test_llm_wrappers_refuse_cpu_tensors(call):
+    """Handed a CPU tensor, a kernel wrapper raises before it builds or
+    launches anything: only ``ops.py`` picks the plain version."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _llm_wrapper_calls()[call]()
+
+
+@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention"])
+def test_llm_wrappers_refuse_other_dtypes(call):
+    with pytest.raises(ValueError, match="float32"):
+        _llm_wrapper_calls(dtype=torch.float64)[call]()
+
+
+@pytest.mark.parametrize("call", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("D", [32, 96])
+def test_attention_wrappers_refuse_other_head_dims(call, D):
+    with pytest.raises(ValueError, match="D in"):
+        _llm_wrapper_calls(D=D)[call]()
+
+
+def test_decode_wrapper_refuses_wide_groups():
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+
+    q, kv = torch.zeros(1, 1, 17, 64), torch.zeros(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="G <= 16"):
+        decode_attention_cuda(q, kv, kv, 2)
