@@ -6,11 +6,15 @@
 Phases, each of which raises on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
-     sources at once;
+     sources at once; print registers and spills, and check that flash
+     attention's SASS holds tensor-core products (HMMA) and asynchronous
+     copies (LDGSTS), and the permute's LDGSTS and 16-byte stores;
   AgileNN offload inference (slice 1):
   3. each offload kernel against its plain PyTorch version on the card,
      bit-exact (``torch.equal``), at the main-path shape, ragged row
-     counts, L in {4, 8, 16} and inputs on codebook midpoints;
+     counts, L in {4, 8, 16} and inputs on codebook midpoints; the permute
+     also at N in {1, 3, 5} x C in {3, 24, 64}, and a view 1 float off
+     16-byte alignment must raise ValueError;
   4. the AgileNN deployment path at the paper's width
      (``AgileNNConfig(image_size=96)``, B = 256, seed-0 params, shuffled
      mapping) through its entry points, with every launch count set to 0
@@ -21,9 +25,13 @@ Phases, each of which raises on failure:
   dense LLM serving (slice 2):
   6. RMSNorm, flash attention and paged decode attention against their
      plain versions on the card (atol = rtol = 2e-5): ragged row counts
-     and widths; causal, window, q_offset, ragged kv_valid_len, T and S
-     off the tile, D 64 and 128; per-row attend_len, S off the page,
-     G in {1, 4, 7, 8};
+     and widths; causal, window, q_offset, ragged kv_valid_len (a 0
+     among them), T and S off the tile, T in {1, 15}, D 64 and 128, the
+     prefill shapes of qwen2-1.5b and llama3.2-1b; per-row attend_len (a
+     0 among them, which must give exactly 0), S off the page, G in {1,
+     4, 7, 8}.  Flash on inputs x8, where fp32 itself misses 2e-5, is
+     held against float64: its error at most SPLIT_COST times the plain
+     version's;
   7. qwen2-0.5b at full width (seed-0 params, fp32, TF32 off) through
      ``ServeEngine(max_len=1024).generate``: 8 prompts of 512 tokens, 32
      new tokens, greedy, then once sampled, with every launch count set
@@ -111,6 +119,12 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 8, 512, 32, 1024
 # kernel vs plain on the card: the JAX package's own bars for these
 # oracles (atol = rtol = 2e-5, tests/test_decode_attention.py)
 LLM_KERNEL_TOL = 2e-5
+# flash on inputs x8, against float64: 3xTF32 products keep about 2^-21 of
+# each product, fp32 2^-24 (tests/test_torch_llm_kernels.py)
+SPLIT_COST = 8
+# TF32 on the tensor cores, dense (NVIDIA data sheet, 700 W); 3xTF32
+# issues three TF32 products for each fp32 one
+TF32_OPS_PER_S = 495e12
 # card vs the port's CPU run, at a smaller batch: fp32 sums in another
 # order over 24 layers and a 151,936-wide readout
 LLM_LOGIT_TOL = 1e-3
@@ -150,6 +164,26 @@ def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# what the redesigned kernels must issue: tensor-core products (HMMA) and
+# asynchronous copies (LDGSTS) in flash attention, asynchronous copies and
+# 16-byte stores in the permute
+SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
+               "topk_split": ("LDGSTS", "STG.E.128")}
+
+
+def sass_counts(libs) -> dict:
+    """Count the expected instructions in each built library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_build.find_nvcc())),
+                             "cuobjdump")
+    counts = {}
+    for name, ops in SASS_EXPECT.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
+                              capture_output=True, text=True, timeout=120).stdout
+        counts[name] = {op: sass.count(op) for op in ops}
+        check(all(counts[name].values()), f"{name}: SASS lacks {counts[name]}")
+    return counts
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -205,10 +239,24 @@ def phase_kernels(raw: torch.Tensor, centers: torch.Tensor, perm, k: int):
         remote = x[:, kk:].contiguous()
         errs["quantize"] = max(errs["quantize"], max_err(
             quantize_cuda(remote, c), quantize_ref(remote, c)))
+    # the permute moves 16-byte tiles: row counts and widths off the float4
+    permute_cases = [(x, p) for x, _, p, _ in cases]
+    for rows in (1, 3, 5):
+        for width in (3, 24, 64):
+            p = np.random.RandomState(rows * width).permutation(width)
+            x = torch.randn(rows, width, generator=gen, device="cuda")
+            permute_cases.append((x, tuple(int(i) for i in p)))
+    for x, p in permute_cases:
         errs["topk_split"] = max(errs["topk_split"], max_err(
             [channel_permute_cuda(x, p)], [channel_permute_ref(x, p)]))
-    print(f"phase 3: {len(cases)} cases per kernel, every output bit-exact "
-          f"with its plain version: {errs}")
+    off = torch.randn(4 * C + 1, generator=gen, device="cuda")[1:].view(4, C)
+    try:
+        channel_permute_cuda(off, perm)
+        check(False, "topk_split took a view 4 bytes off 16-byte alignment")
+    except ValueError as e:
+        print(f"phase 3: a misaligned view is refused: {e}")
+    print(f"phase 3: {len(cases)} cases per offload kernel, {len(permute_cases)} "
+          f"for the permute, every output bit-exact with its plain version: {errs}")
     return errs
 
 
@@ -375,6 +423,17 @@ def close_err(out, ref, tol: float, what: str) -> float:
     return err
 
 
+def exact_attention(q, k, v):
+    """Causal attention in float64, dense: the yardstick of fp32's error."""
+    T, G = q.shape[1], q.shape[2] // k.shape[2]
+    q = q.double()
+    k, v = (t.double().repeat_interleave(G, 2) for t in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, k) / q.shape[-1] ** 0.5
+    causal = torch.ones(T, k.shape[1], dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, -float("inf")), dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, v)
+
+
 def phase_llm_kernels():
     """The three LLM kernels vs their plain versions on the card, at the
     main path's shapes and off them; returns max |err| per kernel."""
@@ -404,15 +463,46 @@ def phase_llm_kernels():
         (2, 130, 130, 14, 2, 64, True, 0, 0, [130, 65]),
         (2, 50, 200, 4, 1, 64, False, 0, 0, None),
         (1, 10, 20, 4, 2, 64, True, 4, 50, None),       # no live key: 0
+        (2, 512, 512, 12, 2, 128, True, 0, 0, None),    # qwen2-1.5b prefill
+        (2, 512, 512, 32, 8, 64, True, 0, 0, None),     # llama3.2-1b prefill
+        (3, 1, 1, 14, 2, 64, True, 0, 0, None),         # T off the m16 tile
+        (2, 1, 300, 12, 2, 128, True, 0, 299, None),
+        (3, 15, 15, 4, 2, 128, True, 0, 0, None),
+        (2, 15, 90, 14, 2, 64, True, 0, 75, None),
+        (3, 70, 70, 8, 2, 64, True, 0, 0, [70, 0, 33]),  # a row with no key
+        (3, 40, 40, 4, 2, 128, False, 0, 0, [0, 40, 9]),
     ]
     for B, T, S, Hq, Hkv, D, causal, window, q_off, valid in flash_cases:
         q, k, v = randn(B, T, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         kw = dict(causal=causal, window=window, q_offset=q_off,
                   kv_valid_len=None if valid is None
                   else torch.tensor(valid, device="cuda"))
+        out = flash_attention_cuda(q, k, v, **kw)
         note("flash_attention", close_err(
-            flash_attention_cuda(q, k, v, **kw), flash_attention_ref(q, k, v, **kw),
+            out, flash_attention_ref(q, k, v, **kw),
             LLM_KERNEL_TOL, f"flash_attention {(B, T, S, Hq, Hkv, D)} {kw}"))
+        for b in range(B) if valid else ():
+            check(valid[b] or not out[b].any(),
+                  f"flash_attention: row {b} has no live key and is not 0")
+    # inputs x8: scores reach hundreds, and fp32 misses 2e-5 whatever its
+    # order of sums, so the kernel and the plain version are each held
+    # against float64
+    split = {}
+    for B, T, Hq, Hkv, D in ((LLM_BATCH, LLM_PROMPT, 14, 2, 64),
+                             (2, LLM_PROMPT, 12, 2, 128)):
+        q, k, v = (8 * randn(B, T, H, D) for H in (Hq, Hkv, Hkv))
+        exact = exact_attention(q, k, v)
+        out, plain = flash_attention_cuda(q, k, v), flash_attention_ref(q, k, v)
+        err = (out.double() - exact).abs().max().item()
+        plain_err = (plain.double() - exact).abs().max().item()
+        split[D] = {"kernel_vs_float64": err, "plain_vs_float64": plain_err,
+                    "kernel_vs_plain": (out - plain).abs().max().item()}
+        check(err <= SPLIT_COST * plain_err,
+              f"flash_attention x8 {(B, T, Hq, Hkv, D)}: {err} from float64, "
+              f"the plain version {plain_err}")
+        cases["flash_attention"] += 1
+    print(f"phase 6: flash_attention on inputs x8, max |err| (bar: kernel "
+          f"within {SPLIT_COST} x the plain version's error): {split}")
     # (B, S, Hq, Hkv, D): G = 7, 4, 1, 8; S off the page in two
     for B, S, Hq, Hkv, D in ((LLM_BATCH, LLM_MAX_LEN, 14, 2, 64),
                              (3, 1000, 14, 2, 64), (3, 1024, 8, 2, 64),
@@ -421,16 +511,22 @@ def phase_llm_kernels():
         q, k, v = randn(B, 1, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         rows = torch.tensor(([1, page, S] * B)[:B], dtype=torch.int32,
                             device="cuda")
-        for attend in (rows, LLM_PROMPT + LLM_NEW // 2 if S > LLM_PROMPT else S // 2):
+        empty = torch.tensor(([0, S, 1] * B)[:B], dtype=torch.int32, device="cuda")
+        for attend in (rows, LLM_PROMPT + LLM_NEW // 2 if S > LLM_PROMPT else S // 2,
+                       empty):
+            out = decode_attention_cuda(q, k, v, attend, page_size=page)
+            plain = decode_attention_ref(q, k, v, attend)
             note("decode_attention", close_err(
-                decode_attention_cuda(q, k, v, attend, page_size=page),
-                decode_attention_ref(q, k, v, attend), LLM_KERNEL_TOL,
+                out, plain, LLM_KERNEL_TOL,
                 f"decode_attention {(B, S, Hq, Hkv, D)} page {page} "
                 f"attend {attend}"))
+            if attend is empty:   # attend_len = 0 gives exactly 0 in both
+                check(not out[::3].any() and not plain[::3].any(),
+                      "decode_attention: a row with attend_len = 0 is not 0")
     torch.cuda.synchronize()
     print(f"phase 6: LLM kernels vs their plain versions, within "
           f"{LLM_KERNEL_TOL} abs + rel: cases {cases}, max |err| {errs}")
-    return errs
+    return errs, split
 
 
 def phase_llm_path(cfg, params, card):
@@ -585,6 +681,20 @@ def phase_llm_timing(cfg, params, launches, errs, card):
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
               f"{nbytes} B, {ops} ops), {launches[name]} launches on the "
               f"serving path  [{card}]")
+    # flash runs its fp32 products as three TF32 ones on the tensor cores
+    flash_tc_ms = 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3
+    # and the D = 128 instantiation at qwen2-1.5b's prefill shape
+    q2, k2, v2 = randn(2, T, 12, 128), randn(2, T, 2, 128), randn(2, T, 2, 128)
+    q2t, k2t, v2t = heads_first(q2), heads_first(k2, 6), heads_first(v2, 6)
+    flash_d128 = {"ms": time_ms(lambda: flash_attention_cuda(q2, k2, v2)),
+                  "library_ms": time_ms(lambda: sdpa(q2t, k2t, v2t, is_causal=True)),
+                  "bound_ms": bound((2 * 2 * T * 12 * 128 + 2 * 2 * T * 2 * 128) * 4,
+                                    4 * 128 * 2 * 12 * T * (T + 1) // 2)[0]}
+    print(f"phase 9: flash_attention bound on the tensor cores (3 x TF32 "
+          f"operations at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s): {flash_tc_ms:.4f} ms; "
+          f"at qwen2-1.5b's prefill (2, {T}, 12/2, 128): kernel "
+          f"{flash_d128['ms']:.4f} ms, SDPA {flash_d128['library_ms']:.4f} ms, "
+          f"fp32 bound {flash_d128['bound_ms']:.4f} ms  [{card}]")
 
     # the path: prefill of B x T, then one decode step at depth T
     tokens = torch.as_tensor(np.random.RandomState(5).randint(0, cfg.vocab, (B, T)),
@@ -665,6 +775,7 @@ def phase_llm_timing(cfg, params, launches, errs, card):
             "prefill_tokens_per_s": B * T / prefill_s,
             "decode_step_host_ms": step_s * 1e3, "decode_step_device_ms": step_dev,
             "decode_tokens_per_s": B / step_s,
+            "flash_tensor_core_bound_ms": flash_tc_ms, "flash_d128": flash_d128,
             "decode_device_idle_share": 1 - step_dev / (step_s * 1e3),
             "prefill_device_idle_share": 1 - prefill_dev / (prefill_s * 1e3),
             "breakdown": breakdown}
@@ -699,6 +810,8 @@ def main() -> int:
         for line in log.read_text().splitlines() if log.exists() else []:
             if "registers" in line or "spill" in line:
                 print(f"phase 2: {name}: {line.strip()}")
+    sass = sass_counts(libs)
+    print(f"phase 2: SASS instructions (cuobjdump -sass): {sass}")
 
     cfg = AgileNNConfig(image_size=96)
     params = init_agile_params(cfg, seed=0)
@@ -715,7 +828,7 @@ def main() -> int:
     rows, path = phase_timing(cfg, params, images, raw, centers, perm, k,
                               launches, errs, card)
 
-    llm_errs = phase_llm_kernels()
+    llm_errs, llm_split = phase_llm_kernels()
     llm_cfg = get_config(LLM_ARCH)
     t0 = time.perf_counter()
     llm_params = bb.init_params(llm_cfg, seed=0)
@@ -734,12 +847,14 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "build_s": build_s,
+                       "sass": sass,
                        "config": {"image_size": cfg.image_size, "batch": BATCH},
                        "kernels": rows, "path": path, "checks": path_checks,
                        "llm": {"arch": LLM_ARCH, "batch": LLM_BATCH,
                                "prompt": LLM_PROMPT, "new_tokens": LLM_NEW,
                                "max_len": LLM_MAX_LEN, "init_s": init_s,
                                "path": llm_path, "checks": llm_checks,
+                               "flash_x8_errors": llm_split,
                                "timing": llm_timing}},
                       f, indent=1)
     print(f"card: {card}")

@@ -9,7 +9,10 @@
 // it inside the last live page are masked.  Any cache width S works: the
 // last page is cut at attend_len, not padded.  attend_len comes from a
 // device array (B,) or, for a batch whose rows share one depth, from a
-// scalar argument.  A row with attend_len = 0 writes 0.
+// scalar argument.  A row with attend_len = 0 writes 0: no page is live,
+// and the output is acc / max(l, 1e-20) with acc and l at 0, as in the TPU
+// kernel's `_finish`.  The plain version (kernels/decode_attention/ref.py)
+// keeps the same convention, that a query with no live key gets 0.
 // Layout: q (B, Hkv, G, D) (the (B, 1, Hq, D) query with hq = h * G + g),
 // k/v (B, S, Hkv, D), o (B, Hkv, G, D).
 //

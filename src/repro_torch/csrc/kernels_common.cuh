@@ -1,7 +1,8 @@
 // Shared by the port's CUDA kernels: the launch shape, the static channel
-// permutation passed by value, the nearest-center scan, and the error
-// string the Python wrappers report.  Each .cu that includes this header
-// is built into a shared library of its own (repro_torch/kernels/_build.py).
+// permutation passed by value, the nearest-center scan, the 16-byte
+// asynchronous copy, and the error string the Python wrappers report.
+// Each .cu that includes this header is built into a shared library of its
+// own (repro_torch/kernels/_build.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,17 +22,6 @@ struct Perm {
 
 static inline int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-// Row-wise kernels over (N, C) rows give each block whole rows: a block of
-// rows_per_block(C) * C threads, thread t on column t % C of row t / C.
-// The grid-stride step is a whole number of rows, so a thread's column
-// never changes and the loop needs no 64-bit divide.
-static inline int rows_per_block(int C) { return kThreads / C; }
-
-static inline int row_grid_for(long long n_rows, int C) {
-  long long blocks = (n_rows + rows_per_block(C) - 1) / rows_per_block(C);
   return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
@@ -57,6 +47,28 @@ __device__ __forceinline__ void nearest_center(float x, const float* c, int L,
   }
   idx = best_i;
   val = best_v;
+}
+
+// 16-byte asynchronous copy from device memory into shared memory
+// (cp.async.cg: cached in L2 only).  Both addresses are 16-byte aligned.
+// The copy reads src_bytes (0 or 16) and zero-fills the rest, so a row
+// past the edge costs no branch: pass 0 and any valid address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -112,6 +112,15 @@ def check_operand(t, what: str, dtype, device=None) -> None:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
 
 
+def check_aligned(t, what: str) -> None:
+    """Raise ValueError unless ``t``'s data starts on a 16-byte boundary,
+    as the kernels' 16-byte copies need.  A contiguous view at an odd
+    offset can miss it; nothing here copies it into place."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: the CUDA kernel takes 16-byte aligned data, "
+                         f"got an address {t.data_ptr() % 16} bytes past it")
+
+
 def perm_array(perm, C: int):
     """The static channel permutation as a C int array, checked: C entries
     (C <= 64), each in [0, C)."""

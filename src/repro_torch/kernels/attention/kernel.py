@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operand
+from repro_torch.kernels._build import CudaKernel, check_aligned, check_operand
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("flash_attention", [_P, _P, _P, _P] + [_I] * 9
@@ -24,10 +24,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          q_offset: int = 0,
                          kv_valid_len: torch.Tensor | None = None):
-    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous float32 on one
-    CUDA device, D in (64, 128), Hq a multiple of Hkv.  kv_valid_len:
-    optional (B,) integer count of live keys per row.  Returns (B, T, Hq, D)
-    float32.  Raises ValueError on any other input."""
+    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned
+    float32 on one CUDA device, D in (64, 128), Hq a multiple of Hkv.
+    kv_valid_len: optional (B,) integer count of live keys per row.  Returns
+    (B, T, Hq, D) float32.  Raises ValueError on any other input; a
+    misaligned view is refused, not copied."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, T, Hq, D) and k, v (B, S, Hkv, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -38,6 +39,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"of Hkv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(t, name, torch.float32, q.device)
+        check_aligned(t, name)
     valid_ptr = None
     if kv_valid_len is not None:
         if kv_valid_len.shape != (B,) or kv_valid_len.is_floating_point():

@@ -1,6 +1,11 @@
 """Plain PyTorch version of decode attention: the dense oracle of
 ``repro.kernels.decode_attention.ref`` (one fp32 einsum of the query
-against the whole cache width, a masked softmax, a second einsum)."""
+against the whole cache width, a masked softmax, a second einsum), with
+one change: a row with attend_len = 0 gets 0.  The dense oracle's softmax
+over scores that are all masked averages the whole cache there; the TPU
+kernel (its ``_finish`` clamps l and keeps acc at 0), the port's kernel
+and the port's ``flash_attention_ref`` all give 0 to a query with no live
+key."""
 from __future__ import annotations
 
 import math
@@ -13,7 +18,7 @@ NEG_INF = -1e30
 def decode_attention_ref(q, k_cache, v_cache, attend_len):
     """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); attend_len: an int or a
     () / (B,) tensor, the count of valid cache slots per row.  Returns
-    (B, 1, Hq, D) in q.dtype."""
+    (B, 1, Hq, D) in q.dtype; 0 on a row with attend_len = 0."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -29,4 +34,7 @@ def decode_attention_ref(q, k_cache, v_cache, attend_len):
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", p, v_cache.float())
+    live = attend > 0
+    out = torch.where(live if live.dim() == 0 else live[:, None, None, None, None],
+                      out, 0.0)
     return out.reshape(B, 1, Hq, D).to(q.dtype)

@@ -10,7 +10,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operand, perm_array
+from repro_torch.kernels._build import (CudaKernel, check_aligned, check_operand,
+                                        perm_array)
 
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("topk_split", [_P, ctypes.POINTER(ctypes.c_int),
@@ -18,10 +19,12 @@ KERNEL = CudaKernel("topk_split", [_P, ctypes.POINTER(ctypes.c_int),
 
 
 def channel_permute_cuda(x: torch.Tensor, perm) -> torch.Tensor:
-    """x: (N, C) contiguous float32 CUDA rows; perm: C static channel
-    indices.  Returns out (N, C) with out[:, c] = x[:, perm[c]].  Raises
-    ValueError on any other input."""
+    """x: (N, C) contiguous, 16-byte aligned float32 CUDA rows; perm: C
+    static channel indices.  Returns out (N, C) with out[:, c] =
+    x[:, perm[c]].  Raises ValueError on any other input; a misaligned view
+    is refused, not copied."""
     check_operand(x, "x", torch.float32)
+    check_aligned(x, "x")
     if x.dim() != 2:
         raise ValueError(f"x must be (N, C), got {tuple(x.shape)}")
     N, C = x.shape

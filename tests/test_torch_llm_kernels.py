@@ -1,7 +1,10 @@
 """The port's LLM kernels on the CPU: the plain PyTorch versions of
 RMSNorm, flash attention and paged decode attention (what ``ops.py`` runs
 for CPU tensors) held against the JAX package's oracles, its jnp paths
-and, where it runs here, its Pallas kernel in interpret mode."""
+and, where it runs here, its Pallas kernel in interpret mode; and the
+flash kernel's 3xTF32 arithmetic, emulated, against the same oracle."""
+import math
+
 import numpy as np
 import pytest
 
@@ -126,3 +129,130 @@ def test_decode_attention_matches_jax(B, S, Hq, Hkv, D):
     torch.testing.assert_close(decode_attention_op(qt, kt, vt, S // 3),
                                decode_attention_op(qt, kt, vt,
                                                    torch.tensor(S // 3)))
+
+
+def test_decode_attention_attend_zero_row_gives_zero():
+    """A row with attend_len = 0 has no live key and gets 0: the TPU kernel
+    divides acc = 0 by max(l, 1e-20), and the port's kernel and plain
+    version do the same (flash_attention_ref's convention too).  The JAX
+    dense oracle's all-masked softmax averages the whole cache there, so
+    that row is the one place the plain version leaves it; every row with
+    attend_len >= 1 still matches it."""
+    B, S, Hq, Hkv, D = 4, 64, 8, 2, 64
+    q = _normal((B, 1, Hq, D), 7)
+    k, v = _normal((B, S, Hkv, D), 8), _normal((B, S, Hkv, D), 9)
+    attend = np.array([0, 1, 37, S], np.int32)
+    qt, kt, vt = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    got = decode_attention_op(qt, kt, vt, torch.from_numpy(attend))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = np.asarray(jax_decode_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(attend)))
+    assert np.abs(want[0]).max() > 0.01          # the oracle's cache average
+    close(want[1:], got[1:], ATTN_TOL)
+    assert torch.equal(decode_attention_op(qt, kt, vt, 0), torch.zeros_like(got))
+
+
+# ---- the arithmetic of csrc/flash_attention.cu, emulated on the CPU --------
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits, the 13 bits below cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mma(a, b, acc, split: bool):
+    """acc + a @ b in the kernel's m16n8k8 steps: per 8-wide k-step, in
+    fp32, lo*hi and hi*lo (the 3xTF32 split) and then hi*hi."""
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        ah, bh = _tf32(ak), _tf32(bk)
+        if split:
+            acc = acc + _tf32(ak - ah) @ bh
+            acc = acc + ah @ _tf32(bk - bh)
+        acc = acc + ah @ bh
+    return acc
+
+
+def _flash_tf32(q, k, v, *, window, q_offset, split):
+    """Causal attention as the kernel computes it: KV tiles of 64 keys (32
+    at D = 128), Q.K^T and P.V through _mma, and the plain version's
+    online softmax (running max, expf, correction) in fp32."""
+    B, T, Hq, D = q.shape
+    S, G = k.shape[1], Hq // k.shape[2]
+    tile, inf = 64 if D == 64 else 32, float("inf")
+    qh = q.permute(0, 2, 1, 3)
+    kh = k.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vh = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    m, l = torch.full((B, Hq, T), -inf), torch.zeros(B, Hq, T)
+    acc = torch.zeros(B, Hq, T, D)
+    q_pos = torch.arange(T)[:, None] + q_offset
+    for kb in range(0, S, tile):
+        kt, vt = kh[:, :, kb:kb + tile], vh[:, :, kb:kb + tile]
+        k_pos = torch.arange(kb, kb + kt.shape[2])[None, :]
+        s = _mma(qh, kt.transpose(-1, -2), torch.zeros(B, Hq, T, kt.shape[2]),
+                 split) * (1.0 / math.sqrt(D))
+        live = k_pos <= q_pos
+        if window > 0:
+            live = live & (k_pos > q_pos - window)
+        s = torch.where(live, s, -inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(m_new == -inf, 0.0, m_new)
+        corr = torch.where(m == -inf, 0.0, torch.exp(m - m_safe))
+        p = torch.where(s == -inf, 0.0, torch.exp(s - m_safe[..., None]))
+        l = corr * l + p.sum(-1)
+        acc = _mma(p, vt, acc * corr[..., None], split)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)[..., None]).permute(0, 2, 1, 3)
+
+
+def _exact_attention(q, k, v, *, window, q_offset):
+    """Causal attention in float64: the yardstick of fp32's own error."""
+    T, S, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    q, k, v = (torch.from_numpy(x).double() for x in (q, k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(G, dim=2))
+    q_pos, k_pos = torch.arange(T)[:, None] + q_offset, torch.arange(S)[None, :]
+    live = k_pos <= q_pos
+    if window > 0:
+        live = live & (k_pos > q_pos - window)
+    p = torch.softmax((s / math.sqrt(q.shape[-1])).masked_fill(~live, -math.inf),
+                      dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, v.repeat_interleave(G, dim=2))
+
+
+# the existing flash cases, and two that span several KV tiles
+TF32_CASES = [(2, 17, 4, 2, 64, 0, 0), (1, 40, 7, 1, 64, 9, 0),
+              (2, 24, 4, 4, 128, 0, 0), (1, 19, 6, 2, 64, 0, 13),
+              (1, 21, 4, 2, 64, 5, 8), (1, 150, 4, 2, 64, 0, 0),
+              (1, 100, 4, 2, 128, 0, 0)]
+# 3xTF32 products keep about 2^-21 of each product against fp32's 2^-24
+SPLIT_COST = 8
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("x", [1, 8])
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,window,q_offset", TF32_CASES)
+def test_flash_kernel_arithmetic_precision(B, T, Hq, Hkv, D, window, q_offset,
+                                           x, split):
+    """The precision choice of csrc/flash_attention.cu, before the card.
+
+    Unit inputs: the 3xTF32 emulation is within 2e-5 abs + rel of the JAX
+    package's reference_attention, one TF32 product is ten times past it.
+    Inputs x8: scores reach hundreds and fp32 itself is off by more than
+    2e-5 (the JAX reference is, against float64), so each is held against
+    float64: 3xTF32 within SPLIT_COST times the JAX fp32 reference's own
+    error, one TF32 product a hundred times past that."""
+    q, k, v = (a * x for a in _qkv(B, T, T + q_offset, Hq, Hkv, D))
+    got = _flash_tf32(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), window=window, q_offset=q_offset,
+                      split=split).numpy()
+    ref = np.asarray(jax_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   causal=True, window=window, q_offset=q_offset))
+    if x == 1:
+        over = (np.abs(got - ref) / (ATTN_TOL + ATTN_TOL * np.abs(ref))).max()
+        assert over <= 1 if split else over > 10, over
+    else:
+        exact = _exact_attention(q, k, v, window=window, q_offset=q_offset).numpy()
+        err, ref_err = np.abs(got - exact).max(), np.abs(ref - exact).max()
+        assert ref_err > ATTN_TOL
+        assert (err <= SPLIT_COST * ref_err if split
+                else err > 100 * ref_err), (err, ref_err)

@@ -168,3 +168,16 @@ def test_decode_wrapper_refuses_wide_groups():
     q, kv = torch.zeros(1, 1, 17, 64), torch.zeros(1, 4, 1, 64)
     with pytest.raises(ValueError, match="G <= 16"):
         decode_attention_cuda(q, kv, kv, 2)
+
+
+def test_check_aligned_refuses_views_off_16_bytes():
+    """The flash and permute wrappers call check_aligned: their kernels copy
+    16 bytes at a time, and a misaligned view is refused, never copied."""
+    from repro_torch.kernels._build import check_aligned
+
+    base = torch.zeros(64)
+    check_aligned(base, "x")
+    check_aligned(base[4:], "x")
+    for off in (1, 2, 3, 5):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            check_aligned(base[off:], "x")
