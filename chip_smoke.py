@@ -8,20 +8,23 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
      sources at once; print registers and spills, and check that flash
      attention's SASS holds tensor-core products (HMMA) and asynchronous
-     copies (LDGSTS), and the permute's LDGSTS and 16-byte stores;
+     copies (LDGSTS), and that the permute, the fused offload pass and
+     decode attention copy in by LDGSTS and write by 16-byte stores;
   AgileNN offload inference (slice 1):
   3. each offload kernel against its plain PyTorch version on the card,
      bit-exact (``torch.equal``), at the main-path shape, ragged row
      counts, L in {4, 8, 16} and inputs on codebook midpoints; the permute
-     also at N in {1, 3, 5} x C in {3, 24, 64}, and a view 1 float off
-     16-byte alignment must raise ValueError;
+     and the fused pass also at N in {1, 3, 5} x C in {3, 24, 64} (the
+     fused pass at k in {0, C / 3, C}), and a view 1 float off 16-byte
+     alignment must raise ValueError in both;
   4. the AgileNN deployment path at the paper's width
      (``AgileNNConfig(image_size=96)``, B = 256, seed-0 params, shuffled
      mapping) through its entry points, with every launch count set to 0
      just before and read just after; the outputs are checked against the
      port's own CPU run of the same params;
   5. each offload kernel's time (CUDA events, median of 30 launches, L2
-     flushed), its plain version's, its bound, and images/s of the path;
+     flushed), its plain version's, its bound (and the fused kernel's
+     device time from torch.profiler), and images/s of the path;
   dense LLM serving (slice 2):
   6. RMSNorm, flash attention and paged decode attention against their
      plain versions on the card (atol = rtol = 2e-5): ragged row counts
@@ -29,9 +32,11 @@ Phases, each of which raises on failure:
      among them), T and S off the tile, T in {1, 15}, D 64 and 128, the
      prefill shapes of qwen2-1.5b and llama3.2-1b; per-row attend_len (a
      0 among them, which must give exactly 0), S off the page, G in {1,
-     4, 7, 8}.  Flash on inputs x8, where fp32 itself misses 2e-5, is
-     held against float64: its error at most SPLIT_COST times the plain
-     version's;
+     4, 7, 8}; decode attend_len on a split boundary and one off it, 1
+     and S, per-row depths in different splits, B in {1, 32}, and a cache
+     poisoned with NaN past attend_len (the kernel must not read it).
+     Flash on inputs x8, where fp32 itself misses 2e-5, is held against
+     float64: its error at most SPLIT_COST times the plain version's;
   7. qwen2-0.5b at full width (seed-0 params, fp32, TF32 off) through
      ``ServeEngine(max_len=1024).generate``: 8 prompts of 512 tokens, 32
      new tokens, greedy, then once sampled, with every launch count set
@@ -40,7 +45,10 @@ Phases, each of which raises on failure:
      tokens): prefill logits within 1e-3, greedy tokens equal unless the
      CPU's top-2 margin at the first divergence is within the tolerance;
   9. each LLM kernel's time, its plain version's, the library call's and
-     its bound; prefill and decode tokens/s and the time by part.
+     its bound (decode attention also with a (B,) attend_len, its grid
+     sized from S, and its two kernels' device times from torch.profiler);
+     prefill and decode tokens/s, the decode step's kernels and their
+     summed device time from torch.profiler, and the time by part.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -75,7 +83,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.common import auto_page_size  # noqa: E402
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_cuda,
+    split_slots,
+)
 from repro_torch.kernels.decode_attention.ops import DEFAULT_PAGE  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.offload_fused.kernel import offload_fused_cuda  # noqa: E402
@@ -166,11 +177,38 @@ def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def device_kernels(fn, reps: int = 20, match: str = "") -> dict:
+    """{kernel name: (device us per call, launches per call)} of the
+    kernels of ``fn`` whose names hold ``match``, over ``reps`` calls, from
+    torch.profiler's device events ({} if it records none): the kernels'
+    own durations, without the gaps between them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if (getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or match not in evt.key):
+            continue
+        total = getattr(evt, "device_time_total", None)
+        total = total if total is not None else evt.cuda_time_total
+        out[evt.key] = (total / reps, evt.count / reps)
+    return out
+
+
+
 # what the redesigned kernels must issue: tensor-core products (HMMA) and
-# asynchronous copies (LDGSTS) in flash attention, asynchronous copies and
-# 16-byte stores in the permute
+# asynchronous copies (LDGSTS) in flash attention, asynchronous 16-byte
+# copies and 16-byte stores in the permute, the fused offload pass and
+# decode attention (its partials and its output)
 SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
-               "topk_split": ("LDGSTS", "STG.E.128")}
+               "topk_split": ("LDGSTS", "STG.E.128"),
+               "offload_fused": ("LDGSTS", "STG.E.128"),
+               "decode_attention": ("LDGSTS", "STG.E.128")}
 
 
 def sass_counts(libs) -> dict:
@@ -232,31 +270,42 @@ def phase_kernels(raw: torch.Tensor, centers: torch.Tensor, perm, k: int):
         x = torch.randn(1001, width, generator=gen, device="cuda") * 3
         p = tuple(int(i) for i in np.random.RandomState(width).permutation(width))
         cases.append((x, torch.linspace(-3, 3, 8, device="cuda"), p, kw))
-    for x, c, p, kk in cases:
+    # the permute and the fused pass move 16-byte tiles: row counts, widths
+    # and splits off the float4
+    permute_cases = [(x, p) for x, _, p, _ in cases]
+    fused_cases = list(cases)
+    for rows in (1, 3, 5):
+        for width in (3, 24, 64):
+            p = tuple(int(i) for i in
+                      np.random.RandomState(rows * width).permutation(width))
+            x = torch.randn(rows, width, generator=gen, device="cuda") * 3
+            permute_cases.append((x, p))
+            for kk in sorted({0, width // 3, width}):
+                fused_cases.append((x, torch.linspace(-3, 3, 8, device="cuda"),
+                                    p, kk))
+    for x, c, p, kk in fused_cases:
         errs["offload_fused"] = max(errs["offload_fused"], max_err(
             offload_fused_cuda(x, c, perm=p, k=kk),
             [t.contiguous() for t in offload_fused_ref(x, c, p, kk)]))
+    for x, c, p, kk in cases:
         remote = x[:, kk:].contiguous()
         errs["quantize"] = max(errs["quantize"], max_err(
             quantize_cuda(remote, c), quantize_ref(remote, c)))
-    # the permute moves 16-byte tiles: row counts and widths off the float4
-    permute_cases = [(x, p) for x, _, p, _ in cases]
-    for rows in (1, 3, 5):
-        for width in (3, 24, 64):
-            p = np.random.RandomState(rows * width).permutation(width)
-            x = torch.randn(rows, width, generator=gen, device="cuda")
-            permute_cases.append((x, tuple(int(i) for i in p)))
     for x, p in permute_cases:
         errs["topk_split"] = max(errs["topk_split"], max_err(
             [channel_permute_cuda(x, p)], [channel_permute_ref(x, p)]))
     off = torch.randn(4 * C + 1, generator=gen, device="cuda")[1:].view(4, C)
-    try:
-        channel_permute_cuda(off, perm)
-        check(False, "topk_split took a view 4 bytes off 16-byte alignment")
-    except ValueError as e:
-        print(f"phase 3: a misaligned view is refused: {e}")
-    print(f"phase 3: {len(cases)} cases per offload kernel, {len(permute_cases)} "
-          f"for the permute, every output bit-exact with its plain version: {errs}")
+    for name, call in (("topk_split", lambda: channel_permute_cuda(off, perm)),
+                       ("offload_fused",
+                        lambda: offload_fused_cuda(off, centers, perm=perm, k=k))):
+        try:
+            call()
+            check(False, f"{name} took a view 4 bytes off 16-byte alignment")
+        except ValueError as e:
+            print(f"phase 3: {name}: a misaligned view is refused: {e}")
+    print(f"phase 3: {len(fused_cases)} cases for the fused pass, {len(cases)} "
+          f"for the quantizer, {len(permute_cases)} for the permute, every "
+          f"output bit-exact with its plain version: {errs}")
     return errs
 
 
@@ -357,6 +406,10 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B, {ops} ops), "
               f"{launches[name]} launches on the main path  [{card}]")
 
+    fused_us = device_kernels(lambda: offload_fused_cuda(raw, centers, perm=perm,
+                                                         k=k), match="offload_fused")
+    print(f"phase 5: offload_fused device us and launches per call (torch.profiler): "
+          f"{fused_us}  [{card}]")
     # the whole path: the entry point (host LZW included), and its device part
     x_dev = torch.as_tensor(images, device="cuda")
     fn = device_forward_fn(cfg, params)
@@ -398,6 +451,7 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
     payload_s = time.perf_counter() - t0
     B = images.shape[0]
     path = {"device_path_ms": device_ms, "device_path_stage_ms": stage_ms,
+            "offload_fused_kernel_us": fused_us,
             "device_path_images_per_s": B / (device_ms / 1e3),
             "run_offload_inference_s": statistics.median(host),
             "run_offload_inference_images_per_s": B / statistics.median(host),
@@ -523,6 +577,37 @@ def phase_llm_kernels():
             if attend is empty:   # attend_len = 0 gives exactly 0 in both
                 check(not out[::3].any() and not plain[::3].any(),
                       "decode_attention: a row with attend_len = 0 is not 0")
+    # the split-K grid on this card: a scalar depth on a split boundary and
+    # one off it, 1 and S; per-row depths on, before and after a boundary of
+    # the (B,) grid (sized from S), 0 among them; B = 1 (under one wave)
+    # and 32 (over it); and a cache poisoned with NaN past each row's depth
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, S, Hq, Hkv, D in ((LLM_BATCH, LLM_MAX_LEN, 14, 2, 64),
+                             (1, LLM_MAX_LEN, 14, 2, 64),
+                             (32, LLM_MAX_LEN, 14, 2, 64), (3, 1000, 8, 1, 128),
+                             (4, 256, 16, 4, 64), (6, 300, 4, 1, 128)):
+        page = auto_page_size(S) or DEFAULT_PAGE
+        q, k, v = randn(B, 1, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        edge = next(a for a in range(S // 2, 0, -1)
+                    if a % split_slots(B, a, Hkv, sms) == 0)
+        split = split_slots(B, S, Hkv, sms)
+        depths = [split, split - 1, split + 1, 0, S, 1, 2 * split + 3, S - 1]
+        rows = torch.tensor([min(S, depths[i % len(depths)]) for i in range(B)],
+                            dtype=torch.int32, device="cuda")
+        for attend in (edge, edge - 1, edge + 1, 1, S, rows):
+            out = decode_attention_cuda(q, k, v, attend, page_size=page)
+            note("decode_attention", close_err(
+                out, decode_attention_ref(q, k, v, attend), LLM_KERNEL_TOL,
+                f"decode_attention {(B, S, Hq, Hkv, D)} split-K attend {attend}"))
+        dead = torch.arange(S, device="cuda")[None, :] >= rows[:, None].long()
+        kp, vp = (t.masked_fill(dead[:, :, None, None], float("nan")) for t in (k, v))
+        out = decode_attention_cuda(q, kp, vp, rows, page_size=page)
+        note("decode_attention", close_err(
+            out, decode_attention_ref(q, k, v, rows), LLM_KERNEL_TOL,
+            f"decode_attention {(B, S, Hq, Hkv, D)} NaN past attend {rows}"))
+        for b in range(B):
+            check(rows[b] > 0 or not out[b].any(),
+                  f"decode_attention: row {b} has attend_len 0 and is not 0")
     torch.cuda.synchronize()
     print(f"phase 6: LLM kernels vs their plain versions, within "
           f"{LLM_KERNEL_TOL} abs + rel: cases {cases}, max |err| {errs}")
@@ -681,6 +766,32 @@ def phase_llm_timing(cfg, params, launches, errs, card):
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
               f"{nbytes} B, {ops} ops), {launches[name]} launches on the "
               f"serving path  [{card}]")
+    # decode attention with a (B,) attend_len: the grid is sized from S and
+    # the splits past a row's depth exit at once
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_main = torch.full((B,), attend, dtype=torch.int32, device="cuda")
+    tiny = torch.zeros(4, device="cuda")
+    split, split_rows = split_slots(B, attend, Hkv, sms), split_slots(B, S, Hkv, sms)
+    decode_grid = {
+        "scalar_split": split, "scalar_blocks": B * Hkv * -(-attend // split),
+        "rows_split": split_rows, "rows_blocks": B * Hkv * -(-S // split_rows),
+        "rows_live_blocks": B * Hkv * -(-attend // split_rows),
+        "rows_ms": time_ms(lambda: decode_attention_cuda(qd, kc, vc, rows_main,
+                                                         page_size=page)),
+        # the split and the combine kernel; the combine is launched early
+        # and its time includes its wait for the split kernel
+        "kernels_us": device_kernels(lambda: decode_attention_cuda(
+            qd, kc, vc, attend, page_size=page), match="decode_"),
+        # what the events read for one trivial launch: the timing floor
+        "one_launch_ms": time_ms(lambda: tiny.add_(1.0))}
+    print(f"phase 9: decode_attention grid at attend {attend}: an int gives "
+          f"{split}-slot splits, {decode_grid['scalar_blocks']} blocks (B * Hkv "
+          f"= {B * Hkv}); a (B,) tensor {split_rows}-slot splits, "
+          f"{decode_grid['rows_blocks']} blocks of which "
+          f"{decode_grid['rows_live_blocks']} live, {decode_grid['rows_ms']:.4f} ms; "
+          f"device us and launches per call by kernel (torch.profiler): "
+          f"{decode_grid['kernels_us']}; one trivial launch reads "
+          f"{decode_grid['one_launch_ms']:.4f} ms by the same events  [{card}]")
     # flash runs its fp32 products as three TF32 ones on the tensor cores
     flash_tc_ms = 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3
     # and the D = 128 instantiation at qwen2-1.5b's prefill shape
@@ -721,6 +832,13 @@ def phase_llm_timing(cfg, params, launches, errs, card):
                                              max_len=S), reps=3, hold_cycles=hold)
     step_dev = time_ms(lambda: bb.decode_step(cfg, params, step_tok, cache, T),
                        reps=10, hold_cycles=hold)
+    # the step's kernels by torch.profiler: their summed durations (the
+    # device's busy time) and their count.  The events above span every
+    # gap the host leaves once the launch queue fills behind the hold.
+    step_kernels = device_kernels(lambda: bb.decode_step(cfg, params, step_tok,
+                                                         cache, T), reps=5)
+    step_busy = sum(us for us, _ in step_kernels.values()) / 1e3
+    step_launches = sum(n for _, n in step_kernels.values())
 
     # one layer's parts at the prefill and the decode shape, device time
     p = params["blocks"][0]
@@ -776,14 +894,20 @@ def phase_llm_timing(cfg, params, launches, errs, card):
             "decode_step_host_ms": step_s * 1e3, "decode_step_device_ms": step_dev,
             "decode_tokens_per_s": B / step_s,
             "flash_tensor_core_bound_ms": flash_tc_ms, "flash_d128": flash_d128,
+            "decode_grid": decode_grid,
             "decode_device_idle_share": 1 - step_dev / (step_s * 1e3),
+            "decode_step_kernel_ms": step_busy,
+            "decode_step_kernels": step_launches,
+            "decode_busy_share": step_busy / (step_s * 1e3),
             "prefill_device_idle_share": 1 - prefill_dev / (prefill_s * 1e3),
             "breakdown": breakdown}
     print(f"phase 9: prefill B={B} x T={T}: {prefill_s * 1e3:.3f} ms host "
           f"({path['prefill_tokens_per_s']:.0f} tokens/s), {prefill_dev:.3f} ms "
           f"device; decode step B={B} at depth {T}: {step_s * 1e3:.3f} ms host "
           f"({path['decode_tokens_per_s']:.1f} tokens/s), {step_dev:.3f} ms device "
-          f"(device idle {path['decode_device_idle_share']:.1%} of the step)  [{card}]")
+          f"(device idle {path['decode_device_idle_share']:.1%} of the step); "
+          f"its {step_launches:.0f} kernels run {step_busy:.3f} ms by torch.profiler "
+          f"({path['decode_busy_share']:.1%} of the host time)  [{card}]")
     return rows, path
 
 
@@ -808,7 +932,7 @@ def main() -> int:
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "properties" in line:
                 print(f"phase 2: {name}: {line.strip()}")
     sass = sass_counts(libs)
     print(f"phase 2: SASS instructions (cuobjdump -sass): {sass}")

@@ -1,6 +1,7 @@
 // Shared by the port's CUDA kernels: the launch shape, the static channel
-// permutation passed by value, the nearest-center scan, the 16-byte
-// asynchronous copy, and the error string the Python wrappers report.
+// permutation passed by value, the SM count, the nearest-center scan, the
+// 16-byte asynchronous copy, and the error string the Python wrappers
+// report.
 // Each .cu that includes this header is built into a shared library of its
 // own (repro_torch/kernels/_build.py).
 #pragma once
@@ -23,6 +24,23 @@ struct Perm {
 static inline int grid_for(long long n) {
   long long blocks = (n + kThreads - 1) / kThreads;
   return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+// Multiprocessors of the current device, cached by device ordinal: what a
+// persistent grid is sized by.
+static inline cudaError_t current_sm_count(int* sms) {
+  static int count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = count[dev];
+  return cudaSuccess;
 }
 
 // Nearest center of x in c[0..L): a strict `<` scan from center 0 upward,

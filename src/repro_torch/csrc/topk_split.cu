@@ -92,21 +92,14 @@ extern "C" int topk_split_launch(const float* x, const int* perm_host,
   if (C < 1 || C > kMaxChannels || n_rows < 0)
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
-  static int sm_count[64] = {};      // multiprocessors, by device ordinal
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0;
+  const cudaError_t err = current_sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return (int)err;
-  }
   Perm perm;
   for (int j = 0; j < C; ++j) perm.p[j] = perm_host[j];
   const long long E = (long long)rows_per_tile(C) * C;
   const long long n_tiles = (n_rows * C + E - 1) / E;
-  const long long most = (long long)kBlocksPerSM * sm_count[dev];
+  const long long most = (long long)kBlocksPerSM * sms;
   const long long blocks = n_tiles < most ? n_tiles : most;
   topk_split_kernel<<<(int)blocks, kPermThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(x, perm, n_rows, C,

@@ -8,7 +8,7 @@ from repro_torch.kernels.common import auto_page_size
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-# the kernel's page where the cache width does not split into pages
+# the page passed where the cache width does not split into pages
 DEFAULT_PAGE = 64
 
 
@@ -16,9 +16,9 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, attend_len):
     """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); attend_len: an int or a
     () / (B,) tensor of valid slots.  Returns (B, 1, Hq, D).  On CUDA the
-    page is ``auto_page_size(S)``, as the JAX dispatcher picks it, or
-    ``DEFAULT_PAGE`` when S does not split into pages: the kernel cuts its
-    last page at attend_len, so any S runs the paged kernel."""
+    page passed is ``auto_page_size(S)``, as the JAX dispatcher picks it,
+    or ``DEFAULT_PAGE`` when S does not split into pages; the kernel cuts
+    the slots into its own splits, so any S runs it."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, attend_len)
     page = auto_page_size(k_cache.shape[1]) or DEFAULT_PAGE

@@ -9,7 +9,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operand, perm_array
+from repro_torch.kernels._build import (CudaKernel, check_aligned, check_operand,
+                                        perm_array)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("offload_fused", [_P, _P, ctypes.POINTER(_I),
@@ -18,12 +19,15 @@ KERNEL = CudaKernel("offload_fused", [_P, _P, ctypes.POINTER(_I),
 
 
 def offload_fused_cuda(x: torch.Tensor, centers: torch.Tensor, *, perm, k: int):
-    """x: (N, C) contiguous float32 CUDA rows; centers: (L,) float32 on the
-    same device, L <= 16; perm: C static channel indices; 0 <= k <= C.
+    """x: (N, C) contiguous, 16-byte aligned float32 CUDA rows; centers:
+    (L,) float32 on the same device, L <= 16; perm: C static channel
+    indices; 0 <= k <= C.
 
     Returns (local (N, k), remote (N, C-k), idx int32 (N, C-k),
-    deq (N, C-k)) from one launch.  Raises ValueError on any other input."""
+    deq (N, C-k)) from one launch.  Raises ValueError on any other input;
+    a misaligned view is refused, not copied."""
     check_operand(x, "x", torch.float32)
+    check_aligned(x, "x")
     check_operand(centers, "centers", torch.float32, x.device)
     if x.dim() != 2 or centers.dim() != 1 or not 1 <= centers.shape[0] <= 16:
         raise ValueError(f"x must be (N, C) and centers (L <= 16,), got "

@@ -1,7 +1,7 @@
 """The port's offload kernels on the CPU: their plain PyTorch versions
 (what ``ops.py`` runs for CPU tensors) held bit-exact against the JAX
-package's oracles and its Pallas kernels in interpret mode, and the CUDA
-wrappers' input checks."""
+package's oracles and its Pallas kernels in interpret mode, the fused
+kernel's tile walk emulated, and the CUDA wrappers' input checks."""
 import numpy as np
 import pytest
 
@@ -15,6 +15,7 @@ from repro.kernels.quantize.ops import quantize_op as jax_quantize_op  # noqa: E
 from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref  # noqa: E402
 from repro.kernels.topk_split.ops import split_op as jax_split_op  # noqa: E402
 from repro.kernels.topk_split.ref import split_ref as jax_split_ref  # noqa: E402
+from repro_torch.kernels.common import nearest_center_scan  # noqa: E402
 from repro_torch.kernels.offload_fused.kernel import offload_fused_cuda  # noqa: E402
 from repro_torch.kernels.offload_fused.ops import fused_offload  # noqa: E402
 from repro_torch.kernels.offload_fused.ref import offload_fused_ref  # noqa: E402
@@ -123,6 +124,47 @@ def test_ops_plain_versions_agree_with_each_other():
     assert torch.equal(local, y[..., :5]) and torch.equal(remote, y[..., 5:])
     i2, d2 = quantize_ref(remote, ct)
     assert torch.equal(idx, i2) and torch.equal(deq, d2)
+
+
+def _fused_tile_walk(x, centers, perm, k):
+    """csrc/offload_fused.cu's data movement on the CPU: tiles of R = 4 *
+    (768 // C) rows (a multiple of 4, so every tile starts on a 16-byte
+    boundary in x and in each output), a table of tile offsets built from
+    perm (the R*k local floats, then the R*(C-k) remote ones), each output
+    float read from the tile through the table, the last tile cut to the
+    rows left; the nearest-center scan of the plain version."""
+    N, C = x.shape
+    R, W = 4 * (3072 // (4 * C)), C - k
+    table = np.array([(f // k) * C + perm[f % k] for f in range(R * k)]
+                     + [(f // W) * C + perm[k + f % W] for f in range(R * W)],
+                     np.int64)
+    flat = x.reshape(-1)
+    local, remote = np.empty(N * k, np.float32), np.empty(N * W, np.float32)
+    for tile in range(-(-N // R)):
+        rows = min(R, N - tile * R)
+        s = flat[tile * R * C:(tile * R + rows) * C]
+        local[tile * R * k:tile * R * k + rows * k] = s[table[:rows * k]]
+        remote[tile * R * W:tile * R * W + rows * W] = \
+            s[table[R * k:R * k + rows * W]]
+    local, remote = torch.from_numpy(local), torch.from_numpy(remote)
+    idx, deq = nearest_center_scan(remote, torch.from_numpy(centers))
+    return tuple(t.reshape(N, -1) for t in (local, remote, idx, deq))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5, 257])
+@pytest.mark.parametrize("C", [3, 24, 64])
+@pytest.mark.parametrize("k_of", ["0", "C/3", "C"])
+def test_fused_tile_walk_matches_jax(rows, C, k_of):
+    """The tile walk of the fused kernel, before the card: bit-exact with
+    the JAX oracle at row counts off the float4 and the tile (257 rows is
+    a ragged third tile at C = 24), any C, and k at 0 and C."""
+    k = {"0": 0, "C/3": C // 3, "C": C}[k_of]
+    x, perm, centers = _inputs((rows, C), C, 8, seed=rows * C)
+    x *= 3
+    ref = jax_fused_ref(jnp.asarray(x), jnp.asarray(centers), perm, k)
+    for r, t in zip(ref, _fused_tile_walk(x, centers.astype(np.float32),
+                                          perm, k)):
+        assert_bitexact(r, t)
 
 
 @pytest.mark.parametrize("call", ["offload_fused", "quantize", "topk_split"])

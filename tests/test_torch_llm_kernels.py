@@ -1,8 +1,9 @@
 """The port's LLM kernels on the CPU: the plain PyTorch versions of
 RMSNorm, flash attention and paged decode attention (what ``ops.py`` runs
 for CPU tensors) held against the JAX package's oracles, its jnp paths
-and, where it runs here, its Pallas kernel in interpret mode; and the
-flash kernel's 3xTF32 arithmetic, emulated, against the same oracle."""
+and, where it runs here, its Pallas kernel in interpret mode; the flash
+kernel's 3xTF32 arithmetic and the decode kernel's split-K arithmetic,
+emulated, against the same oracles."""
 import math
 
 import numpy as np
@@ -21,6 +22,11 @@ from repro.nn.attention import flash_attention as jax_flash  # noqa: E402
 from repro.nn.attention import reference_attention as jax_reference  # noqa: E402
 from repro_torch.kernels.attention.ops import flash_attention_op  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    SPLIT_BLOCKS_PER_SM,
+    SPLIT_TILE,
+    split_slots,
+)
 from repro_torch.kernels.decode_attention.ops import decode_attention_op  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op  # noqa: E402
 from repro_torch.nn.attention import reference_attention  # noqa: E402
@@ -256,3 +262,125 @@ def test_flash_kernel_arithmetic_precision(B, T, Hq, Hkv, D, window, q_offset,
         assert ref_err > ATTN_TOL
         assert (err <= SPLIT_COST * ref_err if split
                 else err > 100 * ref_err), (err, ref_err)
+
+
+# ---- the split-K arithmetic of csrc/decode_attention.cu, emulated ---------
+H100_SMS = 132        # the SMs of an H100 SXM, what the wrapper sizes by
+
+
+def _decode_split_k(q, k, v, attend, *, sms):
+    """Decode attention as the kernel computes it.  Each row's slots are
+    cut into splits of ``split_slots`` slots (the wrapper's rule; the grid
+    covers attend when it is an int, S when it is per row).  A split at or
+    past its row's attend leaves nothing; a live one walks its slots in
+    tiles of SPLIT_TILE with an online softmax (running m, l, acc in fp32)
+    and leaves a partial (m, l, acc).  The scratch starts as NaN, as
+    torch.empty may leave it.  The combine rescales each live partial by
+    exp(m_i - m) and divides by max(sum l_i e^(m_i - m), 1e-20)."""
+    B, _, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G, inf, scale = Hq // Hkv, float("inf"), 1.0 / math.sqrt(D)
+    per_row = isinstance(attend, np.ndarray)
+    rows = np.clip(np.broadcast_to(attend, (B,)), 0, S)
+    depth = S if per_row else int(rows[0])
+    split = split_slots(B, depth, Hkv, sms)
+    n_splits = -(-depth // split)
+    qg = q.reshape(B, Hkv, G, D)
+    part_acc = torch.full((B, n_splits, Hkv, G, D), float("nan"))
+    part_m = torch.full((B, n_splits, Hkv, G), float("nan"))
+    part_l = torch.full((B, n_splits, Hkv, G), float("nan"))
+    for b in range(B):
+        for i in range(n_splits):
+            s0, s1 = i * split, min(int(rows[b]), (i + 1) * split)
+            if s0 >= s1:
+                continue                    # a dead split reads nothing
+            m, l = torch.full((Hkv, G), -inf), torch.zeros(Hkv, G)
+            acc = torch.zeros(Hkv, G, D)
+            for t0 in range(s0, s1, SPLIT_TILE):
+                kt = k[b, t0:min(s1, t0 + SPLIT_TILE)]
+                vt = v[b, t0:min(s1, t0 + SPLIT_TILE)]
+                sc = torch.einsum("hgd,nhd->hgn", qg[b], kt) * scale
+                m_new = torch.maximum(m, sc.amax(-1))
+                corr = torch.exp(m - m_new)         # 0 on the first tile
+                p = torch.exp(sc - m_new[..., None])
+                l = corr * l + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("hgn,nhd->hgd", p, vt)
+                m = m_new
+            part_acc[b, i], part_m[b, i], part_l[b, i] = acc, m, l
+    out = torch.zeros(B, Hkv, G, D)
+    for b in range(B):
+        live = -(-int(rows[b]) // split)
+        if live == 0:
+            num, den = torch.zeros(Hkv, G, D), torch.zeros(Hkv, G)
+        else:
+            w = torch.exp(part_m[b, :live] - part_m[b, :live].amax(0))
+            den = (w * part_l[b, :live]).sum(0)
+            num = (w[..., None] * part_acc[b, :live]).sum(0)
+        out[b] = num / torch.clamp(den, min=1e-20)[..., None]
+    return out.reshape(B, 1, Hq, D)
+
+
+# (B, S, Hq, Hkv, D, attend): a 32-slot boundary and one off it, attend 1
+# and S, G in {1, 4, 7, 8}, D in {64, 128}, S off the page, per-row depths
+# in different splits with a 0 among them
+DECODE_SPLIT_CASES = [
+    (2, 256, 8, 2, 64, 64), (2, 256, 8, 2, 64, 63), (2, 256, 8, 2, 64, 65),
+    (2, 128, 4, 4, 64, 1), (2, 128, 7, 1, 128, 128),
+    (3, 1000, 8, 1, 64, [1000, 31, 517]),
+    (4, 96, 8, 1, 128, [0, 96, 32, 33]),
+    (3, 200, 14, 2, 64, [64, 65, 200]),
+]
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 1], ids=["h100", "one_sm"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,attend", DECODE_SPLIT_CASES)
+def test_decode_split_k_arithmetic(B, S, Hq, Hkv, D, attend, sms):
+    """The split-K partials and their combine, before the card: within
+    2e-5 abs + rel of JAX's dense decode_attention_ref and its paged jnp
+    path on every row with a live slot, exactly 0 on a row with none, no
+    NaN.  On an H100 these shapes take 32-slot splits; on one SM the
+    splits hold several tiles, so the online softmax inside a split runs
+    too.  NaN written into the cache past each row's depth, and the NaN
+    scratch of dead splits, change nothing: the emulation reads neither,
+    as the kernel must not."""
+    attend = np.asarray(attend, np.int32) if isinstance(attend, list) else attend
+    q = _normal((B, 1, Hq, D), 10)
+    k, v = _normal((B, S, Hkv, D), 11), _normal((B, S, Hkv, D), 12)
+    qt, kt, vt = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+    got = _decode_split_k(qt, kt, vt, attend, sms=sms)
+    assert torch.isfinite(got).all()
+    rows = np.broadcast_to(attend, (B,))
+    want = np.asarray(jax_decode_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(attend)))
+    paged = np.asarray(paged_decode_attention_jnp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(attend),
+        page_size=8))
+    live = rows > 0
+    close(want[live], got[live], ATTN_TOL)
+    close(paged[live], got[live], ATTN_TOL)
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    dead = np.arange(S)[None, :] >= rows[:, None]
+    kp, vp = k.copy(), v.copy()
+    kp[dead], vp[dead] = np.nan, np.nan
+    assert torch.equal(_decode_split_k(qt, torch.from_numpy(kp),
+                                       torch.from_numpy(vp), attend, sms=sms),
+                       got)
+
+
+def test_decode_split_rule_fills_the_card():
+    """The wrapper's splits at the serving path's decode shape (qwen2-0.5b,
+    B = 8, Hkv = 2, attend 528 of S = 1024): 32-slot splits, 17 per
+    (row, kv head), 272 blocks against B * Hkv = 16.  Every split is a
+    whole number of tiles, and the grid stays within about four blocks
+    per SM however wide the batch or the cache."""
+    assert split_slots(8, 528, 2, H100_SMS) == 32
+    assert 8 * 2 * -(-528 // 32) == 272
+    assert split_slots(8, 1024, 2, H100_SMS) == 32      # a (B,) attend_len
+    assert split_slots(32, 1024, 2, H100_SMS) == 128
+    assert split_slots(1, 1, 1, H100_SMS) == SPLIT_TILE
+    for B, depth, Hkv in ((1, 1024, 2), (32, 1024, 2), (64, 32768, 8),
+                          (3, 1000, 1)):
+        split = split_slots(B, depth, Hkv, H100_SMS)
+        assert split % SPLIT_TILE == 0
+        blocks = B * Hkv * -(-depth // split)
+        assert blocks <= SPLIT_BLOCKS_PER_SM * H100_SMS + B * Hkv
