@@ -23,8 +23,9 @@ Phases, each of which raises on failure:
      just before and read just after; the outputs are checked against the
      port's own CPU run of the same params;
   5. each offload kernel's time (CUDA events, median of 30 launches, L2
-     flushed), its plain version's, its bound (and the fused kernel's
-     device time from torch.profiler), and images/s of the path;
+     flushed), its plain version's, its bound, its device duration from
+     torch.profiler and the share of its bound by that duration, and
+     images/s of the path;
   dense LLM serving (slice 2):
   6. RMSNorm, flash attention and paged decode attention against their
      plain versions on the card (atol = rtol = 2e-5): ragged row counts
@@ -44,11 +45,24 @@ Phases, each of which raises on failure:
   8. the same params on the card and on the CPU (B = 2, T = 128, 8
      tokens): prefill logits within 1e-3, greedy tokens equal unless the
      CPU's top-2 margin at the first divergence is within the tolerance;
-  9. each LLM kernel's time, its plain version's, the library call's and
-     its bound (decode attention also with a (B,) attend_len, its grid
-     sized from S, and its two kernels' device times from torch.profiler);
-     prefill and decode tokens/s, the decode step's kernels and their
-     summed device time from torch.profiler, and the time by part.
+  9. each LLM kernel's time, its plain version's, the library call's, its
+     bound and its torch.profiler duration (decode attention also with a
+     (B,) attend_len, its grid sized from S, and its two kernels' device
+     times); prefill and decode tokens/s, the decode step's kernels and
+     their summed device time from torch.profiler, and the time by part;
+  the multi-client offload gateway (slice 5):
+ 10. the pinned fleets of benchmarks/gateway.py (32 clients, mixed links,
+     6 requests, W = 8; static and SLO = 30 ms) and the chaos run of
+     benchmarks/faults.py (16 clients, 150 ms deadlines) at 96x96 through
+     ``Fleet`` / ``OffloadGateway``, with every launch count set to 0
+     just before and read just after (one offload_fused per fleet
+     build); every request resolved on the ladder; the static logits
+     against one batched pass, per-image ``agile_forward`` and pool width
+     2 on the card, and the same fleet on the port's CPU (indices and
+     simulated rows equal, logits within 1e-3); the fleet build (device
+     pass, LZW sweep), run() and clients/s, ``gateway.codec_ms``, one
+     W = 8 Remote-NN batch and its copies, the card's busy share over
+     run(), and the simulated rows.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -110,7 +124,22 @@ from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.faults import (  # noqa: E402
+    Blackout,
+    BurstLoss,
+    FaultInjector,
+    GatewayStall,
+    PayloadCorruption,
+)
+from repro_torch.serve.gateway import (  # noqa: E402
+    Fleet,
+    GatewayConfig,
+    OffloadGateway,
+    mixed_fleet,
+)
+from repro_torch.serve.gateway import gateway as gateway_mod  # noqa: E402
 from repro_torch.serve.offload import measure_payload, run_offload_inference  # noqa: E402
+from repro_torch.serve.telemetry import Telemetry  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # fp32 outside the tensor cores, the type these kernels compute in.
@@ -140,6 +169,20 @@ TF32_OPS_PER_S = 495e12
 # order over 24 layers and a 151,936-wide readout
 LLM_LOGIT_TOL = 1e-3
 CPU_BATCH, CPU_PROMPT, CPU_NEW, CPU_MAX_LEN = 2, 128, 8, 256
+
+# the offload gateway: the pinned fleets of benchmarks/gateway.py (32
+# clients, mixed links, 6 requests, W = 8) and benchmarks/faults.py (16
+# clients, 150 ms deadlines, the chaos schedule)
+GATEWAY_CLIENTS, GATEWAY_REQS, GATEWAY_WIDTH = 32, 6, 8
+FAULT_CLIENTS, FAULT_DEADLINE_MS = 16, 150.0
+GATEWAY_LADDER = {"served", "degraded", "shed", "rejected", "fallback"}
+GATEWAY_TRACE_FIELDS = ("client", "req", "channel", "bits", "keep", "payload_bytes",
+                        "attempts", "t_born", "t_sent", "t_arrive", "t_serve",
+                        "t_done", "e2e_s", "energy_j", "status", "deadline_missed")
+# gateway logits on the card against the same requests at other batch
+# shapes (one pass of 192, batch 1, pool width 2): cuDNN may choose another
+# algorithm per shape, so they are held to a bar, not bitwise
+GATEWAY_BATCH_TOL = 1e-4
 
 
 def check(cond, msg: str) -> None:
@@ -177,18 +220,30 @@ def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_kernels(fn, reps: int = 20, match: str = "") -> dict:
+def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False) -> dict:
     """{kernel name: (device us per call, launches per call)} of the
     kernels of ``fn`` whose names hold ``match``, over ``reps`` calls, from
     torch.profiler's device events ({} if it records none): the kernels'
-    own durations, without the gaps between them."""
+    own durations, without the gaps between them.  ``flush`` clears the
+    L2 before each call, as ``time_ms`` does (the fill kernel's name holds
+    no kernel name of the port)."""
     from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if buf is not None:
+                buf.zero_()
             fn()
         torch.cuda.synchronize()
+    return {key: (us / reps, n / reps)
+            for key, (us, n) in profiled_kernels(prof, match).items()}
+
+
+def profiled_kernels(prof, match: str = "") -> dict:
+    """{kernel name: (device us, launches)} of a finished torch.profiler
+    run, for the kernels whose names hold ``match``."""
     out = {}
     for evt in prof.key_averages():
         if (getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA
@@ -196,9 +251,17 @@ def device_kernels(fn, reps: int = 20, match: str = "") -> dict:
             continue
         total = getattr(evt, "device_time_total", None)
         total = total if total is not None else evt.cuda_time_total
-        out[evt.key] = (total / reps, evt.count / reps)
+        out[evt.key] = (total, evt.count)
     return out
 
+
+def profiled_share(fn, match: str, bound_ms: float) -> dict:
+    """The summed torch.profiler durations per call of the kernels of
+    ``fn`` named ``match`` (L2 flushed before each call, without the CUDA
+    events' floor), and the share of ``bound_ms`` they reach."""
+    us = sum(t for t, _ in device_kernels(fn, match=match, flush=True).values())
+    check(us > 0, f"torch.profiler recorded no device time for {match}")
+    return {"us": us, "bound_share": bound_ms * 1e3 / us}
 
 
 # what the redesigned kernels must issue: tensor-core products (HMMA) and
@@ -392,6 +455,7 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
          lambda: torch.index_select(raw, 1, perm_t),
          2 * N * C * 4, 0),
     ]
+    kernel_us = {}
     for name, src, replaces, kern, plain, library, nbytes, ops in specs:
         bound_ms, bound_by = bound(nbytes, ops)
         ms, plain_ms = time_ms(kern), time_ms(plain)
@@ -401,15 +465,13 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
                      "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms})
+        kernel_us[name] = profiled_share(kern, f"{name}_kernel", bound_ms)
         print(f"phase 5: {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {library_ms if library_ms is None else f'{library_ms:.4f}'} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B, {ops} ops), "
-              f"{launches[name]} launches on the main path  [{card}]")
-
-    fused_us = device_kernels(lambda: offload_fused_cuda(raw, centers, perm=perm,
-                                                         k=k), match="offload_fused")
-    print(f"phase 5: offload_fused device us and launches per call (torch.profiler): "
-          f"{fused_us}  [{card}]")
+              f"{launches[name]} launches on the main path; by torch.profiler "
+              f"{kernel_us[name]['us']:.2f} us, {kernel_us[name]['bound_share']:.1%} "
+              f"of its bound  [{card}]")
     # the whole path: the entry point (host LZW included), and its device part
     x_dev = torch.as_tensor(images, device="cuda")
     fn = device_forward_fn(cfg, params)
@@ -451,7 +513,7 @@ def phase_timing(cfg, params, images, raw, centers, perm, k, launches, errs, car
     payload_s = time.perf_counter() - t0
     B = images.shape[0]
     path = {"device_path_ms": device_ms, "device_path_stage_ms": stage_ms,
-            "offload_fused_kernel_us": fused_us,
+            "kernel_profiler_us": kernel_us,
             "device_path_images_per_s": B / (device_ms / 1e3),
             "run_offload_inference_s": statistics.median(host),
             "run_offload_inference_images_per_s": B / statistics.median(host),
@@ -753,7 +815,11 @@ def phase_llm_timing(cfg, params, launches, errs, card):
          lambda: sdpa(qdt, kct, vct, attn_mask=live),
          (2 * B * Hq * D + 2 * B * attend * Hkv * D) * 4, 4 * B * Hq * attend * D),
     ]
-    rows = []
+    rows, kernel_us = [], {}
+    # the kernels' names in torch.profiler; decode attention is two kernels
+    prof_names = {"rmsnorm": "rmsnorm_kernel",
+                  "flash_attention": "flash_attention_kernel",
+                  "decode_attention": "decode_"}
     for name, src, replaces, kern, plain, library, nbytes, ops in specs:
         bound_ms, bound_by = bound(nbytes, ops)
         ms, plain_ms, library_ms = time_ms(kern), time_ms(plain), time_ms(library)
@@ -762,10 +828,12 @@ def phase_llm_timing(cfg, params, launches, errs, card):
                      "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library_ms})
+        kernel_us[name] = profiled_share(kern, prof_names[name], bound_ms)
         print(f"phase 9: {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
               f"{nbytes} B, {ops} ops), {launches[name]} launches on the "
-              f"serving path  [{card}]")
+              f"serving path; by torch.profiler {kernel_us[name]['us']:.2f} us, "
+              f"{kernel_us[name]['bound_share']:.1%} of its bound  [{card}]")
     # decode attention with a (B,) attend_len: the grid is sized from S and
     # the splits past a row's depth exit at once
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -894,7 +962,7 @@ def phase_llm_timing(cfg, params, launches, errs, card):
             "decode_step_host_ms": step_s * 1e3, "decode_step_device_ms": step_dev,
             "decode_tokens_per_s": B / step_s,
             "flash_tensor_core_bound_ms": flash_tc_ms, "flash_d128": flash_d128,
-            "decode_grid": decode_grid,
+            "decode_grid": decode_grid, "kernel_profiler_us": kernel_us,
             "decode_device_idle_share": 1 - step_dev / (step_s * 1e3),
             "decode_step_kernel_ms": step_busy,
             "decode_step_kernels": step_launches,
@@ -909,6 +977,237 @@ def phase_llm_timing(cfg, params, launches, errs, card):
           f"its {step_launches:.0f} kernels run {step_busy:.3f} ms by torch.profiler "
           f"({path['decode_busy_share']:.1%} of the host time)  [{card}]")
     return rows, path
+
+
+def gateway_rows(static, adaptive, chaos) -> dict:
+    """The simulated rows of benchmarks/gateway.py and of the chaos run of
+    benchmarks/faults.py, from the port's reports."""
+    return {
+        "gateway.e2e_latency_p50_ms": static.latency_percentile_ms(50),
+        "gateway.e2e_latency_p99_ms": static.latency_percentile_ms(99),
+        "gateway.device_energy_mj": static.device_energy_mj,
+        "gateway.adaptive_e2e_latency_p99_ms": adaptive.latency_percentile_ms(99),
+        "gateway.adaptive_payload_bytes": adaptive.summary()["payload_bytes_mean"],
+        "gateway.adaptive_device_energy_mj": adaptive.device_energy_mj,
+        "faults.fallback_rate": chaos.fallback_rate,
+        "faults.deadline_miss_rate": chaos.deadline_miss_rate,
+        "faults.degraded_rate": chaos.degraded_rate,
+        "faults.e2e_p99_ms": chaos.latency_percentile_ms(99),
+    }
+
+
+def trace_key(report) -> list:
+    return [tuple(getattr(t, f) for f in GATEWAY_TRACE_FIELDS) for t in report.traces]
+
+
+def logits_by_request(report) -> dict:
+    return {(t.client, t.req): t.logits for t in report.traces}
+
+
+def max_delta(a: dict, b: dict) -> float:
+    """The largest |difference| between two requests -> logits maps."""
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def resolved(report, n: int, what: str) -> None:
+    """Every request of the fleet resolved once, on one rung of the ladder."""
+    keys = {(t.client, t.req) for t in report.traces}
+    statuses = {t.status for t in report.traces}
+    check(len(report.traces) == n and len(keys) == n,
+          f"{what}: {len(report.traces)} traces for {n} requests")
+    check(statuses <= GATEWAY_LADDER, f"{what}: statuses {statuses} off the ladder")
+
+
+def phase_gateway(cfg, params, card):
+    """The offload gateway through Fleet / OffloadGateway at full width,
+    launch counts from 0: the benchmark's pinned fleets (static, SLO = 30
+    ms, chaos), then its numbers and its logits against one batched pass,
+    per-image agile_forward, another pool width and the port's CPU run."""
+    W = GATEWAY_WIDTH
+    n_static = GATEWAY_CLIENTS * GATEWAY_REQS
+
+    def fleet(slo_ms=None, n_clients=GATEWAY_CLIENTS, deadline_ms=None, p=params):
+        return Fleet(cfg, p, mixed_fleet(n_clients, n_requests=GATEWAY_REQS,
+                                         slo_ms=slo_ms, deadline_ms=deadline_ms),
+                     seed=0)
+
+    def chaos_injector():
+        return FaultInjector((Blackout(0.05, 0.25),
+                              BurstLoss(0.0, 1.0, p_good_bad=0.2, p_bad_good=0.3),
+                              PayloadCorruption(0.0, 1.0, prob=0.25),
+                              GatewayStall(0.10, 0.30, stall_s=0.02)), seed=7)
+
+    from torch.profiler import ProfilerActivity, profile
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    builds = 0
+    OffloadGateway(cfg, params, fleet(), GatewayConfig(batch_width=W)).run()  # warm-up
+    builds += 1
+    timed = []
+    for _ in range(2):                       # best of two, as the benchmark
+        timed.append(OffloadGateway(cfg, params, fleet(),
+                                    GatewayConfig(batch_width=W)).run())
+        builds += 1
+    static = min(timed, key=lambda r: r.wall_s)
+    tel = Telemetry(enabled=True)
+    OffloadGateway(cfg, params, fleet(), GatewayConfig(batch_width=W),
+                   telemetry=tel).run()
+    builds += 1
+    gw = OffloadGateway(cfg, params, fleet(), GatewayConfig(batch_width=W))
+    builds += 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = gw.run()
+        torch.cuda.synchronize()
+    adaptive = OffloadGateway(cfg, params, fleet(slo_ms=30.0),
+                              GatewayConfig(batch_width=W)).run()
+    narrow = OffloadGateway(cfg, params, fleet(), GatewayConfig(batch_width=2)).run()
+    chaos = OffloadGateway(cfg, params, fleet(n_clients=FAULT_CLIENTS,
+                                              deadline_ms=FAULT_DEADLINE_MS),
+                           GatewayConfig(batch_width=W), faults=chaos_injector()).run()
+    builds += 3
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in _build.KERNELS.items()}
+    expect = {n: builds if n == "offload_fused" else 0 for n in _build.KERNELS}
+    print(f"phase 10: launches on the gateway path ({builds} fleet builds): "
+          f"{launches}")
+    check(launches == expect, f"gateway launches {launches}, expected {expect}")
+    for report, n, what in ((static, n_static, "static"), (profiled, n_static, "profiled"),
+                            (adaptive, n_static, "adaptive"), (narrow, n_static, "W=2"),
+                            (chaos, FAULT_CLIENTS * GATEWAY_REQS, "chaos")):
+        resolved(report, n, what)
+    check(trace_key(profiled) == trace_key(static) == trace_key(timed[0]),
+          "same-seed static runs do not replay")
+    check(all(np.isfinite(t.logits).all() and t.logits.shape == (cfg.n_classes,)
+              for t in static.traces), "static gateway logits not finite/expected")
+
+    # the card's busy share over run(), and the host's share of it
+    busy_us = sum(us for us, _ in profiled_kernels(prof).values())
+    codec = tel.histogram("gateway.codec_ms", bounds=gateway_mod._MS_BOUNDS)
+    batches = tel.histogram("gateway.batch_size",
+                            bounds=tuple(float(w) for w in range(1, W + 1)))
+
+    # the fleet build's two parts: the device pass and the first LZW sweep
+    f0 = fleet()
+    dev = f0.device
+    images = torch.from_numpy(f0.images).to(dev)
+    dev_fn = device_forward_fn(cfg, params)
+    device_pass_ms = time_ms(lambda: dev_fn(params, images), reps=10)
+    device_pass_us = sum(us for us, _ in device_kernels(
+        lambda: dev_fn(params, images), reps=5).values())
+    t0 = time.perf_counter()
+    fleet()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f0._encoded_rows(f0.full_bits, f0.n_remote)
+    lzw_s = time.perf_counter() - t0
+    # one W = 8 Remote-NN batch on the card, and its copies each way
+    deq = np.random.RandomState(0).standard_normal(
+        (W, f0.feat_hw, f0.feat_hw, f0.n_remote)).astype(np.float32)
+    ll = f0.local_logits[:W].copy()
+    deq_d, ll_d = torch.from_numpy(deq).to(dev), torch.from_numpy(ll).to(dev)
+    batch_ms = time_ms(lambda: remote_forward(cfg, params, deq_d, ll_d), reps=20)
+    batch_kernels = device_kernels(lambda: remote_forward(cfg, params, deq_d, ll_d),
+                                   reps=10)
+    out_d = remote_forward(cfg, params, deq_d, ll_d)
+    h2d, d2h, whole = [], [], []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(deq).to(dev), torch.from_numpy(ll).to(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out_d.cpu().numpy()
+        t2 = time.perf_counter()
+        # one whole batch as _batch_logits runs it: H2D, remote_forward, D2H
+        remote_forward(cfg, params, torch.from_numpy(deq).to(dev),
+                       torch.from_numpy(ll).to(dev)).cpu().numpy()
+        whole.append(time.perf_counter() - t2)
+        d2h.append(t2 - t1)
+        h2d.append(t1 - t0)
+    numbers = {
+        "fleet_build_s": build_s, "device_pass_ms": device_pass_ms,
+        "device_pass_kernel_ms": device_pass_us / 1e3, "lzw_sweep_s": lzw_s,
+        "run_wall_s": static.wall_s, "clients_per_s": static.clients_per_s,
+        "run_wall_s_all": [r.wall_s for r in timed],
+        "codec_ms_p50": codec.p50(), "codec_ms_total": codec.total,
+        "remote_batches": batches.count, "remote_batch_ms": batch_ms,
+        "remote_batch_kernel_ms": sum(us for us, _ in batch_kernels.values()) / 1e3,
+        "remote_batch_kernels": sum(n for _, n in batch_kernels.values()),
+        "remote_batch_host_ms": statistics.median(whole) * 1e3,
+        "h2d_us": statistics.median(h2d) * 1e6, "d2h_us": statistics.median(d2h) * 1e6,
+        "run_kernel_ms": busy_us / 1e3, "profiled_run_wall_s": profiled.wall_s,
+        "busy_share": busy_us / 1e6 / static.wall_s,
+        "rows": gateway_rows(static, adaptive, chaos),
+    }
+    print(f"phase 10: fleet of {n_static} requests at {cfg.image_size}^2: build "
+          f"{build_s:.3f} s, device pass {device_pass_ms:.3f} ms by events, its "
+          f"kernels {device_pass_us / 1e3:.3f} ms by torch.profiler; first LZW sweep "
+          f"(static framing) {lzw_s:.3f} s  [{card}]")
+    print(f"phase 10: run() of the static fleet, W={W}: {static.wall_s:.3f} s "
+          f"(best of {[round(r.wall_s, 4) for r in timed]}), {static.clients_per_s:.1f} "
+          f"clients/s; gateway.codec_ms p50 {codec.p50():.3f} ms over "
+          f"{codec.count} batches (sum {codec.total:.1f} ms); one W={W} Remote-NN "
+          f"batch {batch_ms:.4f} ms on the card by events, its "
+          f"{numbers['remote_batch_kernels']:.0f} kernels "
+          f"{numbers['remote_batch_kernel_ms']:.4f} ms by torch.profiler, "
+          f"{numbers['remote_batch_host_ms']:.3f} ms on the host with its copies "
+          f"(H2D {numbers['h2d_us']:.1f} us + D2H {numbers['d2h_us']:.1f} us); the card's "
+          f"kernels over a profiled run() {busy_us / 1e3:.2f} ms, busy "
+          f"{numbers['busy_share']:.2%} of the best run()  [{card}]")
+    print(f"phase 10: simulated rows at {cfg.image_size}^2: {numbers['rows']}")
+
+    # the static run's logits against one batched pass over the same images,
+    # per-image agile_forward, and pool width 2; all on the card
+    rows_of = {(c.index, j): c.row0 + j for c in f0.clients for j in range(GATEWAY_REQS)}
+    got = logits_by_request(static)
+    ll_all, _, idx_all = dev_fn(params, images)
+    one_pass = remote_forward(cfg, params, dequantize(params["quant"], idx_all),
+                              ll_all).cpu().numpy()
+    per_image = {key: agile_forward(cfg, params, f0.images[r:r + 1])[0].cpu().numpy()[0]
+                 for key, r in rows_of.items()}
+    narrow_got = logits_by_request(narrow)
+    deltas = {
+        "vs_one_pass": max_delta(got, {k: one_pass[r] for k, r in rows_of.items()}),
+        "vs_per_image": max_delta(got, per_image),
+        "width_2_vs_8": max_delta(got, narrow_got),
+    }
+    bitwise = {
+        "vs_one_pass": all(got[k].tobytes() == one_pass[r].tobytes()
+                           for k, r in rows_of.items()),
+        "vs_per_image": all(got[k].tobytes() == per_image[k].tobytes() for k in rows_of),
+        "width_2_vs_8": all(got[k].tobytes() == narrow_got[k].tobytes() for k in rows_of),
+    }
+    print(f"phase 10: static gateway logits on the card, max |delta| {deltas}, "
+          f"bitwise {bitwise} (bar {GATEWAY_BATCH_TOL} abs + rel)")
+    for name, ref in (("one batched pass", {k: one_pass[r] for k, r in rows_of.items()}),
+                      ("per-image agile_forward", per_image), ("pool width 2", narrow_got)):
+        check(all(np.allclose(got[k], ref[k], atol=GATEWAY_BATCH_TOL,
+                              rtol=GATEWAY_BATCH_TOL) for k in rows_of),
+              f"gateway logits vs {name} beyond {GATEWAY_BATCH_TOL}")
+        check(all(int(np.argmax(got[k])) == int(np.argmax(ref[k])) for k in rows_of),
+              f"gateway predictions differ from {name}")
+
+    # the same static fleet on the port's CPU
+    cpu = tree_to(params, "cpu")
+    t0 = time.perf_counter()
+    f_cpu = fleet(p=cpu)
+    r_cpu = OffloadGateway(cfg, cpu, f_cpu, GatewayConfig(batch_width=W)).run()
+    cpu_s = time.perf_counter() - t0
+    flips = int((f_cpu.idx != f0.idx).sum())
+    same_rows = trace_key(r_cpu) == trace_key(static)
+    got_cpu = logits_by_request(r_cpu)
+    cpu_diff = max_delta(got, got_cpu)
+    print(f"phase 10: the static fleet on the port's CPU ({cpu_s:.1f} s): index flips "
+          f"{flips} of {f0.idx.size}, simulated rows equal: {same_rows}, logits "
+          f"|card - CPU| max {cpu_diff:.3e} (bar {LOGIT_TOL} abs + rel)")
+    check(flips == 0 and same_rows, "the card's fleet differs from the CPU's")
+    check(all(np.allclose(got[k], got_cpu[k], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+              for k in rows_of), f"gateway logits differ from the CPU run by {cpu_diff}")
+    return launches, {**numbers, "builds": builds, "logit_deltas": deltas,
+                      "bitwise": bitwise, "cpu_index_flips": flips,
+                      "cpu_logit_max_abs_diff": cpu_diff, "cpu_run_s": cpu_s}
 
 
 def main() -> int:
@@ -964,6 +1263,9 @@ def main() -> int:
     llm_rows, llm_timing = phase_llm_timing(llm_cfg, llm_params, llm_launches,
                                             llm_errs, card)
     rows += llm_rows
+    gw_launches, gw = phase_gateway(cfg, params, card)
+    for row in rows:               # the kernels' launches over every path
+        row["launches"] += gw_launches[row["name"]]
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -979,7 +1281,10 @@ def main() -> int:
                                "max_len": LLM_MAX_LEN, "init_s": init_s,
                                "path": llm_path, "checks": llm_checks,
                                "flash_x8_errors": llm_split,
-                               "timing": llm_timing}},
+                               "timing": llm_timing},
+                       "gateway": {"clients": GATEWAY_CLIENTS,
+                                   "requests_per_client": GATEWAY_REQS,
+                                   "width": GATEWAY_WIDTH, **gw}},
                       f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

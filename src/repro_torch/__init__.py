@@ -9,6 +9,8 @@ device was named.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -35,3 +37,19 @@ def tree_to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """cuDNN convolutions and cuBLAS matmuls in full fp32 inside the block:
+    TF32 off (``cudnn.allow_tf32`` defaults to True), both flags restored
+    on exit.  No effect on CPU tensors."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul

@@ -1,7 +1,9 @@
-"""The two pieces of ``repro.serve.scheduler`` that the equal-length
-serving path needs: per-request sampling and the continuous-batching
-gate.  The continuous scheduler itself (length buckets, slot pool,
-chunked prefill) is not ported yet: ROADMAP Queue 1 item 9."""
+"""The pieces of ``repro.serve.scheduler`` that the port's serving paths
+need: per-request sampling and the continuous-batching gate (the
+equal-length LLM path), and the host-side slot pool (the offload
+gateway's Remote-NN feature slots).  The continuous scheduler itself
+(length buckets, paged decode pool, chunked prefill) is not ported yet:
+ROADMAP Queue 1 item 9."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +34,57 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
     drawn = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(temps <= 0.0, greedy_t, drawn)
+
+
+class SlotError(RuntimeError):
+    """Slot-pool misuse: acquiring an occupied slot, releasing a free
+    slot (double release), or releasing a slot on behalf of a request
+    that does not own it.  Preemption makes these real hazards — a
+    suspend races admission for the slot it frees — so the pool fails
+    loudly instead of silently corrupting occupancy."""
+
+
+class SlotPool:
+    """Host-side bookkeeping for a fixed set of batch slots.
+
+    ``rids[i]`` is the request occupying slot i (None = free).  The
+    continuous scheduler (decode slots) and the offload gateway
+    (remote-NN feature slots) share this discipline: work is admitted
+    into free slots, one fixed-shape device program runs over the whole
+    pool, and slots are released as requests finish — the compiled batch
+    shape never changes."""
+
+    def __init__(self, n_slots: int):
+        self.rids: list = [None] * n_slots
+
+    def __len__(self) -> int:
+        return len(self.rids)
+
+    def free(self) -> list[int]:
+        return [i for i, r in enumerate(self.rids) if r is None]
+
+    def acquire(self, slot: int, rid) -> None:
+        if self.rids[slot] is not None:
+            raise SlotError(f"slot {slot} already occupied "
+                            f"by {self.rids[slot]!r}")
+        self.rids[slot] = rid
+
+    def release(self, slot: int, rid=None):
+        """Free a slot and return its occupant.  A free slot raises
+        (double release); passing ``rid`` asserts the expected occupant,
+        so a preempting caller can never free a slot that was already
+        re-admitted under a fresher request."""
+        cur = self.rids[slot]
+        if cur is None:
+            raise SlotError(f"slot {slot} released twice (already free)")
+        if rid is not None and cur != rid:
+            raise SlotError(f"slot {slot} is owned by {cur!r}, "
+                            f"not {rid!r}")
+        self.rids[slot] = None
+        return cur
+
+    def occupied(self) -> list[tuple[int, object]]:
+        return [(i, r) for i, r in enumerate(self.rids) if r is not None]
+
+    def any_occupied(self) -> bool:
+        return any(r is not None for r in self.rids)

@@ -41,6 +41,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     from repro_torch.core.agile import init_agile_params
     from repro_torch.models.backbone import init_cache, init_params
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.gateway import Fleet, OffloadGateway, mixed_fleet
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gateway_demo_config()
@@ -50,6 +51,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
         params_from_numpy({"quant": {"centers": [0.0, 1.0]}})
     p = init_agile_params(cfg, 0, device="cpu")
     assert p["quant"]["centers"].device.type == "cpu"
+    specs = mixed_fleet(2, n_requests=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Fleet(cfg, init_agile_params(cfg, 0), specs)
+    fleet = Fleet(cfg, p, specs)
+    assert fleet.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OffloadGateway(cfg, init_agile_params(cfg, 0), fleet)
+    assert len(OffloadGateway(cfg, p, fleet).run().traces) == 2
 
     llm = get_config("qwen2-0.5b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
