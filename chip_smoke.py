@@ -62,7 +62,24 @@ Phases, each of which raises on failure:
      simulated rows equal, logits within 1e-3); the fleet build (device
      pass, LZW sweep), run() and clients/s, ``gateway.codec_ms``, one
      W = 8 Remote-NN batch and its copies, the card's busy share over
-     run(), and the simulated rows.
+     run(), and the simulated rows;
+  AgileNN training (slice 6):
+ 11. (a) the permute's autograd Function at 96^2's (B = 32) feature rows:
+     forward, backward (the kernel with the inverse permutation) and
+     double backward bitwise equal to ``index_select``'s, three launches,
+     and ``extract_features`` carrying the gradient to the extractor;
+     (b) one ``agile_loss`` value-and-grad at ``AgileNNConfig()``, B = 8,
+     on the card against the same machine's CPU (TRAIN_GRAD_TOL); (c) joint
+     steps at 96^2 at the largest B <= 64 that fits: median step (batches
+     on the card before the clock), images/s, peak memory, and a
+     torch.profiler split (IG passes, outer backward, GroupNorm by
+     ablation); the quantize kernel on a timed batch's STE input, bitwise
+     against its plain version; (d) ``run_full_pipeline`` at
+     ``AgileNNConfig()``, B = 64, with reduced step counts, launch counts
+     from 0 and checked exactly, its report, and the predictions kept
+     across ``finalize_for_deployment``; then, bitwise against their plain
+     versions, the quantize kernel on a stage-C batch's STE input and the
+     fused offload pass on evaluate's first batch (128 images).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -71,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -82,17 +100,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import tree_to  # noqa: E402
+from repro_torch import (  # noqa: E402
+    fp32_math,
+    tree_leaves,
+    tree_map,
+    tree_to,
+    value_and_grad,
+)
 from repro_torch.compress.quantize import dequantize  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.agilenn_cifar import AgileNNConfig  # noqa: E402
 from repro_torch.core.agile import (  # noqa: E402
     agile_forward,
+    agile_loss,
     device_forward_fn,
+    extract_features,
     init_agile_params,
     offload_payload_arrays,
     remote_forward,
 )
+from repro_torch.data.synthetic import ImageDatasetSpec, SyntheticImages  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
@@ -107,15 +134,19 @@ from repro_torch.kernels.offload_fused.kernel import offload_fused_cuda  # noqa:
 from repro_torch.kernels.offload_fused.ops import fused_offload  # noqa: E402
 from repro_torch.kernels.offload_fused.ref import offload_fused_ref  # noqa: E402
 from repro_torch.kernels.quantize.kernel import quantize_cuda  # noqa: E402
+from repro_torch.kernels.quantize.ops import quantize_op  # noqa: E402
 from repro_torch.kernels.quantize.ref import quantize_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda  # noqa: E402
+from repro_torch.kernels.topk_split.ops import channel_permute_op  # noqa: E402
 from repro_torch.kernels.topk_split.ref import channel_permute_ref  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     extractor_apply,
     local_nn_apply,
+    reference_nn_apply,
+    reference_nn_init,
     remote_nn_apply,
 )
 from repro_torch.nn.activations import swiglu_ffn  # noqa: E402
@@ -123,6 +154,7 @@ from repro_torch.nn.attention import project_qkv  # noqa: E402
 from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
+from repro_torch.optim.sgd import sgd_init  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.faults import (  # noqa: E402
     Blackout,
@@ -140,6 +172,8 @@ from repro_torch.serve.gateway import (  # noqa: E402
 from repro_torch.serve.gateway import gateway as gateway_mod  # noqa: E402
 from repro_torch.serve.offload import measure_payload, run_offload_inference  # noqa: E402
 from repro_torch.serve.telemetry import Telemetry  # noqa: E402
+from repro_torch.train import agile_pipeline  # noqa: E402
+from repro_torch.train.agile_pipeline import joint_step, run_full_pipeline  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
 # fp32 outside the tensor cores, the type these kernels compute in.
@@ -183,6 +217,23 @@ GATEWAY_TRACE_FIELDS = ("client", "req", "channel", "bits", "keep", "payload_byt
 # shapes (one pass of 192, batch 1, pool width 2): cuDNN may choose another
 # algorithm per shape, so they are held to a bar, not bitwise
 GATEWAY_BATCH_TOL = 1e-4
+
+# AgileNN training: AgileNNConfig() (32^2) and the paper's 96^2, full
+# widths (reference NN 96 x 8 blocks), ig_steps 16
+TRAIN_DEVICE = "cuda"
+TRAIN_CFG, TRAIN_CFG_96 = AgileNNConfig(), AgileNNConfig(image_size=96)
+TRAIN_KERNELS = ("topk_split", "quantize", "offload_fused")
+# agile_loss value-and-grad, the card against the CPU at B = 8: fp32 sums in
+# another order (cuDNN vs the CPU) through 8 reference blocks, 16 IG steps
+# and a second derivative; the loss and each gradient leaf within
+# TRAIN_GRAD_TOL of the CPU's largest |value| (the CPU is within 1e-5 of
+# JAX at small widths, tests/test_torch_train.py)
+TRAIN_LOSS_B, TRAIN_GRAD_TOL = 8, 1e-3
+# the timed joint step at 96^2: the largest batch whose peak, predicted
+# from the peaks at B = 4 and 8, fits TRAIN_MEM_FRACTION of the card
+TRAIN_BATCHES, TRAIN_MEM_FRACTION, TRAIN_TIMED_STEPS = (64, 32, 16, 8), 0.9, 3
+# run_full_pipeline at 32^2, B = 64, its 300 + 400 steps cut to the phase's time
+PIPE_BATCH, PIPE_PRETRAIN, PIPE_JOINT = 64, 40, 12
 
 
 def check(cond, msg: str) -> None:
@@ -1210,6 +1261,365 @@ def phase_gateway(cfg, params, card):
                       "cpu_logit_max_abs_diff": cpu_diff, "cpu_run_s": cpu_s}
 
 
+# ------------------------------------------------- AgileNN training (slice 6)
+def _trainable(params):
+    return {k: v for k, v in params.items() if k != "mapping"}
+
+
+def _reference_params(cfg, seed: int):
+    """The reference NN, seed-drawn on the CPU, on the training device."""
+    return tree_to(reference_nn_init(
+        torch.Generator().manual_seed(seed), cfg.extractor_channels, cfg.n_classes,
+        width=cfg.reference_width, blocks=cfg.reference_blocks), TRAIN_DEVICE)
+
+
+def _system(cfg, seed: int = 0):
+    """Seed-drawn joint params with a shuffled mapping and a reference NN."""
+    params = init_agile_params(cfg, seed=seed, device=TRAIN_DEVICE)
+    params["mapping"] = tuple(int(p) for p in np.random.RandomState(seed).permutation(
+        cfg.extractor_channels))
+    return params, _reference_params(cfg, seed + 1)
+
+
+def train_permute_check(cfg, params, images):
+    """(a) The permute Function on the card: forward, backward (the kernel
+    with the inverse permutation) and the backward's backward, bitwise
+    against index_select and its gradients; three launches of the kernel;
+    and the extracted features carry the gradient to the extractor."""
+    C = cfg.extractor_channels
+    N = images.shape[0] * (cfg.image_size // 4) ** 2
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(11)
+    perm = tuple(int(p) for p in np.random.RandomState(11).permutation(C))
+    perm_t = torch.tensor(perm, device=TRAIN_DEVICE)
+    x, g = (torch.randn(N, C, generator=gen, device=TRAIN_DEVICE).requires_grad_()
+            for _ in range(2))
+    v = torch.randn(N, C, generator=gen, device=TRAIN_DEVICE)
+    kern = _build.KERNELS["topk_split"]
+    before = kern.launches
+    y = channel_permute_op(x, perm)
+    (gx,) = torch.autograd.grad(y, x, g, create_graph=True)
+    (gg,) = torch.autograd.grad(gx, g, v)
+    torch.cuda.synchronize()
+    launches = kern.launches - before
+    xr = x.detach().requires_grad_()
+    yr = torch.index_select(xr, 1, perm_t)
+    (gxr,) = torch.autograd.grad(yr, xr, g.detach())
+    ggr = torch.index_select(v, 1, perm_t)
+    same = {"forward": torch.equal(y, yr), "backward": torch.equal(gx, gxr),
+            "double_backward": torch.equal(gg, ggr)}
+    check(all(same.values()), f"the permute Function differs from index_select: {same}")
+    check(launches == 3, f"the permute Function launched the kernel {launches} times, "
+          f"expected 3 (forward, backward, double backward)")
+    live = {**params, "extractor": tree_map(lambda t: t.detach().requires_grad_(),
+                                            params["extractor"])}
+    feats = extract_features(cfg, live, images[:2])
+    check(feats.requires_grad, "extract_features carries no gradient on the card")
+    (gw,) = torch.autograd.grad(feats.square().sum(), live["extractor"]["convs"][0]["w"])
+    check(bool(torch.isfinite(gw).all()) and gw.abs().max().item() > 0,
+          "no gradient reached the extractor through the permute")
+    print(f"phase 11a: permute Function at ({N}, {C}): forward, backward and double "
+          f"backward bitwise equal to index_select's ({launches} launches); "
+          f"extract_features requires grad, extractor grad max "
+          f"{gw.abs().max().item():.3e}")
+    return {"rows": N, "bitwise": same, "launches": launches}
+
+
+def train_loss_vs_cpu(cfg, card):
+    """(b) One agile_loss value-and-grad on the card against the same
+    machine's CPU, the same params, batch and labels."""
+    params, ref = _system(cfg)
+    data = SyntheticImages(ImageDatasetSpec(image_size=cfg.image_size, seed=0))
+    images, _ = data.batch(TRAIN_LOSS_B, seed=5)
+    cpu_params, cpu_ref = tree_to(params, "cpu"), tree_to(ref, "cpu")
+    with torch.no_grad():     # right on the even rows, wrong on the odd ones
+        pred = reference_nn_apply(cpu_ref, extract_features(cfg, cpu_params, images))
+    pred = pred.argmax(-1).numpy()
+    labels = np.where(np.arange(len(pred)) % 2 == 0, pred, (pred + 1) % cfg.n_classes)
+
+    def run(p, r):
+        return value_and_grad(
+            lambda q: agile_loss(cfg, {**q, "mapping": p["mapping"]}, r, images,
+                                 labels), _trainable(p))
+
+    with fp32_math():
+        run(params, ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (loss, metrics), grads = run(params, ref)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (loss_c, metrics_c), grads_c = run(cpu_params, cpu_ref)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss.item() - loss_c.item())
+    check(math.isfinite(loss.item()) and loss_err <= TRAIN_GRAD_TOL * max(1.0, abs(loss_c.item())),
+          f"agile_loss {loss.item()} on the card vs {loss_c.item()} on the CPU")
+    for key in ("xai_valid_fraction", "accuracy"):
+        check(metrics[key].item() == metrics_c[key].item(),
+              f"{key} {metrics[key].item()} on the card vs {metrics_c[key].item()}")
+    worst, worst_leaf = 0.0, 0
+    leaves_card = tree_leaves(grads)
+    for i, (gc, gp) in enumerate(zip(leaves_card, tree_leaves(grads_c))):
+        scale = gp.abs().max().item()
+        err = (gc.cpu() - gp).abs().max().item() / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, i
+        check(math.isfinite(err) and err <= TRAIN_GRAD_TOL,
+              f"agile_loss gradient leaf {i} differs from the CPU by {err:.3e} of its scale")
+    print(f"phase 11b: agile_loss at {cfg.image_size}^2, B={TRAIN_LOSS_B}, ig_steps "
+          f"{cfg.agile.ig_steps}: {loss.item():.6f} on the card, {loss_c.item():.6f} on "
+          f"the CPU (|d| {loss_err:.3e}); {len(leaves_card)} gradient leaves, worst "
+          f"|card - CPU| {worst:.3e} of the leaf's largest |gradient| (leaf {worst_leaf}; "
+          f"bar {TRAIN_GRAD_TOL}); valid fraction {metrics['xai_valid_fraction'].item()}; "
+          f"{card_s * 1e3:.1f} ms on the card, {cpu_s:.2f} s on the CPU  [{card}]")
+    return {"loss": loss.item(), "loss_cpu": loss_c.item(), "loss_abs_err": loss_err,
+            "grad_worst_rel_err": worst, "valid_fraction": metrics["xai_valid_fraction"].item(),
+            "card_ms": card_s * 1e3, "cpu_s": cpu_s}
+
+
+def train_kernel_checks(cfg, params, images, what: str, *, fused: bool = False):
+    """The kernels of the training path against their plain versions on
+    the card, at the shapes that path hands them: the STE's hard half on
+    the Remote-NN channels of ``params``' features of ``images``
+    (``quantize_ste``'s input), and with ``fused`` the offload pass on
+    the raw extractor rows (``evaluate``'s deployment forward), each
+    bitwise.  Returns {kernel: {"rows": N, "max_abs_err": 0.0}}."""
+    k, C = cfg.agile.k, cfg.extractor_channels
+    centers = params["quant"]["centers"].detach()
+    with torch.no_grad(), fp32_math():
+        remote = extract_features(cfg, params, images)[..., k:].contiguous()
+        out = {"quantize": {"rows": remote.numel() // (C - k), "max_abs_err": max_err(
+            quantize_op(remote, centers), quantize_ref(remote, centers))}}
+        if fused:
+            raw = extractor_apply(params["extractor"], images)
+            out["offload_fused"] = {"rows": raw.numel() // C, "max_abs_err": max_err(
+                fused_offload(raw, centers, perm=params["mapping"], k=k),
+                [t.contiguous() for t in offload_fused_ref(raw, centers,
+                                                           params["mapping"], k)])}
+    print(f"phase 11{what}: on the training path's own inputs "
+          f"({tuple(images.shape)} images), each kernel bit-exact with its plain "
+          f"version: {out}")
+    return out
+
+
+def kernel_split(prof) -> tuple[dict, int]:
+    """Device us of one profiled joint step by the profiler ranges the
+    port opens: the IG passes (``xai.integrated_gradients``), the outer
+    backward (``value_and_grad.backward`` inside ``joint_step.agile_loss``)
+    and the rest.  A kernel counts where the op that launched it started
+    on the host (the autograd thread's ops run while the main thread waits
+    inside its range).  Returns (split, kernels)."""
+    events = prof.events()
+    ranges = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU and e.name in
+                ("xai.integrated_gradients", "value_and_grad.backward",
+                 "joint_step.agile_loss")):
+            ranges.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+
+    def inside(t, name):
+        return any(a <= t <= b for a, b in ranges.get(name, ()))
+
+    split, n = {"ig_passes": 0.0, "outer_backward": 0.0, "rest": 0.0}, 0
+    for e in events:
+        if not e.kernels:
+            continue
+        t = e.time_range.start
+        key = ("ig_passes" if inside(t, "xai.integrated_gradients") else
+               "outer_backward" if (inside(t, "value_and_grad.backward")
+                                    and inside(t, "joint_step.agile_loss")) else "rest")
+        split[key] += sum(k.duration for k in e.kernels)
+        n += len(e.kernels)
+    return split, n
+
+
+def train_step_96(cfg, card):
+    """(c) Joint steps at 96^2, full widths, ig_steps 16, at the largest
+    B in TRAIN_BATCHES that fits the card (from the peaks of B = 4 and 8);
+    median step, images/s, peak memory and the profiler split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import cnn
+
+    params, ref = _system(cfg)
+    mapping = params["mapping"]
+    data = SyntheticImages(ImageDatasetSpec(image_size=cfg.image_size, seed=0))
+    state = {"p": _trainable(params), "r": ref}
+    state["o"], state["ro"] = sgd_init(state["p"]), sgd_init(ref)
+
+    def batch(B, i):
+        images, labels = data.batch(B, seed=i)
+        return (torch.as_tensor(images, device=TRAIN_DEVICE),
+                torch.as_tensor(labels, device=TRAIN_DEVICE).long())
+
+    def step(x, y, keep=True):
+        with fp32_math():
+            p, o, r, ro, loss, metrics = joint_step(
+                cfg, state["p"], state["o"], state["r"], state["ro"], x, y,
+                mapping=mapping, lr=0.02)
+        if keep:
+            state.update(p=p, o=o, r=r, ro=ro)
+        return loss
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    peaks = {}
+    for B in (4, 8):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(*batch(B, 0), keep=False)
+        torch.cuda.synchronize()
+        peaks[B] = torch.cuda.max_memory_allocated() - base
+    per_image = (peaks[8] - peaks[4]) / 4
+    fixed = peaks[4] - 4 * per_image
+    predicted = {B: base + fixed + B * per_image for B in TRAIN_BATCHES}
+    fits = [B for B in TRAIN_BATCHES if predicted[B] <= TRAIN_MEM_FRACTION * total]
+    check(fits, f"no batch of {TRAIN_BATCHES} fits: {predicted}")
+    B = max(fits)
+    print(f"phase 11c: joint step at {cfg.image_size}^2: peak {peaks[4] / 2**30:.2f} / "
+          f"{peaks[8] / 2**30:.2f} GiB at B = 4 / 8, so {per_image / 2**20:.0f} MiB per "
+          f"image ({per_image / cfg.agile.ig_steps / 2**20:.1f} MiB per image per IG "
+          f"step); predicted GiB {({b: round(v / 2**30, 1) for b, v in predicted.items()})} "
+          f"of {total / 2**30:.1f}: B = {B}")
+    torch.cuda.empty_cache()
+    step(*batch(B, 1))
+    # the timed steps' batches are drawn and on the card before the clock
+    timed = [batch(B, 2 + i) for i in range(TRAIN_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for x, y in timed:
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss.item()), f"joint step loss {loss.item()}")
+    kernel_checks = train_kernel_checks(cfg, {**state["p"], "mapping": mapping},
+                                        timed[-1][0], "c")
+    profiled = batch(B, 10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(*profiled)
+        torch.cuda.synchronize()
+    split, n_kernels = kernel_split(prof)
+    busy_us = sum(split.values())
+    if not busy_us:
+        print("phase 11c: torch.profiler recorded no device time: the split is "
+              "not measured")
+    # GroupNorm's kernels: the same step with every GroupNorm the identity
+    saved = cnn.groupnorm
+    cnn.groupnorm = lambda params, x, *, groups: x
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_ng:
+            step(*profiled, keep=False)
+            torch.cuda.synchronize()
+    finally:
+        cnn.groupnorm = saved
+    ng = profiled_kernels(prof_ng).values()
+    busy_ng, n_ng = sum(us for us, _ in ng), sum(n for _, n in ng)
+    med = statistics.median(times)
+    out = {"image_size": cfg.image_size, "batch": B, "ig_steps": cfg.agile.ig_steps,
+           "step_s": times, "median_ms": med * 1e3, "images_per_s": B / med,
+           "peak_bytes": peak, "probe_peak_bytes": peaks, "per_image_bytes": per_image,
+           "predicted_bytes": predicted, "kernel_us": busy_us, "kernels": n_kernels,
+           "split_us": split, "busy_share": busy_us / 1e6 / med,
+           "groupnorm_us": busy_us - busy_ng, "no_groupnorm_kernels": n_ng,
+           "groupnorm_share": (busy_us - busy_ng) / busy_us if busy_us else None,
+           "kernel_checks": kernel_checks}
+    print(f"phase 11c: joint step at {cfg.image_size}^2, B = {B}, ig_steps "
+          f"{cfg.agile.ig_steps}: median {med * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} "
+          f"(host clock, batches already on the card), {B / med:.1f} images/s, peak {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); torch.profiler: {n_kernels} kernels, "
+          f"{busy_us / 1e3:.1f} ms (busy {out['busy_share']:.1%}): IG passes "
+          f"{split['ig_passes'] / 1e3:.1f} ms, outer backward "
+          f"{split['outer_backward'] / 1e3:.1f} ms, rest {split['rest'] / 1e3:.1f} ms; "
+          f"GroupNorm (the step's kernels minus those of the step with GroupNorm the "
+          f"identity, {n_ng} kernels) {out['groupnorm_us'] / 1e3:.1f} ms = "
+          f"{out['groupnorm_share'] or 0:.1%}  [{card}]")
+    return out
+
+
+def train_pipeline(cfg, card):
+    """(d) ``run_full_pipeline`` through its entry point, launch counts
+    from 0; the report, and the predictions across
+    ``finalize_for_deployment``."""
+    captured = {}
+    finalize = agile_pipeline.finalize_for_deployment
+
+    def spy(c, params):
+        captured["before"] = params
+        return finalize(c, params)
+
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    agile_pipeline.finalize_for_deployment = spy
+    try:
+        t0 = time.perf_counter()
+        params, ref, report, history, data = run_full_pipeline(
+            cfg, seed=0, pretrain_steps=PIPE_PRETRAIN, joint_steps=PIPE_JOINT,
+            batch_size=PIPE_BATCH)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        agile_pipeline.finalize_for_deployment = finalize
+    launches = {n: _build.KERNELS[n].launches for n in TRAIN_KERNELS}
+    expected = {"topk_split": 3 * PIPE_JOINT, "quantize": PIPE_JOINT, "offload_fused": 4}
+    print(f"phase 11d: launches on the training path: {launches} (expected {expected}: "
+          f"per joint step the permute forward and backward and the reference "
+          f"tracking's forward, the STE's hard half; one fused pass per evaluate batch)")
+    check(launches == expected, f"training-path launches {launches}, expected {expected}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in report.values()),
+          f"report {report}")
+    check(all(math.isfinite(r["loss"]) for r in history), "non-finite joint loss")
+    # a stage-C batch through the trained params' STE input, and evaluate's
+    # first batch (128 images) through the deployed and the trained params
+    joint_x = agile_pipeline._batch(data, PIPE_BATCH, 20_000 + PIPE_JOINT - 1,
+                                    TRAIN_DEVICE)[0]
+    eval_x = agile_pipeline._batch(data, 128, 900_000, TRAIN_DEVICE)[0]
+    kernel_checks = {"joint": train_kernel_checks(cfg, captured["before"], joint_x, "d"),
+                     "evaluate": train_kernel_checks(cfg, params, eval_x, "d", fused=True),
+                     "evaluate_trained_mapping": train_kernel_checks(
+                         cfg, captured["before"], eval_x, "d", fused=True)}
+    images, _ = data.batch(PIPE_BATCH, seed=777)
+    with torch.no_grad(), fp32_math():
+        before, _ = agile_forward(cfg, captured["before"], images)
+        after, _ = agile_forward(cfg, params, images)
+    delta = (before - after).abs().max().item()
+    same_pred = torch.equal(before.argmax(-1), after.argmax(-1))
+    check(same_pred and delta <= GATEWAY_BATCH_TOL,
+          f"finalize_for_deployment moved the logits by {delta} (predictions equal: {same_pred})")
+    print(f"phase 11d: run_full_pipeline at {cfg.image_size}^2, B = {PIPE_BATCH}, "
+          f"{PIPE_PRETRAIN} pretrain + {PIPE_JOINT} joint steps: {wall_s:.1f} s; report "
+          f"{report}; joint loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}; "
+          f"finalize_for_deployment: predictions equal, logits |d| {delta:.3e}  [{card}]")
+    return launches, {"wall_s": wall_s, "report": report, "launches": launches,
+                      "loss_first": history[0]["loss"], "loss_last": history[-1]["loss"],
+                      "finalize_logit_delta": delta, "kernel_checks": kernel_checks}
+
+
+def phase_train(card):
+    """Phase 11: the training path (a)-(d); returns (launches, numbers)."""
+    t0 = time.perf_counter()
+    cfg96 = TRAIN_CFG_96
+    params96, _ = _system(cfg96)
+    images = torch.as_tensor(SyntheticImages(ImageDatasetSpec(
+        image_size=cfg96.image_size, seed=0)).batch(32, seed=1)[0], device=TRAIN_DEVICE)
+    numbers = {"permute": train_permute_check(cfg96, params96, images)}
+    del params96, images
+    parts = {"a": time.perf_counter() - t0}
+    numbers["loss_vs_cpu"] = train_loss_vs_cpu(TRAIN_CFG, card)
+    parts["b"] = time.perf_counter() - t0 - sum(parts.values())
+    numbers["step_96"] = train_step_96(cfg96, card)
+    torch.cuda.empty_cache()
+    parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+    launches, numbers["pipeline"] = train_pipeline(TRAIN_CFG, card)
+    parts["d"] = time.perf_counter() - t0 - sum(parts.values())
+    numbers["phase_s"], numbers["part_s"] = time.perf_counter() - t0, parts
+    print(f"phase 11: {numbers['phase_s']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -1222,6 +1632,7 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
@@ -1264,8 +1675,10 @@ def main() -> int:
                                             llm_errs, card)
     rows += llm_rows
     gw_launches, gw = phase_gateway(cfg, params, card)
+    train_launches, train = phase_train(card)
     for row in rows:               # the kernels' launches over every path
-        row["launches"] += gw_launches[row["name"]]
+        row["launches"] += (gw_launches[row["name"]]
+                            + train_launches.get(row["name"], 0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1284,8 +1697,10 @@ def main() -> int:
                                "timing": llm_timing},
                        "gateway": {"clients": GATEWAY_CLIENTS,
                                    "requests_per_client": GATEWAY_REQS,
-                                   "width": GATEWAY_WIDTH, **gw}},
+                                   "width": GATEWAY_WIDTH, **gw},
+                       "train": train},
                       f, indent=1)
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

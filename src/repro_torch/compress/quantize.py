@@ -1,7 +1,9 @@
-"""Learning-based quantization of offloaded features (paper §6), forward
-only: a scalar codebook of L centers, soft assignment for training and
-hard nearest-center indices for deployment.  The hard indices are what
-the runtime LZW-compresses and puts on the radio."""
+"""Learning-based quantization of offloaded features (paper §6): a
+trainable scalar codebook of L centers.  Training uses the
+straight-through estimator (hard values forward, the softmax-weighted
+soft assignment's gradient backward); deployment uses hard
+nearest-center indices, which the runtime LZW-compresses and puts on the
+radio.  The hard half is the quantize kernel on CUDA tensors."""
 from __future__ import annotations
 
 import torch
@@ -32,6 +34,17 @@ def hard_indices(params, x) -> torch.Tensor:
 
 def dequantize(params, idx) -> torch.Tensor:
     return params["centers"][idx]
+
+
+def quantize_ste(params, x, *, temperature: float = 1.0):
+    """Train-time op: hard values forward, soft gradient backward (to x and
+    to the centers).  The hard half runs without a graph, as JAX's
+    ``stop_gradient`` cuts it: one quantize-kernel launch on CUDA."""
+    soft = soft_quantize(params, x, temperature=temperature)
+    with torch.no_grad():
+        _, hard = quantize_op(x.detach().contiguous(), params["centers"].detach())
+        step = hard - soft
+    return soft + step
 
 
 def quantization_bits(n_centers: int) -> int:

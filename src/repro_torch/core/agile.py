@@ -1,5 +1,5 @@
-"""AgileNN joint model (paper Figure 5), deployment half: extractor + Local
-NN + Remote NN + combiner + quantizer.
+"""AgileNN joint model (paper Figure 5): extractor + Local NN + Remote NN
++ combiner + quantizer, with the XAI-driven skewness-manipulation loss.
 
 Parameter tree (plain dicts of tensors, as in ``repro.core.agile``):
   extractor   2-conv feature extractor (deployed on the weak device)
@@ -14,8 +14,10 @@ or ``repro_torch.bridge.params_from_numpy`` was given; the functions here
 run there.  On CUDA the offload pass is the fused kernel
 (``kernels/offload_fused``), and ``use_fused=False`` runs its two unfused
 halves, the permute (``kernels/topk_split``) and the quantizer
-(``kernels/quantize``).  Training (XAI, skewness losses, STE) is not
-ported yet.
+(``kernels/quantize``).  Training (``agile_forward(train=True)``,
+``agile_loss``) keeps JAX's two-pass composition: the permute kernel,
+whose backward is the same kernel with the inverse permutation, then the
+straight-through quantizer, whose hard half is the quantize kernel.
 """
 from __future__ import annotations
 
@@ -23,12 +25,20 @@ from functools import partial
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch import resolve_device, tree_to
-from repro_torch.compress.quantize import dequantize, hard_indices, quantizer_init
+from repro_torch import resolve_device, tree_map, tree_to
+from repro_torch.compress.quantize import (
+    dequantize,
+    hard_indices,
+    quantize_ste,
+    quantizer_init,
+)
 from repro_torch.configs.agilenn_cifar import AgileNNConfig
 from repro_torch.core.combiner import alpha_value, combine_predictions, combiner_init
+from repro_torch.core.skewness import combined_loss
 from repro_torch.core.splitter import merge_features, split_features
+from repro_torch.core.xai import evaluate_importance
 from repro_torch.kernels.offload_fused.ops import fused_offload
 from repro_torch.kernels.topk_split.ops import channel_permute_op
 from repro_torch.models.cnn import (
@@ -36,6 +46,7 @@ from repro_torch.models.cnn import (
     extractor_init,
     local_nn_apply,
     local_nn_init,
+    reference_nn_apply,
     remote_nn_apply,
     remote_nn_init,
 )
@@ -67,7 +78,9 @@ def _images(params, images) -> torch.Tensor:
 
 
 def extract_features(cfg: AgileNNConfig, params, images):
-    """Extractor + the deployed channel permutation."""
+    """Extractor + the channel permutation (the training-time mapping
+    layer, or the deployed one), differentiable in the extractor's
+    params on either device."""
     raw = extractor_apply(params["extractor"], _images(params, images))
     return channel_permute_op(raw, params["mapping"])
 
@@ -85,22 +98,104 @@ def _offload(cfg: AgileNNConfig, params, images, use_fused: bool):
     return f_local, f_remote, idx, dequantize(params["quant"], idx)
 
 
-def agile_forward(cfg: AgileNNConfig, params, images, *,
-                  alpha_override=None, use_fused: bool = True):
-    """The deployment pipeline, ``repro``'s ``agile_forward(train=False)``
-    (hard quantization).  Returns (combined_logits, internals dict)."""
-    f_local, f_remote, _, f_remote_q = _offload(cfg, params, images, use_fused)
+def _labels(params, labels) -> torch.Tensor:
+    """Labels (numpy or tensor) as int64 on the params' device."""
+    return torch.as_tensor(labels, device=params["quant"]["centers"].device).long()
+
+
+def agile_forward(cfg: AgileNNConfig, params, images, *, train: bool = False,
+                  quantize: bool = True, alpha_override=None,
+                  use_fused: bool = True):
+    """The split pipeline.  Returns (combined_logits, internals dict).
+
+    The default is the deployment pipeline, ``repro``'s
+    ``agile_forward(train=False)`` (hard quantization, the fused pass
+    unless ``use_fused=False``); the JAX package defaults to
+    ``train=True``.  ``train=True`` is the differentiable two-pass
+    composition: permute, split, and the straight-through quantizer
+    (``quantize=False`` skips the quantizer)."""
+    if quantize and not train:
+        f_local, f_remote, _, f_remote_q = _offload(cfg, params, images, use_fused)
+        feats = merge_features(f_local, f_remote)
+    else:
+        feats = extract_features(cfg, params, images)
+        f_local, f_remote = split_features(feats, cfg.agile.k)
+        f_remote_q = (quantize_ste(params["quant"], f_remote) if quantize
+                      else f_remote)
     local_logits = local_nn_apply(params["local"], f_local)
     remote_logits = remote_nn_apply(params["remote"], f_remote_q)
     logits = combine_predictions(params["combiner"], local_logits, remote_logits,
                                  temperature=cfg.agile.alpha_temperature,
                                  alpha_override=alpha_override)
     return logits, {
-        "features": merge_features(f_local, f_remote),
+        "features": feats,
         "local_logits": local_logits,
         "remote_logits": remote_logits,
         "alpha": alpha_value(params["combiner"], cfg.agile.alpha_temperature),
     }
+
+
+def reference_predict_fn(cfg: AgileNNConfig, ref_params) -> Callable:
+    """predict(features) -> logits, for the XAI tool (the reference NN
+    consumes the full extracted feature map, §3.1)."""
+    def predict(feats):
+        return reference_nn_apply(ref_params, feats)
+    return predict
+
+
+def batch_importance(cfg: AgileNNConfig, ref_params, feats, labels, *,
+                     method: str = "ig"):
+    """Normalized channel importance (B, C) + validity weights (B,).
+
+    Per §3.1 the reference NN's output is only used when it predicts the
+    training label correctly; other samples get weight 0 in the skewness
+    losses.  labels: int64 tensor on the features' device."""
+    predict = reference_predict_fn(cfg, ref_params)
+    imp = evaluate_importance(predict, feats, labels, method=method,
+                              steps=cfg.agile.ig_steps)
+    with torch.no_grad():
+        ref_pred = torch.argmax(predict(feats), dim=-1)
+    valid = (ref_pred == labels).float()
+    return imp, valid
+
+
+def cross_entropy(logits, labels):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, labels.long()[:, None]))
+
+
+def agile_loss(cfg: AgileNNConfig, params, ref_params, images, labels, *,
+               xai_method: str = "ig", ordering: str = "disorder",
+               lam: "float | None" = None):
+    """The unified training loss (§4.2).  Returns (loss, metrics), the
+    metrics detached.
+
+    The reference NN is detached (JAX's ``stop_gradient``); the gradient
+    reaches the extractor through the features, through the XAI
+    importance (a second derivative) as well as the prediction.
+    ordering/lam overrides feed the Figure-9/Figure-10 ablations."""
+    labels = _labels(params, labels)
+    logits, internals = agile_forward(cfg, params, images, train=True)
+    pred_loss = cross_entropy(logits, labels)
+
+    imp, valid = batch_importance(cfg, tree_map(lambda t: t.detach(), ref_params),
+                                  internals["features"], labels,
+                                  method=xai_method)
+    # invalid rows take an 'ideal' importance that gives zero loss: all
+    # mass on channel 0
+    B, C = imp.shape
+    ideal = F.one_hot(torch.zeros(B, dtype=torch.long, device=imp.device),
+                      C).float()
+    imp_eff = torch.where(valid[:, None] > 0, imp, ideal)
+
+    total, metrics = combined_loss(pred_loss, imp_eff, k=cfg.agile.k,
+                                   rho=cfg.agile.rho,
+                                   lam=cfg.agile.lam if lam is None else lam,
+                                   ordering=ordering)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    metrics.update(accuracy=acc, alpha=internals["alpha"],
+                   xai_valid_fraction=torch.mean(valid))
+    return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def device_forward(cfg: AgileNNConfig, params, images, *, use_fused: bool = True):

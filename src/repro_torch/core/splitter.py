@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.topk_split.ops import channel_permute_op
+
 
 def split_features(feats: torch.Tensor, k: int):
     """feats: (B, ..., C) -> (local (B, ..., k), remote (B, ..., C-k))."""
@@ -15,3 +17,9 @@ def split_features(feats: torch.Tensor, k: int):
 
 def merge_features(local: torch.Tensor, remote: torch.Tensor) -> torch.Tensor:
     return torch.cat([local, remote], dim=-1)
+
+
+def apply_channel_permutation(feats: torch.Tensor, perm) -> torch.Tensor:
+    """Reorder channels, ``feats[..., perm]`` (the training-time mapping
+    layer): the permute kernel on CUDA tensors, differentiable in feats."""
+    return channel_permute_op(feats, tuple(int(p) for p in perm))

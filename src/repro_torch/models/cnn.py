@@ -19,6 +19,13 @@ from repro_torch.nn.norm import groupnorm, groupnorm_init
 
 
 def _relu6(x):
+    """min(max(x, 0), 6).  Where a gradient is taken it is the JAX
+    package's form, whose derivative is 0.5 at exactly 0 and 6 (ties split
+    evenly; ``torch.clamp`` gives 1 there, and zero preactivations are
+    common: zero biases at init over all-zero windows); otherwise the same
+    values in one ``clamp``."""
+    if x.requires_grad:
+        return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
     return torch.clamp(x, 0.0, 6.0)
 
 

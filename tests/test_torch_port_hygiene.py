@@ -60,6 +60,17 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
         OffloadGateway(cfg, init_agile_params(cfg, 0), fleet)
     assert len(OffloadGateway(cfg, p, fleet).run().traces) == 2
 
+    from repro_torch.data.synthetic import ImageDatasetSpec, SyntheticImages
+    from repro_torch.train.agile_pipeline import pretrain_reference, run_full_pipeline
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_full_pipeline(cfg, pretrain_steps=0, joint_steps=0)
+    data = SyntheticImages(ImageDatasetSpec(image_size=cfg.image_size))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain_reference(cfg, data, steps=0)
+    ex, ref, _ = pretrain_reference(cfg, data, steps=0, device="cpu")
+    assert ex["convs"][0]["w"].device.type == "cpu"
+
     llm = get_config("qwen2-0.5b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(llm, 0)
