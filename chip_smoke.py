@@ -80,6 +80,27 @@ Phases, each of which raises on failure:
      across ``finalize_for_deployment``; then, bitwise against their plain
      versions, the quantize kernel on a stage-C batch's STE input and the
      fused offload pass on evaluate's first batch (128 images).
+  the continuous scheduler (slice 7):
+ 12. (a) flash attention at a staged segment's shape (B = 1, T = 128,
+     S in {256, 512}, every q_offset the bucket stages) and a bucketed
+     group prefill's (B = 4, ragged kv_valid_len), decode attention on the
+     16-row pool with depths spread over its splits, and RMSNorm at the
+     path's rows (16, 128, 256, 512 of d = 896), against their plain
+     versions (atol = rtol = 2e-5); (b) qwen2-0.5b at full width through
+     ``ServeEngine(max_len=1024, scheduler=SCHED_CFG).generate`` on 48
+     requests (prompts 16-512, budgets 8-64, greedy), launch counts from
+     0 and checked exactly against the forwards the run made (the
+     backbone's prefill / prefill_chunk / decode_step wrapped with
+     counters), its wall time and tokens/s (no profiler), rounds, decode
+     steps run and live, host time by telemetry span; the card's busy
+     share over eight rounds of a second run under torch.profiler, against
+     that window's own wall time; one decode step alone at the pool's
+     shape, host ms against its kernels' ms; (c) overlap off giving exactly
+     the same tokens, every 4th request against its decode alone, a
+     deadline eviction under a fake clock (a prefix of its run), a
+     suspend/resume, 6 requests on the card against the port's CPU, and
+     a sampled queue repeating itself under one seed.  Token checks pass
+     equal or at a near-tie (phase 8's rule).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -87,6 +108,7 @@ Prints the card line, a {"kernels": [...]} line, and last
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -171,6 +193,7 @@ from repro_torch.serve.gateway import (  # noqa: E402
 )
 from repro_torch.serve.gateway import gateway as gateway_mod  # noqa: E402
 from repro_torch.serve.offload import measure_payload, run_offload_inference  # noqa: E402
+from repro_torch.serve.scheduler import ContinuousScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.serve.telemetry import Telemetry  # noqa: E402
 from repro_torch.train import agile_pipeline  # noqa: E402
 from repro_torch.train.agile_pipeline import joint_step, run_full_pipeline  # noqa: E402
@@ -234,6 +257,24 @@ TRAIN_LOSS_B, TRAIN_GRAD_TOL = 8, 1e-3
 TRAIN_BATCHES, TRAIN_MEM_FRACTION, TRAIN_TIMED_STEPS = (64, 32, 16, 8), 0.9, 3
 # run_full_pipeline at 32^2, B = 64, its 300 + 400 steps cut to the phase's time
 PIPE_BATCH, PIPE_PRETRAIN, PIPE_JOINT = 64, 40, 12
+
+# the continuous scheduler: qwen2-0.5b at full width through
+# ServeEngine(max_len=1024, scheduler=SCHED_CFG); 48 requests, prompt
+# lengths in [16, 512] and budgets in [8, 64], all greedy
+SCHED_CFG = SchedulerConfig(buckets=(64, 128, 256, 512), max_slots=16,
+                            prefill_group=4, chunk=8, page_size=32,
+                            prefill_segment=128)
+SCHED_REQS, SCHED_SEED = 48, 3
+# the sampled rerun takes the queue's first 16 (its rounds run twice)
+SCHED_SAMPLED = 16
+# a second run of the queue, its rounds SCHED_PROF_FROM + 1 .. +
+# SCHED_PROF_ROUNDS traced by torch.profiler (the card's busy share)
+SCHED_PROF_FROM, SCHED_PROF_ROUNDS = 40, 8
+# the decode step timed alone at the pool's shape: 16 rows at these depths
+SCHED_STEP_DEPTHS = tuple(range(16, 577, 37))
+# the same scheduler on the card and on the CPU: 6 requests of 16-200
+# tokens, 12 new tokens each, 64-token segments
+SCHED_CPU_LENS, SCHED_CPU_NEW, SCHED_CPU_SEGMENT = (16, 40, 64, 100, 150, 200), 12, 64
 
 
 def check(cond, msg: str) -> None:
@@ -767,16 +808,38 @@ def phase_llm_path(cfg, params, card):
                       "greedy_tokens_row0": greedy[0].tokens.tolist()}
 
 
-def cpu_margin(cfg, cpu, prompt, tokens, step: int):
-    """The CPU's top-2 logit margin at decode position ``step`` of one row,
-    fed its own greedy ``tokens``, and the top logit's size."""
-    logits, cache, T = bb.prefill(cfg, cpu, {"tokens": torch.as_tensor(prompt[None])},
-                                  max_len=CPU_MAX_LEN)
+def top2_margin(cfg, params, prompt, tokens, step: int, max_len: int = CPU_MAX_LEN):
+    """The top-2 logit margin at decode position ``step`` of one row, fed
+    its own greedy ``tokens`` on the params' device (the card or the CPU),
+    and the top logit's size."""
+    dev = params["embed"]["table"].device
+    logits, cache, T = bb.prefill(cfg, params,
+                                  {"tokens": torch.as_tensor(prompt[None], device=dev)},
+                                  max_len=max_len)
     for i in range(step):
-        logits, cache = bb.decode_step(cfg, cpu, torch.tensor([[int(tokens[i])]]),
-                                       cache, T + i)
+        logits, cache = bb.decode_step(
+            cfg, params, torch.tensor([[int(tokens[i])]], device=dev), cache, T + i)
     top = logits[0].topk(2).values
     return (top[0] - top[1]).item(), top[0].abs().item()
+
+
+def near_tie(cfg, params, prompt, ref, got, what: str, max_len: int = CPU_MAX_LEN):
+    """``got`` equals the greedy tokens ``ref`` (decoded from ``params``) up
+    to its length, or the first divergence sits on a near-tie of ``ref``'s
+    run: a top-2 margin within what LLM_LOGIT_TOL of difference can swap.
+    Returns the step of the divergence, None when there is none."""
+    n = min(len(ref), len(got))
+    split = np.flatnonzero(np.asarray(ref[:n]) != np.asarray(got[:n]))
+    if split.size == 0:
+        return None
+    i = int(split[0])
+    margin, top = top2_margin(cfg, params, prompt, ref, i, max_len)
+    bar = 2 * (LLM_LOGIT_TOL + LLM_LOGIT_TOL * top)
+    print(f"{what}: greedy tokens diverge at step {i}; the top-2 margin of "
+          f"the reference there is {margin:.3e} (a swap needs < {bar:.3e})")
+    check(margin <= bar, f"{what}: diverges at step {i} with a top-2 margin "
+          f"of {margin}, beyond the logit tolerance")
+    return i
 
 
 def phase_llm_vs_cpu(cfg, params):
@@ -802,13 +865,7 @@ def phase_llm_vs_cpu(cfg, params):
         if split.size == 0:
             same += 1
             continue
-        i = int(split[0])
-        margin, top = cpu_margin(cfg, cpu, prompts[b], h.tokens, i)
-        bar = 2 * (LLM_LOGIT_TOL + LLM_LOGIT_TOL * top)
-        print(f"phase 8: row {b}: greedy tokens diverge at step {i}; the CPU's "
-              f"top-2 margin there is {margin:.3e} (a swap needs < {bar:.3e})")
-        check(margin <= bar, f"row {b} diverges at step {i} with a CPU top-2 "
-              f"margin of {margin}, beyond the logit tolerance")
+        near_tie(cfg, cpu, prompts[b], h.tokens, c.tokens, f"phase 8: row {b}")
     print(f"phase 8: greedy tokens ({CPU_NEW} per row) equal on the card and "
           f"the CPU on {same} of {CPU_BATCH} rows")
     return {"prefill_logit_max_abs_diff_vs_cpu": diff,
@@ -1620,6 +1677,345 @@ def phase_train(card):
     return launches, numbers
 
 
+def sched_queue(cfg, temps=None):
+    """The phase's 48 requests: lengths, budgets and tokens from one seed."""
+    rng = np.random.RandomState(SCHED_SEED)
+    lens = rng.randint(16, 513, SCHED_REQS)
+    new = rng.randint(8, 65, SCHED_REQS)
+    temps = temps or [0.0] * SCHED_REQS
+    return [Request(tokens=rng.randint(0, cfg.vocab, L), max_new_tokens=int(n),
+                    temperature=t) for L, n, t in zip(lens, new, temps)]
+
+
+class FakeClock:
+    """A clock that advances one second at every read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 1.0
+        return self.t
+
+
+def sched_kernel_checks(cfg):
+    """The three kernels at the scheduler's shapes against their plain
+    versions on the card: flash at a staged segment (B = 1, T = 128 at
+    every q_offset a 256- or 512-slot bucket stages) and a bucketed group
+    prefill (B = 4, ragged kv_valid_len, a dummy row of 1); decode
+    attention on the pool (16 rows, depths spread over the splits, one
+    at 1); RMSNorm at the rows each forward normalises (16 for the pool's
+    decode, 128 for a segment, 4 x 64 and 4 x 128 for a group)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    seg, S_pool = SCHED_CFG.prefill_segment, 1024
+    errs, cases = {"flash_attention": 0.0, "decode_attention": 0.0,
+                   "rmsnorm": 0.0}, 0
+    for S in (256, 512):
+        for off in range(0, S, seg):
+            q, k, v = (randn(1, seg, Hq, D), randn(1, S, Hkv, D),
+                       randn(1, S, Hkv, D))
+            errs["flash_attention"] = max(errs["flash_attention"], close_err(
+                flash_attention_cuda(q, k, v, q_offset=off),
+                flash_attention_ref(q, k, v, q_offset=off), LLM_KERNEL_TOL,
+                f"flash_attention staged segment S={S} q_offset={off}"))
+            cases += 1
+    for T, valid in ((128, [128, 70, 1, 100]), (64, [64, 33, 17, 1])):
+        q, k, v = randn(4, T, Hq, D), randn(4, T, Hkv, D), randn(4, T, Hkv, D)
+        vl = torch.tensor(valid, device="cuda")
+        errs["flash_attention"] = max(errs["flash_attention"], close_err(
+            flash_attention_cuda(q, k, v, kv_valid_len=vl),
+            flash_attention_ref(q, k, v, kv_valid_len=vl), LLM_KERNEL_TOL,
+            f"flash_attention group prefill T={T} kv_valid_len={valid}"))
+        cases += 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = split_slots(SCHED_CFG.max_slots, S_pool, Hkv, sms)
+    depths = [1] + [min(S_pool, 17 + i * (S_pool - 17) // 14) for i in range(15)]
+    depths[5], depths[9] = split, split + 1
+    rows = torch.tensor(depths, dtype=torch.int32, device="cuda")
+    q = randn(SCHED_CFG.max_slots, 1, Hq, D)
+    kc, vc = (randn(SCHED_CFG.max_slots, S_pool, Hkv, D) for _ in range(2))
+    errs["decode_attention"] = close_err(
+        decode_attention_cuda(q, kc, vc, rows, page_size=auto_page_size(S_pool)),
+        decode_attention_ref(q, kc, vc, rows), LLM_KERNEL_TOL,
+        f"decode_attention pool depths {depths}")
+    norm_rows = (SCHED_CFG.max_slots, seg, 4 * 64, 4 * 128)
+    for N in norm_rows:
+        x, sc = randn(N, cfg.d_model) * 3, 1 + 0.1 * randn(cfg.d_model)
+        errs["rmsnorm"] = max(errs["rmsnorm"], close_err(
+            rmsnorm_cuda(x, sc), rmsnorm_ref(x, sc), LLM_KERNEL_TOL,
+            f"rmsnorm N={N} d={cfg.d_model}"))
+    print(f"phase 12a: {cases} flash cases, the pool's decode (depths "
+          f"{depths}, {split}-slot splits) and RMSNorm at {norm_rows} rows of "
+          f"{cfg.d_model} against the plain versions within "
+          f"{LLM_KERNEL_TOL} abs + rel: max |err| {errs}")
+    return errs
+
+
+def count_forwards():
+    """Wrap the backbone's three forwards with call counters; returns the
+    counts and a function that unwraps them."""
+    calls = {"prefill": 0, "prefill_chunk": 0, "decode_step": 0}
+    real = {n: getattr(bb, n) for n in calls}
+
+    def wrap(name):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return counted
+
+    for n in calls:
+        setattr(bb, n, wrap(n))
+    return calls, lambda: [setattr(bb, n, f) for n, f in real.items()]
+
+
+def phase_sched(cfg, params, card):
+    """Phase 12: the continuous scheduler at full width; returns (launches,
+    numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    errs = sched_kernel_checks(cfg)
+    L = cfg.n_layers
+    reqs = sched_queue(cfg)
+
+    # (b) the queue through the entry point, launch counts from 0, no
+    # profiler: its wall time gives tokens/s; each round's wall time is kept
+    tel = Telemetry(enabled=True)
+    eng = ServeEngine(cfg, params, max_len=LLM_MAX_LEN, scheduler=SCHED_CFG,
+                      telemetry=tel)
+    sched = eng.scheduler
+    round_s = []
+
+    def timed_step(step=sched.step):
+        t = time.perf_counter()
+        out = step()
+        round_s.append(time.perf_counter() - t)
+        return out
+
+    sched.step = timed_step
+    calls, unwrap = count_forwards()
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    unwrap()
+    launches = {n: _build.KERNELS[n].launches for n in LLM_KERNELS}
+    del sched.step
+    steps, live = sched.steps_run, sched.steps_live()
+    forwards = calls["prefill"] + calls["prefill_chunk"] + calls["decode_step"]
+    expect = {"rmsnorm": (2 * L + 1) * forwards,
+              "flash_attention": L * (calls["prefill"] + calls["prefill_chunk"]),
+              "decode_attention": L * calls["decode_step"]}
+    print(f"phase 12b: launches on the scheduler path: {launches} (expected "
+          f"{expect}: {calls['prefill']} group prefills, {calls['prefill_chunk']} "
+          f"staged segments, {calls['decode_step']} decode steps)")
+    check(launches == expect, f"scheduler launches {launches}, expected {expect}")
+    check(calls["decode_step"] == steps, f"{calls['decode_step']} decode steps, "
+          f"the scheduler counts {steps}")
+    for n, c in launches.items():
+        check(c > 0, f"kernel {n} was not launched on the scheduler path")
+    check(calls["prefill_chunk"] > 0, "no admission staged")
+    tokens = [c.tokens.tolist() for c in outs]
+    for r, c in zip(reqs, outs):
+        check(len(c.tokens) == r.max_new_tokens and not c.timed_out
+              and min(c.tokens) >= 0 and max(c.tokens) < cfg.vocab,
+              f"completion of {len(c.tokens)} tokens for a budget of "
+              f"{r.max_new_tokens}")
+    generated = sum(len(t) for t in tokens)
+    spans = {}
+    for sp in tel.trace.by_track("scheduler"):
+        spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur
+    counters = {f"{c.name}{dict(c.labels) or ''}": c.value
+                for c in tel.metrics.instruments() if c.name.startswith("sched.")}
+    print(f"phase 12b: {cfg.name} at full width: ServeEngine.generate of "
+          f"{SCHED_REQS} requests (prompts {min(len(r.tokens) for r in reqs)}-"
+          f"{max(len(r.tokens) for r in reqs)}, budgets "
+          f"{min(r.max_new_tokens for r in reqs)}-{max(r.max_new_tokens for r in reqs)}) "
+          f"in {run_s:.3f} s, no profiler, {generated} tokens, "
+          f"{generated / run_s:.1f} tokens/s; "
+          f"{sched._round} rounds, {steps} decode steps run, {live} with a live "
+          f"row; host s by span {{{', '.join(f'{k}: {v:.3f}' for k, v in spans.items())}}}; "
+          f"counters {counters}  [{card}]")
+
+    # the card's busy share: a second run of the queue, its rounds
+    # SCHED_PROF_FROM + 1 .. + SCHED_PROF_ROUNDS under torch.profiler
+    # (device activity only), the card drained before and after them, the
+    # kernels' time against the window's own wall time; the run stops there
+    prof_sched = ContinuousScheduler(cfg, params, sched=SCHED_CFG,
+                                     max_len=LLM_MAX_LEN)
+    for r in reqs:
+        prof_sched.submit(r)
+    for _ in range(SCHED_PROF_FROM):
+        prof_sched.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SCHED_PROF_ROUNDS):
+            prof_sched.step()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    del prof_sched
+    kernels = profiled_kernels(prof)
+    busy_s = sum(us for us, _ in kernels.values()) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    check(busy_s > 0, "torch.profiler recorded no device time over the window")
+    rounds = [SCHED_PROF_FROM + 1, SCHED_PROF_FROM + SCHED_PROF_ROUNDS]
+    busy = {"rounds": rounds, "kernel_s": busy_s, "window_s": window_s,
+            "share": busy_s / window_s,
+            "same_rounds_untraced_s": sum(round_s[rounds[0] - 1:rounds[1]]),
+            "launches": sum(n for _, n in kernels.values()),
+            "top_us": {k[:60]: [us, n] for k, (us, n) in top}}
+    print(f"phase 12b: a second run, rounds {rounds[0]}-{rounds[1]} under "
+          f"torch.profiler: kernels {busy_s:.3f} s in the window's "
+          f"{window_s:.3f} s, busy {busy['share']:.1%} (the same rounds took "
+          f"{busy['same_rounds_untraced_s']:.3f} s in the untraced run); "
+          f"{busy['launches']} kernels, the largest (us, launches): "
+          f"{busy['top_us']}  [{card}]")
+    del prof
+
+    # one decode step alone at the pool's shape: host time around
+    # synchronised calls, and its kernels by torch.profiler
+    dev = params["embed"]["table"].device
+    cache = bb.init_cache(cfg, SCHED_CFG.max_slots, LLM_MAX_LEN, device=dev)
+    step_tok = torch.as_tensor(np.random.RandomState(SCHED_SEED).randint(
+        0, cfg.vocab, (SCHED_CFG.max_slots, 1)), device=dev)
+    depth = torch.tensor(SCHED_STEP_DEPTHS, device=dev)
+
+    def pool_step():
+        return bb.decode_step(cfg, params, step_tok, cache, depth)
+
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool_step()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    step_kernels = device_kernels(pool_step, reps=5)
+    del cache
+    pool = {"depths": list(SCHED_STEP_DEPTHS),
+            "host_ms": statistics.median(host[1:]) * 1e3,
+            "kernel_ms": sum(us for us, _ in step_kernels.values()) / 1e3,
+            "launches": sum(n for _, n in step_kernels.values())}
+    check(pool["kernel_ms"] > 0, "torch.profiler recorded no device time for "
+          "the pool's decode step")
+    print(f"phase 12b: one decode step at the pool's shape ({SCHED_CFG.max_slots} "
+          f"rows, depths {SCHED_STEP_DEPTHS[0]}-{SCHED_STEP_DEPTHS[-1]}): "
+          f"{pool['host_ms']:.3f} ms on the host (median of 10 synchronised "
+          f"calls) against {pool['kernel_ms']:.3f} ms of kernels by "
+          f"torch.profiler ({pool['launches']:.0f} launches); in generate a "
+          f"decode step costs {spans.get('decode_chunk', 0.0) / steps * 1e3:.3f} "
+          f"ms of host  [{card}]")
+
+    # (c) overlap off: the same tokens exactly
+    t0 = time.perf_counter()
+    serial = ServeEngine(cfg, params, max_len=LLM_MAX_LEN,
+                         scheduler=dataclasses.replace(SCHED_CFG, overlap=False)
+                         ).generate(reqs)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    check([c.tokens.tolist() for c in serial] == tokens,
+          "overlap=False gave other tokens than overlap=True")
+    # every 4th request alone through the equal-length path
+    alone_eng = ServeEngine(cfg, params, max_len=LLM_MAX_LEN)
+    diverged = {}
+    for i in range(0, SCHED_REQS, 4):
+        ref = alone_eng.generate([reqs[i]])[0].tokens
+        step = near_tie(cfg, params, reqs[i].tokens, ref, tokens[i],
+                        f"phase 12c: request {i} alone", max_len=LLM_MAX_LEN)
+        if step is not None:
+            diverged[i] = step
+    print(f"phase 12c: overlap=False ({serial_s:.3f} s) gives the same tokens "
+          f"exactly; {SCHED_REQS // 4} requests decoded alone through the "
+          f"equal-length path equal the scheduler's except at near-ties "
+          f"{diverged}")
+    # a fake clock: one request evicted mid-decode, one neighbour untouched
+    sch = ContinuousScheduler(cfg, params, sched=SCHED_CFG, max_len=LLM_MAX_LEN,
+                              clock=FakeClock())
+    long_i = next(i for i, r in enumerate(reqs)
+                  if r.max_new_tokens >= 40 and len(r.tokens) <= 128)
+    late = sch.submit(dataclasses.replace(reqs[long_i], deadline_s=3.5))
+    keep = sch.submit(reqs[long_i + 1])
+    res = sch.run()
+    cut = res[late].tokens.tolist()
+    check(res[late].timed_out and 0 < len(cut) < reqs[long_i].max_new_tokens,
+          f"the deadline did not evict mid-decode: {len(cut)} tokens, "
+          f"timed_out {res[late].timed_out}")
+    near_tie(cfg, params, reqs[long_i].tokens, tokens[long_i], cut,
+             "phase 12c: deadline-evicted request", max_len=LLM_MAX_LEN)
+    near_tie(cfg, params, reqs[long_i + 1].tokens, tokens[long_i + 1],
+             res[keep].tokens.tolist(), "phase 12c: its neighbour",
+             max_len=LLM_MAX_LEN)
+    check(not res[keep].timed_out, "the neighbour timed out")
+    # suspend after two rounds, resume, finish
+    sch = ContinuousScheduler(cfg, params, sched=SCHED_CFG, max_len=LLM_MAX_LEN)
+    rid = sch.submit(reqs[long_i])
+    sch.step()
+    sch.step()
+    sus = sch.suspend(rid)
+    check(sus is not None and 0 < len(sus.generated) < reqs[long_i].max_new_tokens,
+          "the suspended request had finished")
+    resumed = sch.submit_suspended(sus)
+    res = sch.run()
+    near_tie(cfg, params, reqs[long_i].tokens, tokens[long_i],
+             res[resumed].tokens.tolist(), "phase 12c: suspended and resumed",
+             max_len=LLM_MAX_LEN)
+    check(len(res[resumed].tokens) == reqs[long_i].max_new_tokens,
+          "the resumed request did not finish its budget")
+    print(f"phase 12c: request {long_i} evicted by its deadline after "
+          f"{len(cut)} of {reqs[long_i].max_new_tokens} tokens (a prefix of its "
+          f"run), its neighbour untouched; suspended after "
+          f"{len(sus.generated)} tokens and resumed to its run's tokens")
+    # the card against the port's CPU
+    cpu = tree_to(params, "cpu")
+    cpu_cfg = dataclasses.replace(SCHED_CFG, prefill_segment=SCHED_CPU_SEGMENT)
+    rng = np.random.RandomState(SCHED_SEED + 1)
+    small = [Request(tokens=rng.randint(0, cfg.vocab, n), max_new_tokens=SCHED_CPU_NEW)
+             for n in SCHED_CPU_LENS]
+    on_card = ServeEngine(cfg, params, max_len=LLM_MAX_LEN,
+                          scheduler=cpu_cfg).generate(small)
+    t0 = time.perf_counter()
+    on_cpu = ServeEngine(cfg, cpu, max_len=LLM_MAX_LEN, scheduler=cpu_cfg,
+                         device="cpu").generate(small)
+    cpu_s = time.perf_counter() - t0
+    same = 0
+    for i, (c, h) in enumerate(zip(on_card, on_cpu)):
+        same += near_tie(cfg, cpu, small[i].tokens, h.tokens, c.tokens,
+                         f"phase 12c: card vs CPU, request {i}") is None
+    del cpu
+    print(f"phase 12c: {len(small)} requests ({SCHED_CPU_LENS} tokens, "
+          f"{SCHED_CPU_NEW} new, {SCHED_CPU_SEGMENT}-token segments): the card's "
+          f"greedy tokens equal the port's CPU's ({cpu_s:.1f} s) on {same}")
+    # the queue's first SCHED_SAMPLED requests, temperature 0.8 on every
+    # other one, twice with one seed
+    temps = [0.8 if i % 2 else 0.0 for i in range(SCHED_REQS)]
+    sampled = [[c.tokens.tolist() for c in ServeEngine(
+        cfg, params, max_len=LLM_MAX_LEN, scheduler=SCHED_CFG, seed=7).generate(
+            sched_queue(cfg, temps)[:SCHED_SAMPLED])] for _ in range(2)]
+    check(sampled[0] == sampled[1], "a sampled queue does not repeat under one seed")
+    differ = sum(a != b for a, b in zip(sampled[0][1::2], tokens[1::2]))
+    check(differ > 0, "sampling at temperature 0.8 gave the greedy tokens")
+    print(f"phase 12c: the first {SCHED_SAMPLED} requests with temperature 0.8 on "
+          f"every other one repeat themselves under one seed; {differ} of "
+          f"{SCHED_SAMPLED // 2} sampled rows differ from greedy")
+    numbers = {"run_s": run_s, "tokens": generated, "tokens_per_s": generated / run_s,
+               "rounds": sched._round, "steps_run": steps, "steps_live": live,
+               "forwards": calls, "span_host_s": spans, "counters": counters,
+               "busy": busy, "pool_step": pool, "serial_run_s": serial_s,
+               "alone_near_ties": diverged, "deadline_tokens": len(cut),
+               "cpu_equal_rows": same, "cpu_s": cpu_s, "kernel_errs": errs,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 12: {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -1676,9 +2072,13 @@ def main() -> int:
     rows += llm_rows
     gw_launches, gw = phase_gateway(cfg, params, card)
     train_launches, train = phase_train(card)
+    sched_launches, sched = phase_sched(llm_cfg, llm_params, card)
     for row in rows:               # the kernels' launches over every path
         row["launches"] += (gw_launches[row["name"]]
-                            + train_launches.get(row["name"], 0))
+                            + train_launches.get(row["name"], 0)
+                            + sched_launches.get(row["name"], 0))
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 sched["kernel_errs"].get(row["name"], 0.0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -1698,9 +2098,9 @@ def main() -> int:
                        "gateway": {"clients": GATEWAY_CLIENTS,
                                    "requests_per_client": GATEWAY_REQS,
                                    "width": GATEWAY_WIDTH, **gw},
-                       "train": train},
+                       "train": train, "scheduler": sched},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

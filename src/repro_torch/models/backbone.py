@@ -12,6 +12,10 @@ whose ``[i]`` slice is layer i's contiguous ring of S slots.
 ``decode_step`` writes into it IN PLACE and returns the same dict (the
 JAX package returns new arrays).
 
+``prefill_chunk`` advances a chunked prefill by one segment of tokens
+(the continuous scheduler's staged admissions), writing the segment's
+K/V into the cache in place as ``decode_step`` does.
+
 Configs with MoE, hybrid (Mamba), xLSTM, enc-dec or VLM parts raise
 NotImplementedError: those branches are not ported yet.
 """
@@ -28,17 +32,20 @@ from repro_torch.nn.attention import (
     attention_apply,
     attention_decode_apply,
     attention_init,
+    flash_attention,
+    project_qkv,
 )
-from repro_torch.nn.linear import dense_init, embedding, embedding_init
+from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
 from repro_torch.nn.norm import rmsnorm, rmsnorm_init
+from repro_torch.nn.rope import apply_rope
 
 # parts of a config the port's backbone cannot run yet, and where they wait
 _UNPORTED = (
-    ("moe", "ROADMAP Queue 1 item 12 (arch zoo: MoE)"),
-    ("hybrid", "ROADMAP Queue 1 item 12 (arch zoo: Mamba hybrid)"),
-    ("xlstm", "ROADMAP Queue 1 item 12 (arch zoo: xLSTM)"),
-    ("encdec", "ROADMAP Queue 1 item 12 (arch zoo: enc-dec)"),
-    ("vlm", "ROADMAP Queue 1 item 12 (arch zoo: VLM)"),
+    ("moe", "ROADMAP Queue 1 item 6 (arch zoo: MoE)"),
+    ("hybrid", "ROADMAP Queue 1 item 6 (arch zoo: Mamba hybrid)"),
+    ("xlstm", "ROADMAP Queue 1 item 6 (arch zoo: xLSTM)"),
+    ("encdec", "ROADMAP Queue 1 item 6 (arch zoo: enc-dec)"),
+    ("vlm", "ROADMAP Queue 1 item 6 (arch zoo: VLM)"),
 )
 
 
@@ -161,7 +168,7 @@ def prefill(cfg: ArchConfig, params, batch, *, max_len: int = 0, lengths=None):
     if set(batch) != {"tokens"}:
         raise NotImplementedError(
             f"prefill takes token batches only, got {sorted(batch)}: patch / "
-            "frame extras wait for ROADMAP Queue 1 item 12 (arch zoo)")
+            "frame extras wait for ROADMAP Queue 1 item 6 (arch zoo)")
     tokens = batch["tokens"]
     B, T = tokens.shape
     x = embedding(params["embed"], tokens)
@@ -203,3 +210,59 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
         x = x + swiglu_ffn(p["ffn"], rmsnorm(p["ffn_norm"], x))
     x = rmsnorm(params["final_norm"], x)
     return _logits(cfg, params, x[:, 0]), cache
+
+
+def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
+                  attend_width: int, last_index=0):
+    """Advance a chunked prefill by one token segment.
+
+    tokens: (B, C) integer tensor, the next C prompt tokens (pad-extended
+    past the prompt tail); cache: {"k", "v"} from ``init_cache`` whose
+    slots [0, depth) already hold the previous segments' keys; depth: the
+    host int of tokens already prefilled.  The segment's K/V (RoPE at
+    positions depth + i) are written IN PLACE at slots [depth, depth + C),
+    then its queries attend the first ``attend_width`` cache slots through
+    ``flash_attention(q_offset=depth)``, so a row at position depth + i
+    sees the keys a one-shot prefill of that padded width would show it.
+    Stale keys past depth + C are causally masked (slot == position in a
+    cache that is not a ring).  At B = 1 the attended slots are one
+    contiguous run, which the kernel takes without a copy.
+
+    last_index: an int, or a (B,) sequence / integer tensor, of the
+    segment row whose logits are returned.  Returns (logits (B, vocab)
+    float32, cache).  Chunked prefill needs a pure-attention dense-FFN
+    RoPE decoder with no sliding window (ValueError otherwise)."""
+    sublayer_specs(cfg)
+    if cfg.rope_theta <= 0 or cfg.sliding_window:
+        raise ValueError(
+            f"{cfg.name}: chunked prefill needs a pure-attention dense-FFN "
+            "RoPE decoder with no sliding window (a ring cache breaks "
+            "slot == position)")
+    B, C = tokens.shape
+    S = cache["k"].shape[2]
+    if not (0 <= depth and depth + C <= S and attend_width <= S):
+        raise ValueError(f"segment [{depth}, {depth + C}) or attend width "
+                         f"{attend_width} past the cache's {S} slots")
+    hd = cfg.resolved_head_dim
+    x = embedding(params["embed"], tokens)
+    positions = depth + torch.arange(C, device=x.device)[None, :]
+    for i, p in enumerate(params["blocks"]):
+        hn = rmsnorm(p["norm"], x)
+        q, k, v = project_qkv(p["attn"], hn, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        cache["k"][i, :, depth:depth + C] = apply_rope(
+            k, positions, cfg.rope_theta).to(cache["k"].dtype)
+        cache["v"][i, :, depth:depth + C] = v.to(cache["v"].dtype)
+        out = flash_attention(q, cache["k"][i, :, :attend_width],
+                              cache["v"][i, :, :attend_width], causal=True,
+                              q_offset=depth)
+        x = x + dense(p["attn"]["wo"], out.reshape(B, C, cfg.n_heads * hd))
+        x = x + swiglu_ffn(p["ffn"], rmsnorm(p["ffn_norm"], x))
+    x = rmsnorm(params["final_norm"], x)
+    if isinstance(last_index, int):
+        last = x[:, last_index]
+    else:
+        idx = torch.as_tensor(last_index, device=x.device)
+        last = x[torch.arange(B, device=x.device), idx]
+    return _logits(cfg, params, last), cache

@@ -180,5 +180,5 @@ def test_teacher_forced_decode_equals_prefill():
 def test_unported_archs_raise():
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               moe=MoESpec(n_experts=4, top_k=2, expert_d_ff=64))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tbb.init_params(cfg, device="cpu")

@@ -1,7 +1,8 @@
 """The port's ServeEngine on the CPU: greedy tokens equal to the JAX
 package's ServeEngine on the same bridged weights and prompts (EOS and
-per-request budgets included), seeded sampling that repeats itself, and
-the requests the equal-length path refuses."""
+per-request budgets included), seeded sampling that repeats itself,
+mixed lengths and deadlines routed through the continuous scheduler, and
+the requests the engine refuses."""
 import jax
 import numpy as np
 import pytest
@@ -87,16 +88,25 @@ def test_seeded_sampling_repeats():
 
 
 def test_unported_requests_raise(engines):
-    teng, cfg = engines[1], engines[2]
+    """Mixed prompt lengths and deadlines route through the continuous
+    scheduler as in JAX and give JAX's completions; a context past
+    max_len and a mesh still raise, the mesh naming its ROADMAP item."""
+    jeng, teng, cfg = engines
     rng = np.random.RandomState(3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.generate([Request(tokens=rng.randint(0, cfg.vocab, 5)),
-                       Request(tokens=rng.randint(0, cfg.vocab, 6))])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.generate([Request(tokens=rng.randint(0, cfg.vocab, 5),
-                               deadline_s=1.0)])
+    mixed = [(rng.randint(0, cfg.vocab, 5), None),
+             (rng.randint(0, cfg.vocab, 6), None)]
+    timed = [(rng.randint(0, cfg.vocab, 5), 1e6)]
+    for specs in (mixed, timed):
+        outs = []
+        for eng, req in ((jeng, JaxRequest), (teng, Request)):
+            outs.append([(c.tokens.tolist(), c.timed_out) for c in eng.generate(
+                [req(tokens=p, max_new_tokens=4, deadline_s=d)
+                 for p, d in specs])])
+        assert outs[1] == outs[0]
+        assert all(len(t) == 4 and not late for t, late in outs[1])
+    assert teng._sched is not None
     with pytest.raises(ValueError, match="max_len"):
         teng.generate([Request(tokens=rng.randint(0, cfg.vocab, 60),
                                max_new_tokens=8)])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ServeEngine(cfg, teng.params, device="cpu", mesh=object())

@@ -42,6 +42,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     from repro_torch.models.backbone import init_cache, init_params
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.gateway import Fleet, OffloadGateway, mixed_fleet
+    from repro_torch.serve.scheduler import ContinuousScheduler
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = gateway_demo_config()
@@ -81,6 +82,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(llm, params)
     assert ServeEngine(llm, params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousScheduler(llm, params, max_len=32)
+    sched = ContinuousScheduler(llm, params, max_len=32, device="cpu")
+    assert sched.device.type == "cpu"
+    assert sched._pool["cache"]["k"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         backbone_params_from_numpy({"embed": {"table": [[0.0]]}, "blocks": []},
                                    llm)
