@@ -22,7 +22,7 @@ def nearest_center_scan(xf: torch.Tensor, centers_f32: torch.Tensor):
     """Nearest-center search, the arithmetic of the CUDA kernels.
 
     xf: float32 tensor (any shape); centers_f32: 1-D float32 codebook
-    (L <= 16).  A strict ``<`` scan from center 0 upward, so ties go to
+    (any L; the kernels take L <= 16 fused, L <= 256 standalone).  A strict ``<`` scan from center 0 upward, so ties go to
     the lowest index, bit-identical to argmin over squared distances on
     finite inputs.  Returns (indices int32, center values float32)."""
     best_d = torch.full_like(xf, float("inf"))

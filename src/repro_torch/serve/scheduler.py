@@ -37,11 +37,16 @@ waited on.  Every host-to-device copy of this module likewise goes through
 pinned memory without blocking.  Evict/admit timing is round-identical to
 ``overlap=False``; completions report one round later.
 
-Not ported: the prefix cache and the streaming frontend's preemption
-(``SchedulerConfig`` fields ``prefix_cache``, ``prefix_hot_pages``,
-``kv_tier_mb``, ``kv_tier_bits`` and ``preempt`` off their defaults,
-ROADMAP Queue 1 item 3) and the mesh-sharded pool (``mesh=``, item 7);
-both raise NotImplementedError.
+With ``SchedulerConfig.prefix_cache`` the scheduler shares prompt-prefix
+K/V pages across admissions (``serve.prefix_cache``): a short request
+whose leading pages are resident admits through a *prefix wave* (seed
+the pages into a fresh ``prefill_group``-row cache, prefill only the
+suffixes in page-wide segments attending at the bucket width, one
+inject), a staged one starts its segments past the resident whole
+segments, and every admission pins its shareable pages until its slot is
+released (``suspend`` parks the pins until the resumed admission
+re-pins).  Not ported: the mesh-sharded pool (``mesh=``, ROADMAP Queue 1
+item 7), which raises NotImplementedError.
 
 Correctness invariants (tested against one-request-at-a-time decode):
 pad keys are masked out of prefill attention and pad/stale cache slots
@@ -65,9 +70,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import round_up
 from repro_torch.models import backbone as bb
 from repro_torch.serve import telemetry as _telemetry
+from repro_torch.serve.prefix_cache import PrefixCache
 
 _NULL = nullcontext()     # reentrant: shared no-op for disabled telemetry
-PREFIX_ITEM = "ROADMAP Queue 1 item 3 (prefix cache, streaming frontend)"
 MESH_ITEM = "ROADMAP Queue 1 item 7 (mesh sharding)"
 
 
@@ -87,18 +92,21 @@ class SchedulerConfig:
                                # in-flight decode chunk: drain one round
                                # behind, prepare admissions while the
                                # device runs (False: serialized rounds)
-    # the prefix cache and the streaming frontend's preemption: not
-    # ported; any of these off its default raises NotImplementedError
-    prefix_cache: bool = False  # shared prompt-prefix KV pages
-    prefix_hot_pages: int = 512  # prefix cache: device page budget
-    kv_tier_mb: float = 0.0    # prefix cache: host cold-tier budget
-    kv_tier_bits: int = 8      # prefix cache: cold-tier codebook bits
-    preempt: bool = False      # allow a streaming frontend to suspend
-                               # pooled rows mid-decode
-
-
-_UNPORTED_FIELDS = ("prefix_cache", "prefix_hot_pages", "kv_tier_mb",
-                    "kv_tier_bits", "preempt")
+    prefix_cache: bool = False  # share prompt-prefix KV pages across
+                                # admissions (serve.prefix_cache): hits
+                                # seed resident pages and prefill only
+                                # the suffix
+    prefix_hot_pages: int = 512  # device-resident page budget; pages a
+                                 # live slot references are pinned past it
+    kv_tier_mb: float = 0.0    # host cold-tier budget for demoted pages,
+                               # quantized and bit-packed (0: demoted
+                               # pages drop instead: exact, no reuse
+                               # after demotion)
+    kv_tier_bits: int = 8      # cold-tier codebook bits per element
+    preempt: bool = False      # allow the streaming frontend to suspend
+                               # pooled rows mid-decode (suspend/resume
+                               # keeps partial tokens; resumed greedy
+                               # output equals an uninterrupted run's)
 
 
 def supports_continuous_batching(cfg: ArchConfig) -> bool:
@@ -189,12 +197,13 @@ class Suspended:
     suspension.  `submit_suspended` re-admits it through the ordinary
     prefill path — prompt + generated prefill as one longer prompt and
     the remaining budget decodes from there, so greedy output equals an
-    uninterrupted run's.  `parked` is the prefix cache's pin handle in
-    the JAX package; the port has no prefix cache and leaves it None."""
+    uninterrupted run's.  `parked` (when the prefix cache is on) is the
+    prefix cache's handle keeping the slot's pinned pages resident while
+    the request waits to resume."""
     request: object
     generated: np.ndarray                  # (g,) int32 tokens so far
     deadline_at: Optional[float] = None    # absolute clock() deadline
-    parked: Optional[object] = None
+    parked: Optional[object] = None        # PrefixCache.park handle
 
 
 class ContinuousScheduler:
@@ -228,11 +237,6 @@ class ContinuousScheduler:
             raise NotImplementedError(
                 f"a mesh-sharded slot pool (mesh=) waits for {MESH_ITEM}")
         self.sched = sched or SchedulerConfig()
-        unported = [f"{n}={getattr(self.sched, n)!r}" for n in _UNPORTED_FIELDS
-                    if getattr(self.sched, n) != getattr(SchedulerConfig, n)]
-        if unported:
-            raise NotImplementedError(
-                f"SchedulerConfig({', '.join(unported)}) waits for {PREFIX_ITEM}")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -278,16 +282,24 @@ class ContinuousScheduler:
         self._results: dict[int, object] = {}
         self._next_rid = 0
         # suspend/resume bookkeeping: the request as submitted (so a
-        # suspension can reconstruct the original prompt/budget) and the
+        # suspension can reconstruct the original prompt/budget), the
         # already-generated prefix a resumed rid prepends to every
-        # stream/Completion
+        # stream/Completion, and the parked prefix-pin handle to drop once
+        # the resumed rid is re-pinned at admission
         self._req_of: dict[int, object] = {}
         self._resume: dict[int, np.ndarray] = {}
+        self._parked_tok: dict[int, object] = {}
         self._pending: Optional[dict] = None   # in-flight chunk snapshot
         # streaming hook: called between rounds with (rid, tokens_so_far)
         # for every live pooled request.  None (the default) skips the
         # per-round buffer reads entirely
         self.stream_cb: Optional[object] = None
+        self.prefix = None
+        if self.sched.prefix_cache:
+            self.prefix = PrefixCache(
+                page, hot_pages=self.sched.prefix_hot_pages,
+                cold_bytes=int(self.sched.kv_tier_mb * (1 << 20)),
+                bits=self.sched.kv_tier_bits)
 
     # ------------------------------------------------------------- device --
 
@@ -414,8 +426,9 @@ class ContinuousScheduler:
                              round=self._round)
 
     def export_metrics(self) -> None:
-        """Refresh the per-round gauges.  Called at the end of every round
-        while telemetry is enabled."""
+        """Refresh the per-round gauges and the re-export of the prefix
+        cache's `stats` into the registry.  Called at the end of every
+        round while telemetry is enabled."""
         if not self.tel.enabled:
             return
         m = self.tel.metrics
@@ -423,6 +436,14 @@ class ContinuousScheduler:
             sum(r is not None for r in self._slots.rids))
         m.gauge("sched.backlog").set(self.backlog())
         m.gauge("sched.staging").set(len(self._staging))
+        if self.prefix is not None:
+            for k, v in self.prefix.stats.items():
+                m.gauge(f"prefix.{k}").set(v)
+            m.gauge("prefix.hit_rate").set(self.prefix.hit_rate)
+            m.gauge("prefix.hot_pages").set(self.prefix.n_hot)
+            m.gauge("prefix.cold_pages").set(self.prefix.n_cold)
+            m.gauge("prefix.cold_used_bytes").set(
+                self.prefix.cold_used_bytes)
 
     def _bucket_of(self, prompt_len: int) -> int:
         fits = [b for b in self.sched.buckets
@@ -488,7 +509,10 @@ class ContinuousScheduler:
         for the in-flight chunk, so the suspension captures every token
         decoded so far; a pending overlap snapshot then skips the released
         slot, as it does for any slot freed and re-admitted between a
-        dispatch and its drain."""
+        dispatch and its drain.  Pinned prefix pages are parked (refs
+        held) so a prompt resume can still seed them; they are released
+        when the resumed admission re-pins, or when the suspension is
+        discarded."""
         slot = next((i for i, r in enumerate(self._slot_rid) if r == rid),
                     None)
         if slot is None or slot in self._staging_slots():
@@ -509,12 +533,16 @@ class ContinuousScheduler:
             sub,
             tokens=np.asarray(sub.tokens, np.int32)[:len(sub.tokens) - n_pre],
             max_new_tokens=sub.max_new_tokens + n_pre, deadline_s=None)
+        parked = None
+        if self.prefix is not None:
+            parked = self.prefix.park(slot, ("suspend", rid))
+        self._unpark(rid)                      # resumed-but-never-admitted
         self._slots.release(slot, rid)
         self._pool["cache_len"][slot] = 0
         deadline_at = self._deadlines.pop(rid, None)
         if self.tel.enabled:
             self.tel.counter("sched.evicted", reason="preempted").inc()
-        return Suspended(orig, toks, deadline_at)
+        return Suspended(orig, toks, deadline_at, parked)
 
     def submit_suspended(self, sus: Suspended, *, deadline_at=None) -> int:
         """Re-admit a suspended request through the ordinary prefill
@@ -537,14 +565,28 @@ class ContinuousScheduler:
         rid = self.submit(cont, deadline_at=deadline_at)
         if len(gen):
             self._resume[rid] = gen
+        if sus.parked is not None:
+            self._parked_tok[rid] = sus.parked
         if self.tel.enabled:
             self.tel.counter("sched.resumed").inc()
         return rid
 
     def discard_suspended(self, sus: Suspended) -> None:
-        """Drop a suspension that will never resume.  Its generated tokens
-        live in the Suspended record; with no prefix cache there are no
-        pinned pages to release, so nothing else is held."""
+        """Drop a suspension that will never resume (its frontend shed it):
+        release the parked prefix pins.  The generated tokens live in the
+        Suspended record; the caller resolves the request with them."""
+        if self.prefix is not None and sus.parked is not None:
+            self.prefix.unpark(sus.parked)
+
+    def _unpark(self, rid: int) -> None:
+        """Drop the parked pins a resumed rid carried, once its new
+        admission has pinned (or once it resolves without admitting)."""
+        tok = self._parked_tok.pop(rid, None)
+        if tok is not None and self.prefix is not None:
+            self.prefix.unpark(tok)
+
+    def _free_slots(self) -> list[int]:
+        return self._slots.free()
 
     def _staging_slots(self) -> set:
         return {st["slot"] for st in self._staging}
@@ -559,6 +601,13 @@ class ContinuousScheduler:
         seg = self.sched.prefill_segment
         return bool(seg) and self._bucket_of(len(req.tokens)) > seg
 
+    def _has_hit(self, req) -> bool:
+        """True when the request's leading pages are resident: it admits
+        through a prefix wave when it leads, so group formation skips it
+        (a group row would prefill the prefix again)."""
+        return (self.prefix is not None
+                and self.prefix.lookup(req.tokens)[1] > 0)
+
     def _plan_one(self):
         """Form one admission decision from the queue head: a bucket
         group (returned as a dict of numpy prefill inputs, its slots
@@ -570,8 +619,15 @@ class ContinuousScheduler:
         request can be starved by a stream of other-bucket arrivals.  A
         long head (bucket > prefill_segment) claims a slot and stages
         instead; while a staging is already in flight the first short
-        group behind it keeps the pool fed."""
-        free = self._slots.free()
+        group behind it keeps the pool fed.
+
+        With the prefix cache on, a short lead whose leading pages are
+        resident leads a *prefix wave* (seed the pages, prefill only the
+        suffixes) batched with queued requests sharing its bucket and hit
+        depth, and ordinary groups are formed from hit-free requests only;
+        a hit-carrying request that cannot join waits to lead, which FIFO
+        bounds as it bounds buckets."""
+        free = self._free_slots()
         if not free or not self._queue:
             return None
         head_rid, head_req = self._queue[0]
@@ -587,52 +643,102 @@ class ContinuousScheduler:
             lead_req = shorts[0][1]
         else:
             lead_req = head_req
+        if self.prefix is not None:
+            n_hit = self.prefix.lookup(lead_req.tokens)[1]
+            if n_hit:
+                return self._plan_prefix_group(lead_req, free, n_hit)
         head_bucket = self._bucket_of(len(lead_req.tokens))
 
         G = self.sched.prefill_group
         take, keep = [], deque()
         for rid, req in self._queue:
             if (len(take) < min(len(free), G) and not self._is_long(req)
-                    and self._bucket_of(len(req.tokens)) == head_bucket):
+                    and self._bucket_of(len(req.tokens)) == head_bucket
+                    and not self._has_hit(req)):
                 take.append((rid, req))
             else:
                 keep.append((rid, req))
         if not take:
             return None
         self._queue = keep
-
-        tokens = np.zeros((G, head_bucket), np.int64)
-        lengths = np.ones((G,), np.int64)        # dummies: 1 valid token
-        slots = np.full((G,), self.sched.max_slots, np.int64)
-        eos = np.full((G,), -1, np.int64)
-        max_new = np.ones((G,), np.int64)
-        temps = np.zeros((G,), np.float32)
-        for g, ((rid, req), slot) in enumerate(zip(take, free)):
-            T = len(req.tokens)
-            tokens[g, :T] = np.asarray(req.tokens, np.int64)
-            lengths[g] = T
-            slots[g] = slot
-            eos[g] = req.eos_id
-            max_new[g] = req.max_new_tokens
-            temps[g] = req.temperature
+        for (rid, _), slot in zip(take, free):
             self._slots.acquire(slot, rid)
-        return {"bucket": head_bucket, "tokens": tokens, "lengths": lengths,
-                "slots": slots, "eos": eos, "max_new": max_new,
-                "temps": temps, "rids": [rid for rid, _ in take]}
+        reqs = [req for _, req in take]
+        g = self._group_rows(reqs, free, head_bucket)
+        g.update(bucket=head_bucket, rids=[rid for rid, _ in take], pkeys=[])
+        if self.prefix is not None:
+            g["pkeys"] = [self.prefix.lookup(r.tokens)[0] for r in reqs]
+        return g
+
+    def _group_rows(self, reqs, slots, width: int) -> dict:
+        """The prefill_group-row host arrays of one admission: prompts
+        right-padded to ``width``, and each row's length, slot, EOS id,
+        budget and temperature; padding rows hold 1 valid token and slot
+        max_slots (left out at inject)."""
+        G = self.sched.prefill_group
+        g = {"tokens": np.zeros((G, width), np.int64),
+             "lengths": np.ones((G,), np.int64),
+             "slots": np.full((G,), self.sched.max_slots, np.int64),
+             "eos": np.full((G,), -1, np.int64),
+             "max_new": np.ones((G,), np.int64),
+             "temps": np.zeros((G,), np.float32)}
+        for i, (req, slot) in enumerate(zip(reqs, slots)):
+            T = len(req.tokens)
+            g["tokens"][i, :T] = np.asarray(req.tokens, np.int64)
+            g["lengths"][i] = T
+            g["slots"][i] = slot
+            g["eos"][i] = req.eos_id
+            g["max_new"][i] = req.max_new_tokens
+            g["temps"][i] = req.temperature
+        return g
+
+    def _plan_prefix_group(self, lead_req, free: list[int],
+                           n_hit: int) -> dict:
+        """Form one batched prefix-hit admission: up to prefill_group short
+        requests sharing the lead's bucket AND resident-page depth (their
+        seeded widths, and so the suffix segments, match; the pages
+        themselves may differ per row).  One suffix pass and one inject
+        serve the whole wave."""
+        bucket = self._bucket_of(len(lead_req.tokens))
+        G = self.sched.prefill_group
+        take, keep = [], deque()
+        for rid, req in self._queue:
+            if (len(take) < min(len(free), G) and not self._is_long(req)
+                    and self._bucket_of(len(req.tokens)) == bucket):
+                keys, h = self.prefix.lookup(req.tokens)
+                if h == n_hit:
+                    take.append((rid, req, keys))
+                    continue
+            keep.append((rid, req))
+        if not take:
+            raise RuntimeError("the hit lead must join its own prefix wave")
+        self._queue = keep
+        for (rid, _, _), slot in zip(take, free):
+            self._slots.acquire(slot, rid)
+        return {"prefix": True, "take": take, "slots": free[:len(take)],
+                "bucket": bucket, "n_hit": n_hit}
 
     def _admit(self) -> None:
-        """Plan and launch every admission the queue and free slots
-        allow."""
+        """Plan and launch every admission the queue and free slots allow.
+        Each plan launches as it forms: a group's pin() lands its pages in
+        the prefix index before the next plan's lookup runs, so same-round
+        arrivals sharing a prefix hit on the very first wave."""
         while True:
             g = self._plan_one()
             if g is None:
                 return
-            if g is not True:
+            if g is True:
+                continue
+            if g.get("prefix"):
+                self._launch_prefix(g)
+            else:
                 self._launch_group(g)
 
     def _launch_group(self, g: dict) -> None:
         """Enqueue one prepared group: per-bucket prefill + inject.  The
-        host returns as soon as the work is queued."""
+        host returns as soon as the work is queued.  With the prefix cache
+        on, every row's shareable pages are copied from the prefill rows
+        into the index and pinned for the slot's lifetime."""
         logits0, rows, _ = bb.prefill(
             self.cfg, self.params, {"tokens": self._put(g["tokens"])},
             max_len=self._copy_width(g["bucket"]),
@@ -640,8 +746,59 @@ class ContinuousScheduler:
         if self.tel.enabled:
             self.tel.counter("sched.admitted", path="group").inc(
                 int((g["slots"] < self.sched.max_slots).sum()))
+        if self.prefix is not None:
+            for i, (keys, slot) in enumerate(zip(g["pkeys"], g["slots"])):
+                self.prefix.record(len(keys), 0)
+                if keys:
+                    self.prefix.pin(int(slot), keys, rows["k"][:, i],
+                                    rows["v"][:, i])
+        for rid in g["rids"]:          # after pin: parked pages stay hot
+            self._unpark(rid)          # until the new pins hold them
         self._inject(g["slots"], rows, logits0, g["lengths"], g["eos"],
                      g["max_new"], g["temps"])
+
+    def _launch_prefix(self, g: dict) -> None:
+        """Admit a wave of prefix-hit requests in one batch: seed each
+        row's resident pages into a fresh prefill_group-row cache (the
+        copy-on-write copies, hoisted to admission), then prefill just the
+        suffixes in page-wide segments attending at the bucket width.
+        ``prefill_chunk`` gathers logits per row, so rows whose prompts end
+        in different segments each keep the logits of the segment holding
+        their final token; a short row's later segments only write pad
+        keys above its prompt, as a full-width group prefill leaves there.
+        One inject lands the whole wave."""
+        take, H = g["take"], g["n_hit"]
+        page = self.sched.page_size
+        Wc = self._copy_width(g["bucket"])
+        seeded = H * page
+        cache = bb.init_cache(self.cfg, self.sched.prefill_group, Wc,
+                              device=self.device)
+        for i, (_, _, keys) in enumerate(take):
+            kv = self.prefix.fetch(keys[:H])
+            cache["k"][:, i, :seeded] = kv["k"].to(cache["k"].dtype)
+            cache["v"][:, i, :seeded] = kv["v"].to(cache["v"].dtype)
+        rows = self._group_rows([req for _, req, _ in take], g["slots"], Wc)
+        toks, lengths = rows["tokens"], rows["lengths"]
+        logits0 = None
+        for d in range(seeded, Wc, page):     # seeded <= T-1 on hit rows
+            last = np.clip(lengths - 1 - d, 0, page - 1)
+            lg, _ = bb.prefill_chunk(
+                self.cfg, self.params, self._put(toks[:, d:d + page]), cache,
+                d, attend_width=g["bucket"], last_index=self._put(last))
+            ends_here = (d <= lengths - 1) & (lengths - 1 < d + page)
+            logits0 = lg if logits0 is None else torch.where(
+                self._put(ends_here)[:, None], lg, logits0)
+            if d + page >= int(lengths.max()):
+                break
+        if self.tel.enabled:
+            self.tel.counter("sched.admitted", path="prefix").inc(len(take))
+        for i, ((rid, _, keys), slot) in enumerate(zip(take, g["slots"])):
+            self.prefix.record(len(keys), H)
+            self.prefix.pin(int(slot), keys, cache["k"][:, i],
+                            cache["v"][:, i])
+            self._unpark(rid)          # resumed rows: new pins now hold
+        self._inject(rows["slots"], cache, logits0, lengths, rows["eos"],
+                     rows["max_new"], rows["temps"])
 
     # ------------------------------------------------- chunked prefill --
 
@@ -649,19 +806,34 @@ class ContinuousScheduler:
         """Claim a slot for a long admission; its prompt prefills one
         `prefill_segment`-token slice per scheduling round into a B = 1
         cache of whole segments covering the bucket, so every segment's
-        K/V write lands inside it."""
+        K/V write lands inside it.  Resident prefix pages seed the staged
+        cache in whole segments (staging advances a segment at a time, so
+        a partial segment cannot be skipped) and `depth` starts past
+        them."""
         seg = self.sched.prefill_segment
+        page = self.sched.page_size
         bucket = self._bucket_of(len(req.tokens))
         T = len(req.tokens)
         n_segs = round_up(bucket, seg) // seg
         toks = np.zeros((1, n_segs * seg), np.int64)
         toks[0, :T] = np.asarray(req.tokens, np.int64)
+        cache = bb.init_cache(self.cfg, 1, n_segs * seg, device=self.device)
+        depth, keys = 0, []
+        if self.prefix is not None:
+            keys, n_hit = self.prefix.lookup(req.tokens)
+            depth = (n_hit * page // seg) * seg    # whole segments only
+            self.prefix.record(len(keys), depth // page)
+            if depth:
+                kv = self.prefix.fetch(keys[:-(-depth // page)])
+                cache["k"][:, 0, :depth] = kv["k"][:, :depth].to(
+                    cache["k"].dtype)
+                cache["v"][:, 0, :depth] = kv["v"][:, :depth].to(
+                    cache["v"].dtype)
         self._slots.acquire(slot, rid)
         self._staging.append({
-            "rid": rid, "req": req, "slot": slot, "depth": 0, "T": T,
-            "bucket": bucket, "tokens": toks, "logits0": None,
-            "cache": bb.init_cache(self.cfg, 1, n_segs * seg,
-                                   device=self.device),
+            "rid": rid, "req": req, "slot": slot, "depth": depth, "T": T,
+            "bucket": bucket, "tokens": toks, "logits0": None, "keys": keys,
+            "cache": cache,
         })
 
     def _advance_staging(self) -> None:
@@ -691,6 +863,10 @@ class ContinuousScheduler:
         req = st["req"]
         if self.tel.enabled:
             self.tel.counter("sched.admitted", path="staged").inc()
+        if self.prefix is not None and st["keys"]:
+            self.prefix.pin(st["slot"], st["keys"], st["cache"]["k"][:, 0],
+                            st["cache"]["v"][:, 0])
+        self._unpark(st["rid"])        # resumed rows: new pins now hold
         self._inject(np.asarray([st["slot"]]), st["cache"], st["logits0"],
                      np.asarray([st["T"]]), np.asarray([req.eos_id]),
                      np.asarray([req.max_new_tokens]),
@@ -715,8 +891,11 @@ class ContinuousScheduler:
         out = []
         for i in fin:
             rid = self._slots.release(i)
+            if self.prefix is not None:
+                self.prefix.release(i)     # unpin the slot's prefix pages
             self._deadlines.pop(rid, None)
             self._req_of.pop(rid, None)
+            self._unpark(rid)
             toks = buf[i, :gen[i]].astype(np.int32)
             prefix = self._resume.pop(rid, None)
             if prefix is not None:         # resumed rows report the full
@@ -755,6 +934,7 @@ class ContinuousScheduler:
                                                 timed_out=True)
                 self._deadlines.pop(rid)
                 self._req_of.pop(rid, None)
+                self._unpark(rid)
                 out.append(rid)
             else:
                 keep.append((rid, req))
@@ -765,6 +945,7 @@ class ContinuousScheduler:
             self._slots.release(st["slot"], st["rid"])
             self._deadlines.pop(st["rid"])
             self._req_of.pop(st["rid"], None)
+            self._unpark(st["rid"])
             pre = self._resume.pop(st["rid"], None)
             toks = pre if pre is not None else np.zeros((0,), np.int32)
             self._results[st["rid"]] = Completion(toks, len(toks),

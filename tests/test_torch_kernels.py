@@ -167,6 +167,41 @@ def test_fused_tile_walk_matches_jax(rows, C, k_of):
         assert_bitexact(r, t)
 
 
+@pytest.mark.parametrize("rows", [1, 96, 777])
+def test_quantize_at_256_centers_matches_jax(rows):
+    """The cold tier's codebook: 256 centers, inputs spread over and past
+    the grid and on its midpoints; the plain version (what ops.py runs for
+    CPU tensors) bit-exact with JAX's oracle and its Pallas kernel in
+    interpret mode."""
+    centers = np.array(jnp.linspace(-2.5, 3.0, 256))
+    rng = np.random.RandomState(rows)
+    mids = (centers[:-1] + centers[1:]) / 2
+    pool = np.concatenate([mids, centers, rng.uniform(-3.5, 4.0, rows * 128)])
+    x = np.resize(pool, ((rows + 4), 128)).astype(np.float32)
+    xj, cj = jnp.asarray(x), jnp.asarray(centers)
+    idx, deq = quantize_op(torch.from_numpy(x), torch.from_numpy(centers))
+    assert int(idx.max()) == 255 and int(idx.min()) == 0
+    for r, p, t in zip(jax_quantize_ref(xj, cj),
+                       jax_quantize_op(xj, cj, interpret=True), (idx, deq)):
+        assert_bitexact(r, t)
+        assert_bitexact(p, t)
+
+
+@pytest.mark.parametrize("call,L", [("quantize", 257), ("quantize", 0),
+                                    ("offload_fused", 17)])
+def test_wrappers_refuse_codebooks_past_their_bound(call, L):
+    """The standalone quantizer takes L <= 256 (the cold tier's 8 bits),
+    the fused pass keeps L <= 16."""
+    x, c = torch.zeros(8, 24), torch.zeros(L)
+    bound = {"quantize": 256, "offload_fused": 16}[call]
+    if call == "quantize":
+        with pytest.raises(ValueError, match=f"L <= {bound}"):
+            quantize_cuda(x, c)
+    else:
+        with pytest.raises(ValueError, match="CUDA tensor|L <= 16"):
+            offload_fused_cuda(x, c, perm=range(24), k=5)
+
+
 @pytest.mark.parametrize("call", ["offload_fused", "quantize", "topk_split"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper handed a CPU tensor raises before it builds or

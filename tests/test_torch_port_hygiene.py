@@ -91,6 +91,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
         backbone_params_from_numpy({"embed": {"table": [[0.0]]}, "blocks": []},
                                    llm)
 
+    from repro_torch.serve.frontend import StreamingFrontend
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingFrontend(llm, params, max_len=32)
+    fe = StreamingFrontend(llm, params, max_len=32, device="cpu")
+    assert fe.sched.device.type == "cpu"
+    assert fe.sched._pool["cache"]["k"].device.type == "cpu"
+
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():
     """In a fresh interpreter with no nvcc to be found, every module under

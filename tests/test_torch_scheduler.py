@@ -19,7 +19,7 @@ which eager PyTorch has none of (the page-granular buckets are held here
 through the widths that reach ``prefill``), and
 ``test_mesh_engine_routes_equal_lengths_through_scheduler`` needs
 ``mesh=``, which waits for ROADMAP Queue 1 item 7 (its refusal is held
-here)."""
+here).  The prefix-cache branch is held in tests/test_torch_prefix_cache.py."""
 import dataclasses
 
 import jax
@@ -558,18 +558,27 @@ def test_ruled_out_arch_raises_and_engine_falls_back(system):
     ("prefix_cache", True), ("prefix_hot_pages", 64), ("kv_tier_mb", 1.0),
     ("kv_tier_bits", 4), ("preempt", True)])
 def test_prefix_and_frontend_fields_raise(system, field, value):
-    """The fields whose consumers (the prefix cache, the streaming
-    frontend) are not ported raise off their defaults instead of being
-    ignored."""
-    with pytest.raises(NotImplementedError,
-                       match=f"{field}={value!r}.*item 3"):
-        _make(system, "port", **{field: value})
+    """The name dates from when the port raised for these fields off their
+    defaults.  Their consumers (the prefix cache, the streaming frontend)
+    are ported now, so the test checks that each field reaches its
+    consumer: the prefix cache's budgets and bits, and ``preempt`` for the
+    frontend to read; without ``prefix_cache`` no cache is built."""
+    sched = _make(system, "port", **{"prefix_cache": True, field: value})
+    assert getattr(sched.sched, field) == value
+    pc = sched.prefix
+    assert (pc.hot_pages, pc.cold_bytes, pc.bits) == (
+        sched.sched.prefix_hot_pages, int(sched.sched.kv_tier_mb * (1 << 20)),
+        sched.sched.kv_tier_bits)
+    if field != "prefix_cache":
+        assert _make(system, "port", **{field: value}).prefix is None
 
 
 def test_unported_options_raise(system):
+    """``mesh=``, the one option still to port, raises; ``prefix_cache``,
+    which once raised here, now builds a cache; a request past max_len or
+    with extras is refused."""
     cfg, tp = system["port"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _make(system, "port", prefix_cache=True)
+    assert _make(system, "port", prefix_cache=True).prefix is not None
     with pytest.raises(NotImplementedError, match="item 7"):
         ContinuousScheduler(cfg, tp, mesh=object(), device="cpu")
     sched = _make(system, "port", **BASE)
