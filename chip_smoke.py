@@ -128,6 +128,37 @@ Phases, each of which raises on failure:
      a copy of its inputs, and after the run each is held against the
      plain version within 2e-5, on those inputs and on normal draws of the
      same shapes, lengths and offsets (phase 12a and (a) cover (b)'s).
+  LM training, AgileNN on tokens and the baselines (slice 9):
+ 14. (a) the flash-attention backward kernel against float64 autograd of
+     dense attention (each of dQ, dK, dV within 1e-4 of its largest
+     magnitude) at qwen2-0.5b's training microbatch (q (4, 4096, 14, 64),
+     causal), at D = 128 (qwen2-1.5b's 12 / 2 heads), a 1024 window, T =
+     4000 and two non-causal T != S cases; two calls bitwise equal; the
+     forward's output with its log-sum-exp bitwise equal to the output
+     without it, the log-sum-exp within 1e-5 of float64's; the RMSNorm
+     backward at (16,384, 896) within 1e-5 of scale of float64, two calls
+     bitwise; (b) qwen2-0.5b at full width and depth, fp32, seed-0
+     weights, through ``make_train_step`` at train_4k's T = 4096 with its
+     global batch cut from 256 to 8 (two microbatches of 4): 3 steps on
+     uniform random tokens, launch counts from 0 checked exactly against
+     the rehearsed formula (remat runs each layer's forward twice), every
+     gradient leaf finite and nonzero, step time, tokens/s, peak memory,
+     the busy share and each kernel's device ms over a profiled step;
+     (c) ``forward_loss`` and every gradient leaf on the card against the
+     port's CPU run on a 2 x 128 batch (1e-4 relative, 1e-3 of scale);
+     (d) AgileNN on tokens over that backbone (C = 32, k = 6, ig_steps 16),
+     B = 16, T = 128 of ``SyntheticTokens``: 3 AdamW steps, launches
+     exact, one step's loss and gradients against the CPU, the payload
+     bits equal, the quantize kernel bitwise on its input; (e) the
+     baselines at 96^2: forwards of 256 images; of 128 of them, at most
+     1e-4 of the transmitted indices flip card vs CPU (cuDNN and the CPU's
+     convs round apart), and on the images with no flip the payload bytes
+     and every ``InferenceCost`` field equal the CPU run's; 3
+     ``train_baseline`` steps of each at B = 32, quantize launches exact
+     and the kernel bitwise on DeepCOD's code and SPINN's features; then
+     the two backward kernels' times beside their plain versions', their
+     library calls' backward (SDPA ``is_causal`` with heads expanded,
+     ``F.rms_norm``; yardsticks only) and their bounds.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -156,22 +187,54 @@ from repro_torch import (  # noqa: E402
     tree_to,
     value_and_grad,
 )
-from repro_torch.compress.quantize import dequantize, linspace_f32  # noqa: E402
+from repro_torch.compress.quantize import dequantize, hard_indices, linspace_f32  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.agilenn_cifar import AgileNNConfig  # noqa: E402
+from repro_torch.configs.base import AgileSpec, InputShape  # noqa: E402
 from repro_torch.core.agile import (  # noqa: E402
     agile_forward,
     agile_loss,
+    cross_entropy,
     device_forward_fn,
     extract_features,
     init_agile_params,
     offload_payload_arrays,
     remote_forward,
 )
-from repro_torch.data.synthetic import ImageDatasetSpec, SyntheticImages  # noqa: E402
+from repro_torch.core.agile_lm import (  # noqa: E402
+    agile_lm_loss,
+    extract_token_features,
+    init_agile_lm_params,
+    offload_payload_bits,
+)
+from repro_torch.core.baselines import (  # noqa: E402
+    deepcod_code,
+    deepcod_cost,
+    deepcod_forward,
+    deepcod_init,
+    deepcod_loss,
+    edge_only_cost,
+    mcunet_apply,
+    mcunet_cost,
+    mcunet_init,
+    spinn_cost,
+    spinn_forward,
+    spinn_init,
+    spinn_loss,
+    train_baseline,
+)
+from repro_torch.data.synthetic import (  # noqa: E402
+    ImageDatasetSpec,
+    SyntheticImages,
+    SyntheticTokens,
+    TokenDatasetSpec,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import ops as attention_ops  # noqa: E402
-from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.attention.kernel import (  # noqa: E402
+    flash_attention_backward_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.common import auto_page_size  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
@@ -187,12 +250,13 @@ from repro_torch.kernels.offload_fused.ref import offload_fused_ref  # noqa: E40
 from repro_torch.kernels.quantize.kernel import quantize_cuda  # noqa: E402
 from repro_torch.kernels.quantize.ops import quantize_op  # noqa: E402
 from repro_torch.kernels.quantize.ref import quantize_ref  # noqa: E402
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda  # noqa: E402
 from repro_torch.kernels.topk_split.ops import channel_permute_op  # noqa: E402
 from repro_torch.kernels.topk_split.ref import channel_permute_ref  # noqa: E402
+from repro_torch.launch.steps import make_train_step, opt_init  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     extractor_apply,
@@ -204,8 +268,10 @@ from repro_torch.models.cnn import (  # noqa: E402
 from repro_torch.nn.activations import swiglu_ffn  # noqa: E402
 from repro_torch.nn.attention import project_qkv  # noqa: E402
 from repro_torch.nn.linear import conv2d, dense  # noqa: E402
+from repro_torch.nn.module import param_count  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
+from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
 from repro_torch.optim.sgd import sgd_init  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.faults import (  # noqa: E402
@@ -343,6 +409,33 @@ COLD_SEED, COLD_HEADER, COLD_TAIL, COLD_WAVE, COLD_NEW = 8, 96, 6, 3, 2
 # full width too); one scheduling round is 10 ms of virtual time
 STREAM_SCHED = SchedulerConfig(buckets=(8, 16), max_slots=4, prefill_group=2, chunk=2)
 STREAM_PER_CLASS, STREAM_REQS, ROUND_S, CRASH_ROUND, BENCH_VOCAB = 4, 4, 0.01, 8, 512
+# LM training (slice 9): qwen2-0.5b at train_4k's sequence length, its
+# global batch of 256 cut to 8 (two microbatches of 4 x 4096)
+LM_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
+              "rmsnorm_backward")
+LM_SEQ, LM_GLOBAL_BATCH, LM_MICRO, LM_STEPS = 4096, 8, 2, 3
+LM_MICRO_B = LM_GLOBAL_BATCH // LM_MICRO
+# (B, T, S, Hq, Hkv, D, causal, window) of the flash backward's checks
+LM_FLASH_CASES = (
+    (4, 4096, 4096, 14, 2, 64, True, 0),       # qwen2-0.5b's training microbatch
+    (2, 2048, 2048, 12, 2, 128, True, 0),      # qwen2-1.5b's heads, D = 128
+    (1, 4096, 4096, 14, 2, 64, True, 1024),    # a sliding window
+    (1, 4000, 4000, 14, 2, 64, True, 0),       # T off the tiles
+    (2, 700, 777, 4, 2, 64, False, 0),         # not causal, T != S
+    (2, 700, 777, 4, 2, 128, False, 100),      # not causal with a window, D = 128
+)
+# backward kernels against float64: each gradient within LM_GRAD_TOL of its
+# largest magnitude, the log-sum-exp within LM_LSE_TOL; card against CPU
+# as phase 11 (the loss relative, each gradient leaf of its scale)
+LM_GRAD_TOL, LM_LSE_TOL, LM_RMS_TOL, LM_RMS_ROWS = 1e-4, 1e-5, 1e-5, (16384, 896)
+LM_CPU_LOSS_TOL, LM_CPU_GRAD_TOL = 1e-4, 1e-3
+# AgileNN on tokens: SyntheticTokens over the first 512 token ids
+AGILE_LM_VOCAB, AGILE_LM_B, AGILE_LM_T, AGILE_LM_STEPS, AGILE_LM_CPU_B = 512, 16, 128, 3, 4
+# the baselines at 96^2; the server side's MACs are a fixed stand-in, the
+# same for every baseline
+BASELINE_B, BASELINE_STEPS, BASELINE_COST_B, BASELINE_REMOTE_MACS = 32, 3, 128, 1.0e8
+# at most this share of the transmitted indices may flip card vs CPU
+BASELINE_FLIP_TOL = 1e-4
 
 
 def check(cond, msg: str) -> None:
@@ -2206,7 +2299,9 @@ def expected_launches(cfg, calls) -> dict:
     forwards = calls["prefill"] + calls["prefill_chunk"] + calls["decode_step"]
     return {"rmsnorm": (2 * L + 1) * forwards,
             "flash_attention": L * (calls["prefill"] + calls["prefill_chunk"]),
-            "decode_attention": L * calls["decode_step"]}
+            "decode_attention": L * calls["decode_step"],
+            # serving takes no gradient: no backward kernel runs
+            "rmsnorm_backward": 0, "flash_attention_backward": 0}
 
 
 def prefix_kernel_checks(cfg, page):
@@ -2666,6 +2761,482 @@ def phase_prefix(cfg, params, card):
     return launches, numbers
 
 
+# ----------------------------------------------- LM training (slice 9)
+def lm_expected_launches(L: int, forwards: int) -> dict:
+    """Launches of one value-and-grad of the backbone with remat: each
+    checkpointed layer runs its forward twice (the first pass and the
+    backward's recompute), so 2 flash and 4 RMSNorm forwards, then one
+    flash and two RMSNorm backwards; the final norm once each way."""
+    return {"flash_attention": 2 * L * forwards,
+            "flash_attention_backward": L * forwards,
+            "rmsnorm": (4 * L + 1) * forwards,
+            "rmsnorm_backward": (2 * L + 1) * forwards}
+
+
+def lm_counts() -> dict:
+    return {n: _build.KERNELS[n].launches for n in LM_KERNELS + ("quantize",)}
+
+
+def reset_counts() -> None:
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+
+
+def exact_attention_grads(q, k, v, do, *, causal: bool, window: int):
+    """Dense attention in float64, one batch row at a time: (dq, dk, dv) of
+    sum(out * do) by autograd, and each row's log-sum-exp of its scaled
+    live scores (B, Hq, T), -inf for a row with no live key."""
+    T, S, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    qp = torch.arange(T, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    live = torch.ones(T, S, dtype=torch.bool, device=q.device)
+    if causal:
+        live &= kp <= qp
+    if window > 0:
+        live &= kp > qp - window
+    grads, lses = [[], [], []], []
+    for b in range(q.shape[0]):
+        qb, kb, vb = (t[b:b + 1].double().requires_grad_() for t in (q, k, v))
+        kr, vr = (t.repeat_interleave(G, 2) for t in (kb, vb))
+        s = torch.einsum("bthd,bshd->bhts", qb, kr) / q.shape[-1] ** 0.5
+        s = s.masked_fill(~live, -float("inf"))
+        lses.append(torch.logsumexp(s, dim=-1).detach())
+        p = torch.nan_to_num(torch.softmax(s, dim=-1))
+        out = torch.einsum("bhts,bshd->bthd", p, vr)
+        for acc, g in zip(grads, torch.autograd.grad(out, (qb, kb, vb), do[b:b + 1].double())):
+            acc.append(g)
+        del s, p, out
+    return [torch.cat(g) for g in grads], torch.cat(lses)
+
+
+def rmsnorm_grads64(x, scale, g, eps: float = 1e-6):
+    x64, s64 = (t.double().requires_grad_() for t in (x, scale))
+    y = x64 * torch.rsqrt(torch.mean(x64 * x64, dim=-1, keepdim=True) + eps) * s64
+    return torch.autograd.grad(y, (x64, s64), g.double())
+
+
+def lm_kernel_checks() -> dict:
+    """(a) The flash and RMSNorm backward kernels against float64 autograd
+    of the dense functions, two calls bitwise, the forward's output with
+    and without its log-sum-exp bitwise, the log-sum-exp against
+    float64's.  Returns {kernel: max |err| over the cases}."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    errs = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0}
+    report = []
+    for (B, T, S, Hq, Hkv, D, causal, window) in LM_FLASH_CASES:
+        q, k, v = randn(B, T, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        do = randn(B, T, Hq, D)
+        o_plain = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        check(torch.equal(o, o_plain), f"flash {B, T, S, Hq, Hkv, D, causal, window}: "
+              "the output with the log-sum-exp differs from the output without it")
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal,
+                                            window=window)
+        again = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal,
+                                              window=window)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash backward {B, T, S, Hq, Hkv, D}: two calls differ")
+        ref, lse64 = exact_attention_grads(q, k, v, do, causal=causal, window=window)
+        case = {"shape": (B, T, S, Hq, Hkv, D), "causal": causal, "window": window}
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (g.double() - r).abs().max().item()
+            scale = r.abs().max().item()
+            check(err <= LM_GRAD_TOL * scale, f"flash backward {case}: {name} off by "
+                  f"{err:.3e}, over {LM_GRAD_TOL} of its scale {scale:.3e}")
+            case[name] = err / scale
+            errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
+        fin = torch.isfinite(lse64)
+        check(torch.equal(fin, torch.isfinite(lse)), f"flash {case}: rows without keys")
+        lse_err = (lse.double() - lse64)[fin].abs().max().item()
+        check(lse_err <= LM_LSE_TOL, f"flash {case}: log-sum-exp off by {lse_err:.3e}")
+        case["lse"] = lse_err
+        report.append(case)
+        del q, k, v, do, o, o_plain, lse, got, again, ref, lse64
+    N, d = LM_RMS_ROWS
+    x, scale, g = randn(N, d), 1 + 0.1 * randn(d), randn(N, d)
+    got = rmsnorm_backward_cuda(x, scale, g)
+    again = rmsnorm_backward_cuda(x, scale, g)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "rmsnorm backward: two calls differ")
+    rms = {}
+    for name, gg, r in zip(("dx", "dscale"), got, rmsnorm_grads64(x, scale, g)):
+        err, scl = (gg.double() - r).abs().max().item(), r.abs().max().item()
+        check(err <= LM_RMS_TOL * scl, f"rmsnorm backward: {name} off by {err:.3e}, "
+              f"over {LM_RMS_TOL} of its scale {scl:.3e}")
+        rms[name] = err / scl
+        errs["rmsnorm_backward"] = max(errs["rmsnorm_backward"], err)
+    print(f"phase 14a: flash backward vs float64 autograd (error / scale, bar "
+          f"{LM_GRAD_TOL}; log-sum-exp abs, bar {LM_LSE_TOL}), two calls bitwise, "
+          f"outputs with / without the log-sum-exp bitwise: {report}")
+    print(f"phase 14a: rmsnorm backward at {LM_RMS_ROWS} vs float64 (error / scale, "
+          f"bar {LM_RMS_TOL}), two calls bitwise: {rms}")
+    return {"errs": errs, "flash_cases": report, "rmsnorm": rms}
+
+
+def quantize_bitwise(x, centers, what: str) -> float:
+    x = x.detach().contiguous()
+    err = max_err(quantize_cuda(x, centers), quantize_ref(x, centers))
+    print(f"phase 14{what}: quantize bitwise on {tuple(x.shape)}")
+    return err
+
+
+def lm_train(cfg, params, card) -> dict:
+    """(b) make_train_step at train_4k's sequence length, two microbatches
+    of 4 x 4096, full width and depth, the port's seed-0 weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L = cfg.n_layers
+    shape = InputShape("train_4k", LM_SEQ, LM_GLOBAL_BATCH, "train")
+    step = make_train_step(cfg, shape, n_micro_override=LM_MICRO)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def batch():
+        # uniform tokens and labels, as launch/train.py draws them
+        return {k: torch.randint(0, cfg.vocab, (LM_GLOBAL_BATCH, LM_SEQ),
+                                 generator=gen, device="cuda") for k in ("tokens", "labels")}
+
+    batches = [batch() for _ in range(LM_STEPS + 2)]
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    p, opt, m = step(params, opt, batches[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = lm_counts()
+    expected = lm_expected_launches(L, LM_MICRO)
+    check(all(launches[n] == expected[n] for n in expected) and launches["quantize"] == 0,
+          f"launches of one train step {launches}, rehearsed {expected}")
+    # the first step's momentum is its gradient (zero momentum, no decay)
+    leaves = tree_leaves(opt["momentum"])
+    bad = [i for i, t in enumerate(leaves)
+           if not bool(torch.isfinite(t).all()) or float(t.abs().max()) == 0.0]
+    check(not bad, f"gradient leaves not finite or all zero: {bad} of {len(leaves)}")
+    losses, host = [float(m["loss"])], []
+    for i in range(1, LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batches[i])
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(host)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batches[LM_STEPS])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = profiled_kernels(prof)
+    busy_us = sum(us for us, _ in kernels.values())
+    by = {}
+    for key, (us, n) in kernels.items():
+        for name, match in (("flash_attention_backward", "flash_bwd_"),
+                            ("rmsnorm_backward", "rmsnorm_backward_kernel"),
+                            ("rmsnorm_dscale", "rmsnorm_dscale_kernel"),
+                            ("flash_attention", "flash_attention_kernel"),
+                            ("rmsnorm", "rmsnorm_kernel")):
+            if match in key:
+                cur = by.setdefault(name, [0.0, 0])
+                cur[0] += us / 1e3
+                cur[1] += n
+                break
+    tokens = LM_GLOBAL_BATCH * LM_SEQ
+    out = {"arch": cfg.name, "seq_len": LM_SEQ, "global_batch": LM_GLOBAL_BATCH,
+           "n_micro": LM_MICRO, "first_step_s": first_s, "step_s": host,
+           "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+           "peak_bytes": peak, "losses": losses, "launches_per_step": launches,
+           "profiled_step_s": prof_s, "busy_share": busy_us / 1e6 / prof_s,
+           "kernel_ms_by_name": by, "n_kernels": sum(n for _, n in kernels.values())}
+    print(f"phase 14b: {cfg.name} at full width and depth ({L} layers, "
+          f"{param_count(params)} params), train_4k's "
+          f"T = {LM_SEQ}, global batch {LM_GLOBAL_BATCH} (cut from 256) in {LM_MICRO} "
+          f"microbatches: step {step_s:.3f} s (median of {len(host)}; first "
+          f"{first_s:.3f} s), {out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, losses {losses}; launches per step {launches} "
+          f"(rehearsed {expected}); every one of {len(leaves)} gradient leaves "
+          f"finite and nonzero; busy {out['busy_share']:.1%} of a profiled step "
+          f"({prof_s:.3f} s, {out['n_kernels']} kernels); device ms (launches) by "
+          f"kernel: {by}  [{card}]")
+    return out
+
+
+def lm_vs_cpu(cfg, params) -> dict:
+    """(c) forward_loss and every gradient leaf on the card against the
+    port's CPU run of the same weights, on a 2 x 128 batch."""
+    rng = np.random.RandomState(14)
+    batch = {k: rng.randint(0, cfg.vocab, (2, 128)) for k in ("tokens", "labels")}
+    res = {}
+    for where, p in (("card", params), ("cpu", tree_to(params, "cpu"))):
+        (loss, _), grads = value_and_grad(lambda pp: bb.forward_loss(cfg, pp, batch), p)
+        res[where] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)])
+    loss_err = abs(float(res["card"][0]) - float(res["cpu"][0])) / abs(float(res["cpu"][0]))
+    check(loss_err <= LM_CPU_LOSS_TOL, f"forward_loss card vs CPU: {loss_err:.3e} relative")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
+        e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        check(e <= LM_CPU_GRAD_TOL, f"gradient leaf {i} card vs CPU: {e:.3e} of scale")
+        worst = max(worst, e)
+    print(f"phase 14c: forward_loss card vs CPU {loss_err:.3e} relative (bar "
+          f"{LM_CPU_LOSS_TOL}); every one of {len(res['cpu'][1])} gradient leaves within "
+          f"{worst:.3e} of its scale (bar {LM_CPU_GRAD_TOL})")
+    return {"loss_rel_err": loss_err, "grad_err": worst}
+
+
+def agile_lm_run(cfg, card) -> dict:
+    """(d) AgileNN on tokens over the full-width backbone: AdamW steps on
+    SyntheticTokens, one step's loss and gradients against the CPU, the
+    quantize launches and the payload bits."""
+    acfg = dataclasses.replace(cfg, agile=AgileSpec(
+        enabled=True, extractor_channels=32, k=6, rho=0.7, lam=0.4))
+    params = init_agile_lm_params(acfg, 0)
+    data = SyntheticTokens(TokenDatasetSpec(vocab=AGILE_LM_VOCAB, seq_len=AGILE_LM_T + 1))
+    toks = [torch.as_tensor(data.batch(AGILE_LM_B, seed=i), device="cuda")
+            for i in range(AGILE_LM_STEPS)]
+
+    def loss(p, t):
+        return agile_lm_loss(acfg, p, t[:, :-1], t[:, -1])
+
+    # one step on the card against the same machine's CPU, on AGILE_LM_CPU_B rows
+    t_cpu = toks[0][:AGILE_LM_CPU_B]
+    res = {}
+    for where, p in (("card", params), ("cpu", tree_to(params, "cpu"))):
+        tt = t_cpu if where == "card" else t_cpu.cpu()
+        (val, _), grads = value_and_grad(lambda pp: loss(pp, tt), p)
+        res[where] = (float(val), [t.cpu() for t in tree_leaves(grads)])
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
+        e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        check(e <= LM_CPU_GRAD_TOL, f"agile_lm gradient leaf {i} card vs CPU: {e:.3e}")
+        worst = max(worst, e)
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    check(loss_err <= LM_CPU_LOSS_TOL, f"agile_lm_loss card vs CPU: {loss_err:.3e}")
+    bits = offload_payload_bits(acfg, params, toks[0][:, :-1])
+    bits_cpu = offload_payload_bits(acfg, tree_to(params, "cpu"), toks[0][:, :-1].cpu())
+    check(bits == bits_cpu == AGILE_LM_B * (32 - 6) * 3, f"payload bits {bits}, {bits_cpu}")
+    opt = adamw_init(params)
+    reset_counts()
+    host, losses = [], []
+    for t in toks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (val, metrics), g = value_and_grad(lambda pp: loss(pp, t), params)
+        params, opt = adamw_update(params, g, opt, lr=5e-3, weight_decay=0.0)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(val))
+    launches = lm_counts()
+    expected = {**lm_expected_launches(cfg.n_layers, AGILE_LM_STEPS),
+                "quantize": AGILE_LM_STEPS}
+    check(launches == expected, f"agile_lm launches {launches}, rehearsed {expected}")
+    check(all(math.isfinite(x) for x in losses), f"agile_lm losses {losses}")
+    with torch.no_grad():
+        feats = extract_token_features(params, toks[0][:, :-1])
+    err = quantize_bitwise(feats[..., 6:], params["quant"]["centers"], "d")
+    out = {"batch": AGILE_LM_B, "seq_len": AGILE_LM_T, "ig_steps": acfg.agile.ig_steps,
+           "step_s": host, "losses": losses, "launches": launches,
+           "cpu_loss_rel_err": loss_err, "cpu_grad_err": worst, "payload_bits": bits,
+           "quantize_err": err}
+    print(f"phase 14d: AgileNN on tokens over {cfg.name} (C = 32, k = 6, ig_steps "
+          f"{acfg.agile.ig_steps}), B = {AGILE_LM_B}, T = {AGILE_LM_T}: {AGILE_LM_STEPS} "
+          f"AdamW steps in {[round(s, 3) for s in host]} s, losses {losses}; launches "
+          f"{launches} (rehearsed); card vs CPU on {AGILE_LM_CPU_B} rows: loss "
+          f"{loss_err:.3e} relative, gradients within {worst:.3e} of scale; payload "
+          f"{bits} bits on both  [{card}]")
+    return out
+
+
+def mcunet_loss(p, images, labels):
+    """benchmarks/common.py's MCUNet loss."""
+    logits = mcunet_apply(p, images)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return cross_entropy(logits, labels), {"accuracy": acc}
+
+
+def baseline_costs(cfg, params, images) -> dict:
+    """Payload bytes and every InferenceCost field of each baseline."""
+    macs = BASELINE_REMOTE_MACS
+    return {"edge_only": dataclasses.asdict(edge_only_cost(cfg, images, remote_macs=macs)),
+            "mcunet": dataclasses.asdict(mcunet_cost(cfg)),
+            "deepcod": dataclasses.asdict(deepcod_cost(cfg, params["deepcod"], images,
+                                                       remote_macs=macs)),
+            "spinn": dataclasses.asdict(spinn_cost(cfg, params["spinn"], images,
+                                                   remote_macs=macs))}
+
+
+def baselines_run(card) -> dict:
+    """(e) The four baselines at the paper's 96^2: forwards on a 256-image
+    batch, train_baseline steps at B = 32, payloads and costs against the
+    port's CPU run of the same weights."""
+    cfg = AgileNNConfig(image_size=96)
+    params = {"deepcod": deepcod_init(0, cfg), "spinn": spinn_init(1, cfg),
+              "mcunet": mcunet_init(2, cfg)}
+    data = SyntheticImages(ImageDatasetSpec(image_size=96))
+    images, _ = data.batch(BATCH, seed=14)
+    reset_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = {"mcunet": mcunet_apply(params["mcunet"], images),
+                "deepcod": deepcod_forward(params["deepcod"], images, train=False)[0],
+                "spinn": spinn_forward(params["spinn"], images, train=False)[1]}
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    fwd_launches = lm_counts()["quantize"]
+    check(fwd_launches == 2, f"quantize launches of the forwards: {fwd_launches}")
+    for name, o in outs.items():
+        check(o.shape == (BATCH, cfg.n_classes) and bool(torch.isfinite(o).all()),
+              f"{name} logits {tuple(o.shape)}")
+    # the transmitted indices on the card and on the CPU: cuDNN and the
+    # CPU's convs round apart, so a code that close to a codebook midpoint
+    # flips; payloads and costs are held equal on the images with none
+    sub = images[:BASELINE_COST_B]
+    cpu = {k: tree_to(v, "cpu") for k, v in params.items()}
+    flipped, n_idx = np.zeros(len(sub), bool), 0
+    with torch.no_grad():
+        for name, codes in (("deepcod", deepcod_code), ("spinn",
+                            lambda p, x: extractor_apply(p["ex"], torch.as_tensor(
+                                x, device=p["quant"]["centers"].device)))):
+            card_idx, cpu_idx = (hard_indices(p[name]["quant"], codes(p[name], sub)).cpu()
+                                 for p in (params, cpu))
+            flipped |= (card_idx != cpu_idx).reshape(len(sub), -1).any(dim=1).numpy()
+            n_flip = int((card_idx != cpu_idx).sum())
+            n_idx += card_idx.numel()
+            check(n_flip <= BASELINE_FLIP_TOL * card_idx.numel(),
+                  f"{name}: {n_flip} of {card_idx.numel()} indices flip card vs CPU")
+    clean = sub[~flipped]
+    costs = baseline_costs(cfg, params, clean)
+    costs_cpu = baseline_costs(cfg, cpu, clean)
+    check(costs == costs_cpu, f"baseline costs card {costs} vs CPU {costs_cpu}")
+    with torch.no_grad():
+        code = deepcod_code(params["deepcod"], images)
+        feats = extractor_apply(params["spinn"]["ex"], torch.as_tensor(images, device="cuda"))
+    errs = [quantize_bitwise(code, params["deepcod"]["quant"]["centers"], "e"),
+            quantize_bitwise(feats, params["spinn"]["quant"]["centers"], "e")]
+    reset_counts()
+    train = {}
+    for name, loss_fn in (("deepcod", deepcod_loss), ("spinn", spinn_loss),
+                          ("mcunet", mcunet_loss)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = train_baseline(loss_fn, params[name], data,
+                                    steps=BASELINE_STEPS, batch_size=BASELINE_B)
+        torch.cuda.synchronize()
+        train[name] = {"s": time.perf_counter() - t0, "metrics": metrics}
+        check(all(math.isfinite(v) for v in metrics.values()), f"{name}: {metrics}")
+    launches = lm_counts()["quantize"]
+    check(launches == 2 * BASELINE_STEPS, f"quantize launches of train_baseline: {launches}")
+    print(f"phase 14e: baselines at 96^2: forwards of {BATCH} images in {fwd_s:.3f} s "
+          f"({fwd_launches} quantize launches); of {BASELINE_COST_B} images "
+          f"{int(flipped.sum())} hold an index that flips card vs CPU, and on the "
+          f"other {len(clean)} payloads and costs equal the CPU run's: {costs}; "
+          f"train_baseline {BASELINE_STEPS} steps at B = {BASELINE_B}: {train}, "
+          f"{launches} quantize launches  [{card}]")
+    return {"forward_s": fwd_s, "costs": costs, "flipped_images": int(flipped.sum()),
+            "indices_compared": n_idx, "train": train,
+            "quantize_launches": fwd_launches + launches, "quantize_err": max(errs)}
+
+
+def lm_rows(errs, launches, card) -> list:
+    """The two backward kernels' rows of the kernels line: time at the
+    training path's shapes, the plain version's, the library call's
+    backward (timed as a yardstick only) and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def randn(*shape, grad=False):
+        return torch.randn(shape, generator=gen, device="cuda").requires_grad_(grad)
+
+    B, T, Hq, Hkv, D = LM_MICRO_B, LM_SEQ, 14, 2, 64
+    q, k, v = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    do = randn(B, T, Hq, D)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous().requires_grad_()
+    ot = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = flash_attention_ref(ql, kl, vl)
+    N, d = B * T, 896
+    x, scale, g = randn(N, d, grad=True), (1 + 0.1 * randn(d)).requires_grad_(), randn(N, d)
+    y_lib = torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)
+    y_ref = rmsnorm_ref(x, scale)
+    pairs = B * Hq * T * (T + 1) // 2
+    specs = [
+        ("rmsnorm_backward", "src/repro_torch/csrc/rmsnorm_backward.cu",
+         "src/repro/kernels/rmsnorm/kernel.py:25",
+         lambda: rmsnorm_backward_cuda(x.detach(), scale.detach(), g),
+         lambda: torch.autograd.grad(y_ref, (x, scale), g, retain_graph=True),
+         lambda: torch.autograd.grad(y_lib, (x, scale), g, retain_graph=True),
+         (3 * N * d + 2 * d) * 4, 6 * N * d, TIMING_REPS),
+        ("flash_attention_backward", "src/repro_torch/csrc/flash_attention_backward.cu",
+         "src/repro/kernels/attention/kernel.py:78",
+         lambda: flash_attention_backward_cuda(q, k, v, o, do, lse),
+         lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+         lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+         (4 * B * T * Hq * D + 4 * B * T * Hkv * D + B * Hq * T) * 4, 10 * D * pairs, 5),
+    ]
+    rows = []
+    for name, src, replaces, kern, plain, library, nbytes, ops, reps in specs:
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms, plain_ms, library_ms = (time_ms(fn, reps=reps) for fn in (kern, plain, library))
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms})
+        print(f"phase 14: {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes} B, {ops} ops), {launches[name]} launches on the training "
+              f"path  [{card}]")
+    return rows
+
+
+def phase_lm(cfg, params, card):
+    """Phase 14: (a)-(e); returns (launches on the main paths by kernel,
+    the rows of the two backward kernels, numbers)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    checks = lm_kernel_checks()
+    parts["a"] = time.perf_counter() - t0
+    with fp32_math():
+        t0 = time.perf_counter()
+        train = lm_train(cfg, params, card)
+        parts["b"] = time.perf_counter() - t0
+        launches = dict(train["launches_per_step"])
+        t0 = time.perf_counter()
+        vs_cpu = lm_vs_cpu(cfg, params)
+        parts["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        agile = agile_lm_run(cfg, card)
+        parts["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        base = baselines_run(card)
+        parts["e"] = time.perf_counter() - t0
+    launches["quantize"] = agile["launches"]["quantize"] + base["quantize_launches"]
+    for name in LM_KERNELS:
+        launches[name] += agile["launches"][name]
+    checks["errs"]["quantize"] = max(agile["quantize_err"], base["quantize_err"])
+    rows = lm_rows(checks["errs"], launches, card)
+    numbers = {"checks": checks, "train": train, "vs_cpu": vs_cpu, "agile_lm": agile,
+               "baselines": base, "part_s": parts,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 14: {numbers['phase_s']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return launches, rows, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -2724,14 +3295,18 @@ def main() -> int:
     train_launches, train = phase_train(card)
     sched_launches, sched = phase_sched(llm_cfg, llm_params, card)
     prefix_launches, prefix = phase_prefix(llm_cfg, llm_params, card)
+    lm_launches, lm_kernel_rows, lm = phase_lm(llm_cfg, llm_params, card)
     for row in rows:               # the kernels' launches over every path
         row["launches"] += (gw_launches[row["name"]]
                             + train_launches.get(row["name"], 0)
                             + sched_launches.get(row["name"], 0)
-                            + prefix_launches[row["name"]])
+                            + prefix_launches[row["name"]]
+                            + lm_launches.get(row["name"], 0))
         row["max_abs_err"] = max(row["max_abs_err"],
                                  sched["kernel_errs"].get(row["name"], 0.0),
-                                 prefix["kernel_errs"].get(row["name"], 0.0))
+                                 prefix["kernel_errs"].get(row["name"], 0.0),
+                                 lm["checks"]["errs"].get(row["name"], 0.0))
+    rows += lm_kernel_rows
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2751,9 +3326,10 @@ def main() -> int:
                        "gateway": {"clients": GATEWAY_CLIENTS,
                                    "requests_per_client": GATEWAY_REQS,
                                    "width": GATEWAY_WIDTH, **gw},
-                       "train": train, "scheduler": sched, "prefix": prefix},
+                       "train": train, "scheduler": sched, "prefix": prefix,
+                       "lm": lm},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

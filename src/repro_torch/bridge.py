@@ -4,12 +4,15 @@ The caller maps the JAX tree to numpy arrays first
 (``jax.tree_util.tree_map(np.asarray, params)``); this module sees only
 numpy.
 
-- ``params_from_numpy``: an AgileNN tree.  HWIO conv kernels become OIHW,
-  the ``mapping`` array becomes the static permutation tuple, and
-  everything else keeps its layout.
+- ``params_from_numpy``: an AgileNN tree, or a baseline's
+  (``core/baselines.py``: MCUNet, DeepCOD, SPINN).  HWIO conv kernels
+  become OIHW, the ``mapping`` array becomes the static permutation
+  tuple, and everything else keeps its layout.
 - ``backbone_params_from_numpy``: an LLM backbone tree.  The JAX package
   stacks its layers on a leading (n_superblocks,) axis; the port keeps a
   list of per-layer dicts.  Dense weights keep their (in, out) layout.
+- ``agile_lm_params_from_numpy``: an AgileNN-on-tokens tree
+  (``core/agile_lm.py``): its backbone as above, the rest as it is.
 """
 from __future__ import annotations
 
@@ -67,3 +70,12 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def agile_lm_params_from_numpy(tree, cfg, device=None):
+    """The port's ``core.agile_lm`` params on ``device`` (CUDA by default;
+    raises when CUDA is absent and no device was named)."""
+    device = resolve_device(device)
+    out = {k: _leaves_to(v, device) for k, v in tree.items() if k != "backbone"}
+    out["backbone"] = backbone_params_from_numpy(tree["backbone"], cfg, device)
+    return out

@@ -147,6 +147,14 @@ class ArchConfig:
             moe=moe, encdec=encdec, vlm=vlm, param_dtype="float32")
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
 _REGISTRY: dict[str, ArchConfig] = {}
 
 

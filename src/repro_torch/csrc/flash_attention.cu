@@ -53,6 +53,10 @@
 //   rows in the same order.
 // - Epilogue: divide by max(l, 1e-20), stage the warp's 16 rows in its own
 //   rows of the Q tile, write them with 16-byte stores.
+// - Log-sum-exp: given an `lse` pointer (the autograd Function's forward,
+//   whose backward recomputes P from it), the epilogue also writes each
+//   row's m + log(l) (-inf for a row with no live key) to lse (B, Hq, T).
+//   The attention output does not depend on it: same arithmetic, bitwise.
 // - Shared memory: D = 64, 64-key tiles: Q 17.4 KB + K/V ring 69.6 KB =
 //   87 KB, two blocks per SM.  D = 128 takes 32-key tiles (Q 33.8 KB + ring
 //   67.6 KB = 101 KB), so two blocks still fit an SM.
@@ -126,7 +130,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const int* __restrict__ kv_valid, int T, int S, int Hq,
                        int Hkv, int causal, int window, int q_offset,
-                       float scale, float* __restrict__ o) {
+                       float scale, float* __restrict__ o,
+                       float* __restrict__ lse) {
   constexpr int BK = kv_tile<D>();
   constexpr int LD = D + 4;              // row stride of every tile, floats
   constexpr int CH = D / 4;              // 16-byte chunks per row
@@ -311,6 +316,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<0>();  // with no tile, Q's copies may still be in flight
   __syncthreads();
 
+  if (lse != nullptr && t == 0) {   // one lane of each quad holds a row
+    float* lrow = lse + ((long long)b * Hq + hq) * T + q0 + warp * 16 + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (warp * 16 + g + 8 * r < n_q)
+        lrow[8 * r] = m[r] == -CUDART_INF_F ? -CUDART_INF_F : m[r] + logf(l[r]);
+  }
+
   // each warp stages its 16 rows in its own rows of the Q tile
   const float d0 = fmaxf(l[0], 1e-20f), d1 = fmaxf(l[1], 1e-20f);
   float* sO = sQ + warp * 16 * LD;
@@ -335,7 +348,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const int* kv_valid,
            int B, int T, int S, int Hq, int Hkv, int causal, int window,
-           int q_offset, float scale, float* o, cudaStream_t stream) {
+           int q_offset, float scale, float* o, float* lse,
+           cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   static bool configured = false;   // the attributes are set once per D
   if (!configured) {
@@ -352,7 +366,8 @@ int launch(const float* q, const float* k, const float* v, const int* kv_valid,
   const long long blocks = (long long)((T + kBQ - 1) / kBQ) * Hq * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   flash_attention_kernel<D><<<(unsigned)blocks, kFlashThreads, bytes, stream>>>(
-      q, k, v, kv_valid, T, S, Hq, Hkv, causal, window, q_offset, scale, o);
+      q, k, v, kv_valid, T, S, Hq, Hkv, causal, window, q_offset, scale, o,
+      lse);
   return (int)cudaGetLastError();
 }
 
@@ -363,7 +378,7 @@ extern "C" int flash_attention_launch(const float* q, const float* k,
                                       int B, int T, int S, int Hq, int Hkv,
                                       int D, int causal, int window,
                                       int q_offset, float scale, float* o,
-                                      void* stream) {
+                                      float* lse, void* stream) {
   if (B < 0 || T < 0 || S < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
@@ -371,10 +386,10 @@ extern "C" int flash_attention_launch(const float* q, const float* k,
   switch (D) {
     case 64:
       return launch<64>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal, window,
-                        q_offset, scale, o, st);
+                        q_offset, scale, o, lse, st);
     case 128:
       return launch<128>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal, window,
-                         q_offset, scale, o, st);
+                         q_offset, scale, o, lse, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,9 @@
-"""Host-side data pipeline: batching and background prefetch, the image
-half of ``repro.data.pipeline``.
+"""Host-side data pipeline: batching and background prefetch, as
+``repro.data.pipeline``.
 
 ``HostDataLoader`` keeps the JAX package's interface with ``device=`` in
 place of ``sharding=``: one host feeds one card, and each numpy array of
-a batch is moved to that device as it is taken.  The token adapter waits
-for the token half of ``data/synthetic.py``.
+a batch is moved to that device as it is taken.
 """
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ import queue
 import threading
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch import tree_map
@@ -70,6 +70,15 @@ def host_slice(global_batch: dict, *, host_id: int = 0,
         per = x.shape[0] // n_hosts
         return x[host_id * per:(host_id + 1) * per]
     return tree_map(sl, global_batch)
+
+
+def token_batch_fn(data, batch_size: int, *, seed_base: int = 0):
+    """Adapter for SyntheticTokens: step -> {tokens, labels}."""
+    def fn(step: int) -> dict:
+        toks = data.batch(batch_size, seed=seed_base + step)
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+    return fn
 
 
 def image_batch_fn(data, batch_size: int, *, seed_base: int = 0):

@@ -1,10 +1,14 @@
-"""Synthetic images (offline container -> procedurally generated data).
+"""Synthetic datasets (offline container -> procedurally generated data).
 
-The image half of ``repro.data.synthetic``, copied: class-conditional
-structured images (per-class smooth random template + localized pattern
-+ sample noise), byte-identical to the JAX package's for the same spec
-and seed.  Plain numpy; the offload gateway's fleet moves them to the
-params' device.  The token half waits for the training slice.
+A copy of ``repro.data.synthetic``, byte-identical to the JAX package's
+batches for the same spec and seed.  Plain numpy; the callers move the
+batches to their device.
+
+Images: class-conditional structured images (per-class smooth random
+template + localized pattern + sample noise).
+
+Tokens: a mixture of per-sequence Markov chains, so next-token loss has
+learnable structure for the LM training path.
 """
 from __future__ import annotations
 
@@ -68,3 +72,37 @@ def _upsample(img: np.ndarray, size: int) -> np.ndarray:
         for dx in (-1, 0, 1):
             out += pad[k + dy:k + dy + size, k + dx:k + dx + size]
     return (out / 9.0).astype(np.float32)
+
+
+@dataclasses.dataclass
+class TokenDatasetSpec:
+    vocab: int = 512
+    seq_len: int = 128
+    n_modes: int = 8
+    seed: int = 0
+
+
+class SyntheticTokens:
+    """Mixture-of-Markov-chains language data."""
+
+    def __init__(self, spec: TokenDatasetSpec):
+        self.spec = spec
+        rng = np.random.RandomState(spec.seed)
+        # sparse-ish transition matrices per mode
+        trans = rng.dirichlet(np.ones(spec.vocab) * 0.05,
+                              size=(spec.n_modes, spec.vocab))
+        self.trans = trans.astype(np.float64)
+
+    def batch(self, batch_size: int, seed: int) -> np.ndarray:
+        rng = np.random.RandomState(seed)
+        spec = self.spec
+        out = np.zeros((batch_size, spec.seq_len), np.int32)
+        modes = rng.randint(0, spec.n_modes, size=batch_size)
+        state = rng.randint(0, spec.vocab, size=batch_size)
+        out[:, 0] = state
+        for t in range(1, spec.seq_len):
+            for b in range(batch_size):
+                p = self.trans[modes[b], state[b]]
+                state[b] = rng.choice(spec.vocab, p=p)
+            out[:, t] = state
+        return out

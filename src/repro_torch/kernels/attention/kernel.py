@@ -1,9 +1,12 @@
-"""Launch wrapper of the flash-attention CUDA kernel
-(csrc/flash_attention.cu).
+"""Launch wrappers of the flash-attention CUDA kernels
+(csrc/flash_attention.cu and its gradient,
+csrc/flash_attention_backward.cu).
 
-Replaces ``repro.kernels.attention.kernel.flash_attention_tpu`` with the
-contract of the jnp ``repro.nn.attention.flash_attention`` that the JAX
-model calls.  The source note in the .cu gives its bound and design.
+The forward replaces ``repro.kernels.attention.kernel.flash_attention_tpu``
+with the contract of the jnp ``repro.nn.attention.flash_attention`` that
+the JAX model calls; the backward has no TPU counterpart (the JAX model
+differentiates that jnp function).  The source notes in the .cu give
+bounds and designs.
 """
 from __future__ import annotations
 
@@ -16,30 +19,42 @@ from repro_torch.kernels._build import CudaKernel, check_aligned, check_operand
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("flash_attention", [_P, _P, _P, _P] + [_I] * 9
-                    + [ctypes.c_float, _P])
+                    + [ctypes.c_float, _P, _P])
+BACKWARD = CudaKernel("flash_attention_backward", [_P] * 7 + [_I] * 8
+                      + [ctypes.c_float, _P, _P, _P])
 HEAD_DIMS = (64, 128)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0,
-                         q_offset: int = 0,
-                         kv_valid_len: torch.Tensor | None = None):
-    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned
-    float32 on one CUDA device, D in (64, 128), Hq a multiple of Hkv.
-    kv_valid_len: optional (B,) integer count of live keys per row.  Returns
-    (B, T, Hq, D) float32.  Raises ValueError on any other input; a
-    misaligned view is refused, not copied."""
+def _check_qkv(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, T, Hq, D) and k, v (B, S, Hkv, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, T, Hq, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     if D not in HEAD_DIMS or k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"the kernel takes D in {HEAD_DIMS} and Hq a multiple "
                          f"of Hkv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(t, name, torch.float32, q.device)
         check_aligned(t, name)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int = 0,
+                         q_offset: int = 0,
+                         kv_valid_len: torch.Tensor | None = None,
+                         return_lse: bool = False):
+    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned
+    float32 on one CUDA device, D in (64, 128), Hq a multiple of Hkv.
+    kv_valid_len: optional (B,) integer count of live keys per row.  Returns
+    (B, T, Hq, D) float32, and with ``return_lse`` also each row's
+    log-sum-exp of its scaled live scores, (B, Hq, T) float32 (-inf for a
+    row with no live key); the output is bitwise the same either way.
+    Raises ValueError on any other input; a misaligned view is refused,
+    not copied."""
+    _check_qkv(q, k, v)
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     valid_ptr = None
     if kv_valid_len is not None:
         if kv_valid_len.shape != (B,) or kv_valid_len.is_floating_point():
@@ -48,9 +63,49 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_valid_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
         valid_ptr = kv_valid_len.data_ptr()
     o = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
                       B, T, S, Hq, Hkv, D, int(causal), int(window),
                       int(q_offset), 1.0 / math.sqrt(D), o.data_ptr(),
+                      lse.data_ptr() if return_lse else None,
                       stream=torch.cuda.current_stream().cuda_stream)
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                                  window: int = 0):
+    """The gradient of ``flash_attention_cuda(q, k, v, causal=, window=)``
+    (no q_offset, no kv_valid_len) against do = dL/do: (dq, dk, dv) in the
+    shapes of q, k, v, float32, bitwise the same from call to call.  o and
+    lse are that call's output and log-sum-exp; o and do take q's shape
+    and checks, lse is (B, Hq, T) float32.  Raises ValueError on any other
+    input."""
+    _check_qkv(q, k, v)
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must be q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
+        check_operand(t, name, torch.float32, q.device)
+        check_aligned(t, name)
+    if lse.shape != (B, Hq, T):
+        raise ValueError(f"lse must be (B, Hq, T) = {(B, Hq, T)}, got "
+                         f"{tuple(lse.shape)}")
+    check_operand(lse, "lse", torch.float32, q.device)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:       # no query or no key: zeros
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dvec = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        BACKWARD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                        B, T, S, Hq, Hkv, D, int(causal), int(window),
+                        1.0 / math.sqrt(D), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(),
+                        stream=torch.cuda.current_stream().cuda_stream)
+    return dq, dk, dv

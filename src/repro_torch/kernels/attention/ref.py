@@ -18,10 +18,12 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, kv_valid_len=None,
-                        kv_block: int = 1024):
+                        kv_block: int = 1024, return_lse: bool = False):
     """q: (B, T, Hq, D); k/v: (B, S, Hkv, D); kv_valid_len: optional (B,)
     count of live keys per row.  Returns (B, T, Hq, D) in q.dtype; a query
-    row with no live key gets 0."""
+    row with no live key gets 0.  With ``return_lse`` also each row's
+    log-sum-exp of its scaled live scores, (B, Hq, T) float32, -inf for a
+    row with no live key (what the kernel writes for its backward)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -58,4 +60,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-20).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, T, Hq, D).to(q.dtype)
+    out = out.reshape(B, T, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(m <= NEG_INF / 2, float("-inf"), m + torch.log(l))
+    return out, lse.reshape(B, Hq, T)
+
+
+def flash_attention_backward_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                                 window: int = 0):
+    """(dq, dk, dv): autograd of ``flash_attention_ref(q, k, v, causal=,
+    window=)`` against do, in the kernel's signature (o and lse, which the
+    kernel reads, are not needed here)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        return torch.autograd.grad(out, (qq, kk, vv), do)

@@ -1,7 +1,9 @@
-"""Launch wrapper of the RMSNorm CUDA kernel (csrc/rmsnorm.cu).
+"""Launch wrappers of the RMSNorm CUDA kernels (csrc/rmsnorm.cu and its
+gradient, csrc/rmsnorm_backward.cu).
 
-Replaces ``repro.kernels.rmsnorm.kernel.rmsnorm_tpu``.  The source note in
-the .cu gives its byte bound and design.
+The forward replaces ``repro.kernels.rmsnorm.kernel.rmsnorm_tpu``; the
+backward has no TPU counterpart (the JAX model differentiates its jnp
+``rmsnorm_apply``).  The source notes in the .cu give bounds and designs.
 """
 from __future__ import annotations
 
@@ -14,21 +16,54 @@ from repro_torch.kernels._build import CudaKernel, check_operand
 _P = ctypes.c_void_p
 KERNEL = CudaKernel("rmsnorm", [_P, _P, ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_float, _P])
+BACKWARD = CudaKernel("rmsnorm_backward", [_P, _P, _P, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_float,
+                                           _P, _P, _P])
 MAX_WIDTH = 8192
+# the backward's grid: rows are dealt to at most this many blocks, whose
+# partial dscale rows are summed in block order (kBwdBlocks in the .cu)
+BACKWARD_BLOCKS = 1024
+
+
+def _check(x, scale):
+    if x.dim() != 2 or scale.shape != x.shape[-1:] or not 1 <= x.shape[1] <= MAX_WIDTH:
+        raise ValueError(f"x must be (N, d <= {MAX_WIDTH}) and scale (d,), got "
+                         f"{tuple(x.shape)}, {tuple(scale.shape)}")
+    check_operand(x, "x", torch.float32)
+    check_operand(scale, "scale", torch.float32, x.device)
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: (N, d) contiguous float32 CUDA rows, any N, d <= 8192; scale:
     (d,) float32 on the same device.  Returns (N, d) float32.  Raises
     ValueError on any other input."""
-    if x.dim() != 2 or scale.shape != x.shape[-1:] or not 1 <= x.shape[1] <= MAX_WIDTH:
-        raise ValueError(f"x must be (N, d <= {MAX_WIDTH}) and scale (d,), got "
-                         f"{tuple(x.shape)}, {tuple(scale.shape)}")
-    check_operand(x, "x", torch.float32)
-    check_operand(scale, "scale", torch.float32, x.device)
+    _check(x, scale)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         KERNEL.launch(x.data_ptr(), scale.data_ptr(), x.shape[0], x.shape[1],
                       eps, y.data_ptr(),
                       stream=torch.cuda.current_stream().cuda_stream)
     return y
+
+
+def rmsnorm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
+                          g: torch.Tensor, *, eps: float = 1e-6):
+    """The gradient of ``rmsnorm_cuda`` at (x, scale) against g = dL/dy,
+    all as ``rmsnorm_cuda`` takes them (g of x's shape).  Returns
+    (dx (N, d), dscale (d,)), float32; bitwise the same from call to call.
+    Raises ValueError on any other input."""
+    _check(x, scale)
+    if g.shape != x.shape:
+        raise ValueError(f"g must be x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
+    check_operand(g, "g", torch.float32, x.device)
+    N, d = x.shape
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    partial = torch.empty((max(1, min(N, BACKWARD_BLOCKS)), d),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        BACKWARD.launch(x.data_ptr(), scale.data_ptr(), g.data_ptr(), N, d,
+                        eps, dx.data_ptr(), partial.data_ptr(),
+                        dscale.data_ptr(),
+                        stream=torch.cuda.current_stream().cuda_stream)
+    return dx, dscale

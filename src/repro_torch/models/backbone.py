@@ -1,4 +1,5 @@
-"""Dense decoder backbone: ArchConfig -> init / prefill / decode.
+"""Dense decoder backbone: ArchConfig -> init / training loss / prefill /
+decode.
 
 The port of ``repro.models.backbone`` for dense archs (qwen2, llama3.2):
 every layer is RMSNorm -> causal GQA self-attention with RoPE -> residual,
@@ -12,6 +13,15 @@ whose ``[i]`` slice is layer i's contiguous ring of S slots.
 ``decode_step`` writes into it IN PLACE and returns the same dict (the
 JAX package returns new arrays).
 
+``forward_loss`` is the training forward (mean next-token cross-entropy
+by ``chunked_cross_entropy``) and ``forward_hidden`` the final hidden
+states.  Under a gradient each layer runs in a non-reentrant
+``torch.utils.checkpoint`` (``remat=True``, the default), as the JAX
+package ``jax.checkpoint``s each superblock: its activations are
+recomputed in the backward, so its flash-attention and RMSNorm forwards
+run twice per training step; ``remat=False`` keeps them, with bitwise the
+same loss and gradients.
+
 ``prefill_chunk`` advances a chunked prefill by one segment of tokens
 (the continuous scheduler's staged admissions), writing the segment's
 K/V into the cache in place as ``decode_step`` does.
@@ -24,6 +34,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree_to
 from repro_torch.configs.base import ArchConfig
@@ -108,6 +119,18 @@ def _apply_sublayer(cfg: ArchConfig, p, x, *, window: int, kv_valid_len=None):
     return x, (k, v)
 
 
+def _run_layers(cfg: ArchConfig, params, x, *, window: int, remat: bool = True):
+    """Every layer over x (B, T, d); each in a checkpoint under a gradient
+    when ``remat``."""
+    for p in params["blocks"]:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda p_, x_: _apply_sublayer(cfg, p_, x_, window=window)[0],
+                           p, x, use_reentrant=False)
+        else:
+            x, _ = _apply_sublayer(cfg, p, x, window=window)
+    return x
+
+
 def _readout_weight(cfg: ArchConfig, params):
     if cfg.tie_embeddings:
         return params["embed"]["table"].T          # (d, V)
@@ -117,6 +140,85 @@ def _readout_weight(cfg: ArchConfig, params):
 def _logits(cfg: ArchConfig, params, last):
     """last: (B, d) final-normed hidden states -> (B, vocab) float32."""
     return last.float() @ _readout_weight(cfg, params).float()
+
+
+# -------------------------------------------------------------- training ---
+def _chunk_ce(xc, w_vocab, lc, ignore_label: int):
+    """(sum of the chunk's CE over its labelled tokens, their count)."""
+    logits = xc.float() @ w_vocab.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit by gather: JAX's one-hot sum adds exact zeros to it
+    gold = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+    mask = (lc != ignore_label).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(x, w_vocab, labels, *, chunk: int = 512,
+                          ignore_label: int = -100):
+    """Mean CE over the labelled tokens without keeping (B, T, V) logits:
+    one chunk of ``chunk`` positions at a time (the last may be shorter),
+    each chunk in a checkpoint under a gradient, so its logits are
+    recomputed in the backward and never held past their chunk.
+
+    x: (B, T, d); w_vocab: (d, V); labels: (B, T) integers, positions
+    labelled ``ignore_label`` count for nothing."""
+    B, T, _ = x.shape
+    labels = labels.long()
+    Tc = min(chunk, T)
+    loss_sum = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for t0 in range(0, T, Tc):
+        args = (x[:, t0:t0 + Tc], w_vocab, labels[:, t0:t0 + Tc], ignore_label)
+        if torch.is_grad_enabled():
+            s, c = checkpoint(_chunk_ce, *args, use_reentrant=False)
+        else:
+            s, c = _chunk_ce(*args)
+        loss_sum, cnt = loss_sum + s, cnt + c
+    return loss_sum / torch.clamp(cnt, min=1.0)
+
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """(x (B, T, d), labels or None) of a token batch: {"tokens": (B, T)
+    [, "labels": (B, T)]}, tensors or numpy arrays, moved to the params'
+    device."""
+    extras = sorted(set(batch) - {"tokens", "labels"})
+    if extras:
+        raise NotImplementedError(
+            f"the port's backbone takes token batches only, got {extras}: "
+            "patch / frame inputs wait for ROADMAP Queue 1 item 6 (arch zoo)")
+    dev = params["embed"]["table"].device
+    x = embedding(params["embed"], torch.as_tensor(batch["tokens"], device=dev).long())
+    labels = batch.get("labels")
+    if labels is not None:
+        labels = torch.as_tensor(labels, device=dev).long()
+    return x, labels
+
+
+def forward_loss(cfg: ArchConfig, params, batch, *, window: int = 0,
+                 loss_chunk: int = 512, remat: bool = True):
+    """Training forward: mean next-token CE.  Returns (loss, metrics) with
+    JAX's metric keys; a dense arch has no MoE aux losses (zeros).
+
+    batch: {"tokens": (B, T), "labels": (B, T)}."""
+    sublayer_specs(cfg)
+    window = window or cfg.sliding_window
+    x, labels = _embed_inputs(cfg, params, batch)
+    x = _run_layers(cfg, params, x, window=window, remat=remat)
+    x = rmsnorm(params["final_norm"], x)
+    ce = chunked_cross_entropy(x, _readout_weight(cfg, params), labels,
+                               chunk=loss_chunk)
+    zero = torch.zeros((), device=x.device)
+    return ce, {"ce": ce, "load_balance_loss": zero, "dropped_fraction": zero}
+
+
+def forward_hidden(cfg: ArchConfig, params, batch, *, window: int = 0,
+                   remat: bool = True):
+    """Final hidden states (B, T, d): AgileNN's remote path."""
+    sublayer_specs(cfg)
+    window = window or cfg.sliding_window
+    x, _ = _embed_inputs(cfg, params, batch)
+    x = _run_layers(cfg, params, x, window=window, remat=remat)
+    return rmsnorm(params["final_norm"], x)
 
 
 # ------------------------------------------------------------- decoding ----

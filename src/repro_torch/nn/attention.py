@@ -5,8 +5,8 @@ Layout conventions, as in ``repro.nn.attention``:
   queries      (B, T, Hq, D)
   keys/values  (B, S, Hkv, D)     Hq % Hkv == 0 (GQA groups)
 
-``flash_attention`` is the prefill path and ``decode_attention`` the
-single-token serving path; on CUDA tensors they are the hand-written
+``flash_attention`` is the prefill and training path and
+``decode_attention`` the single-token serving path; on CUDA tensors they are the hand-written
 kernels of ``kernels/attention`` and ``kernels/decode_attention``, on CPU
 tensors their plain versions.  Cross-attention (enc-dec) is not ported yet.
 """
@@ -53,7 +53,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q: (B, T, Hq, D), k/v: (B, S, Hkv, D).  q_offset: absolute position of
     q[0] relative to k[0].  kv_valid_len: optional (B,) count of valid keys
     per row; keys at or beyond it, and at or beyond S, never receive
-    probability mass.  Returns (B, T, Hq, D) in q.dtype."""
+    probability mass.  Returns (B, T, Hq, D) in q.dtype.  Where a gradient
+    is taken on CUDA the kernel runs in
+    ``kernels.attention.ops.FlashAttention``, whose backward is the
+    backward kernel (q_offset = 0 and no kv_valid_len there)."""
     return flash_attention_op(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, kv_valid_len=kv_valid_len)
 

@@ -16,7 +16,9 @@ def rmsnorm_init(dim: int) -> dict:
 
 def rmsnorm(params, x, *, eps: float = 1e-6):
     """The RMSNorm kernel (``kernels/rmsnorm``) on CUDA tensors, its plain
-    version on CPU tensors."""
+    version on CPU tensors.  Where a gradient is taken on CUDA it runs in
+    ``kernels.rmsnorm.ops.RMSNorm``, whose backward is the backward
+    kernel."""
     return rmsnorm_op(x, params["scale"], eps=eps)
 
 

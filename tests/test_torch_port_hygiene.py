@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 # every kernel of the port, by the name of its csrc/<name>.cu
-KERNEL_NAMES = ["decode_attention", "flash_attention", "offload_fused",
-                "quantize", "rmsnorm", "topk_split"]
+KERNEL_NAMES = ["decode_attention", "flash_attention", "flash_attention_backward",
+                "offload_fused", "quantize", "rmsnorm", "rmsnorm_backward",
+                "topk_split"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -161,21 +162,30 @@ def test_every_kernel_has_its_source():
 
 
 def _llm_wrapper_calls(dtype=torch.float32, D=64, where="cpu"):
-    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.attention.kernel import (
+        flash_attention_backward_cuda,
+        flash_attention_cuda,
+    )
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda
 
     x = torch.zeros(4, 96, dtype=dtype, device=where)
     q = torch.zeros(2, 5, 4, D, dtype=dtype, device=where)
     kv = torch.zeros(2, 7, 2, D, dtype=dtype, device=where)
+    lse = torch.zeros(2, 4, 5, dtype=dtype, device=where)
     return {
         "rmsnorm": lambda: rmsnorm_cuda(x, torch.ones(96, dtype=dtype)),
         "flash_attention": lambda: flash_attention_cuda(q, kv, kv),
         "decode_attention": lambda: decode_attention_cuda(q[:, :1], kv, kv, 3),
+        "rmsnorm_backward": lambda: rmsnorm_backward_cuda(
+            x, torch.ones(96, dtype=dtype), x),
+        "flash_attention_backward": lambda: flash_attention_backward_cuda(
+            q, kv, kv, q, q, lse),
     }
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention"])
+@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention",
+                                  "rmsnorm_backward", "flash_attention_backward"])
 def test_llm_wrappers_refuse_cpu_tensors(call):
     """Handed a CPU tensor, a kernel wrapper raises before it builds or
     launches anything: only ``ops.py`` picks the plain version."""
@@ -183,13 +193,15 @@ def test_llm_wrappers_refuse_cpu_tensors(call):
         _llm_wrapper_calls()[call]()
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention"])
+@pytest.mark.parametrize("call", ["rmsnorm", "flash_attention", "decode_attention",
+                                  "rmsnorm_backward", "flash_attention_backward"])
 def test_llm_wrappers_refuse_other_dtypes(call):
     with pytest.raises(ValueError, match="float32"):
         _llm_wrapper_calls(dtype=torch.float64)[call]()
 
 
-@pytest.mark.parametrize("call", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("call", ["flash_attention", "decode_attention",
+                                  "flash_attention_backward"])
 @pytest.mark.parametrize("D", [32, 96])
 def test_attention_wrappers_refuse_other_head_dims(call, D):
     with pytest.raises(ValueError, match="D in"):
