@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
      sources at once; print registers and spills, and check that flash
-     attention's SASS holds tensor-core products (HMMA) and asynchronous
-     copies (LDGSTS), and that the permute, the fused offload pass and
+     attention's SASS and its backward's hold tensor-core products (HMMA)
+     and asynchronous copies (LDGSTS), and that the permute, the fused
+     offload pass and
      decode attention copy in by LDGSTS and write by 16-byte stores;
   AgileNN offload inference (slice 1):
   3. each offload kernel against its plain PyTorch version on the card,
@@ -130,10 +131,13 @@ Phases, each of which raises on failure:
      same shapes, lengths and offsets (phase 12a and (a) cover (b)'s).
   LM training, AgileNN on tokens and the baselines (slice 9):
  14. (a) the flash-attention backward kernel against float64 autograd of
-     dense attention (each of dQ, dK, dV within 1e-4 of its largest
-     magnitude) at qwen2-0.5b's training microbatch (q (4, 4096, 14, 64),
-     causal), at D = 128 (qwen2-1.5b's 12 / 2 heads), a 1024 window, T =
-     4000 and two non-causal T != S cases; two calls bitwise equal; the
+     dense attention and against its plain version (each of dQ, dK, dV
+     within 1e-4 of float64's largest magnitude) at qwen2-0.5b's training
+     microbatch (q (4, 4096, 14, 64), causal), at D = 128 (qwen2-1.5b's
+     12 / 2 heads), a 1024 window, T = 4000, two non-causal T != S cases,
+     a q_offset of 1024, ragged kv_valid_len with a row at 0 (whose dq
+     must be 0), and q_offset with a window and ragged rows at D = 128
+     and not causal; two calls bitwise equal; the
      forward's output with its log-sum-exp bitwise equal to the output
      without it, the log-sum-exp within 1e-5 of float64's; the RMSNorm
      backward at (16,384, 896) within 1e-5 of scale of float64, two calls
@@ -158,7 +162,11 @@ Phases, each of which raises on failure:
      and the kernel bitwise on DeepCOD's code and SPINN's features; then
      the two backward kernels' times beside their plain versions', their
      library calls' backward (SDPA ``is_causal`` with heads expanded,
-     ``F.rms_norm``; yardsticks only) and their bounds.
+     ``F.rms_norm``; yardsticks only) and their bounds; each alone by
+     torch.profiler (measured after (a), before the profiled train step),
+     the flash backward's three kernels each against its own bound and
+     their sum against the 3xTF32 bound; the flash backward at D = 128
+     (qwen2-1.5b's heads) against SDPA's backward.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -235,7 +243,10 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     flash_attention_backward_cuda,
     flash_attention_cuda,
 )
-from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    flash_attention_backward_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.common import auto_page_size  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda,
@@ -315,6 +326,12 @@ FP32_OPS_PER_S = 67e12
 BATCH = 256
 TIMING_REPS = 30
 PROFILE_SESSIONS = 3
+# phase 14's backward kernels timed alone by torch.profiler: more tries
+# than elsewhere, and if every session drops some of a kernel's events, the
+# fullest one counts when each kernel kept at least LM_PROFILE_MIN_EVENTS
+# (sessions after the profiled train step have kept 4-9 of 20 events a
+# kernel six times running; the measurement now comes before that step)
+LM_PROFILE_SESSIONS, LM_PROFILE_MIN_EVENTS = 6, 4
 # logits of the card vs the CPU on rows whose indices agree: fp32 convs
 # sum in another order (cuDNN vs the CPU), through 6 GroupNorm blocks
 LOGIT_TOL = 1e-3
@@ -415,15 +432,24 @@ LM_KERNELS = ("flash_attention", "flash_attention_backward", "rmsnorm",
               "rmsnorm_backward")
 LM_SEQ, LM_GLOBAL_BATCH, LM_MICRO, LM_STEPS = 4096, 8, 2, 3
 LM_MICRO_B = LM_GLOBAL_BATCH // LM_MICRO
-# (B, T, S, Hq, Hkv, D, causal, window) of the flash backward's checks
+# (B, T, S, Hq, Hkv, D, causal, window, q_offset, kv_valid_len) of the
+# flash backward's checks
 LM_FLASH_CASES = (
-    (4, 4096, 4096, 14, 2, 64, True, 0),       # qwen2-0.5b's training microbatch
-    (2, 2048, 2048, 12, 2, 128, True, 0),      # qwen2-1.5b's heads, D = 128
-    (1, 4096, 4096, 14, 2, 64, True, 1024),    # a sliding window
-    (1, 4000, 4000, 14, 2, 64, True, 0),       # T off the tiles
-    (2, 700, 777, 4, 2, 64, False, 0),         # not causal, T != S
-    (2, 700, 777, 4, 2, 128, False, 100),      # not causal with a window, D = 128
+    (4, 4096, 4096, 14, 2, 64, True, 0, 0, None),   # qwen2-0.5b's training microbatch
+    (2, 2048, 2048, 12, 2, 128, True, 0, 0, None),  # qwen2-1.5b's heads, D = 128
+    (1, 4096, 4096, 14, 2, 64, True, 1024, 0, None),   # a sliding window
+    (1, 4000, 4000, 14, 2, 64, True, 0, 0, None),   # T off the tiles
+    (2, 700, 777, 4, 2, 64, False, 0, 0, None),     # not causal, T != S
+    (2, 700, 777, 4, 2, 128, False, 100, 0, None),  # not causal with a window, D = 128
+    (2, 512, 1536, 14, 2, 64, True, 0, 1024, None),    # a staged segment's q_offset
+    (3, 777, 777, 14, 2, 64, True, 0, 0, (777, 0, 300)),   # ragged rows, one at 0
+    (2, 600, 1650, 12, 2, 128, True, 256, 1000, (1650, 1203)),  # D = 128: q_offset,
+    #                                                    a window, ragged rows
+    (2, 300, 1000, 4, 2, 64, False, 128, 500, (1000, 0)),  # not causal: all four
 )
+# the flash backward timed at D = 128 too: (B, T = S, Hq, Hkv) of
+# qwen2-1.5b's heads, causal
+LM_FLASH_D128 = (2, 2048, 12, 2)
 # backward kernels against float64: each gradient within LM_GRAD_TOL of its
 # largest magnitude, the log-sum-exp within LM_LSE_TOL; card against CPU
 # as phase 11 (the loss relative, each gradient leaf of its scale)
@@ -474,7 +500,9 @@ def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
 
 
 def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
-                   per_call: float | None = None) -> dict:
+                   per_call: float | None = None,
+                   sessions: int = PROFILE_SESSIONS,
+                   kernels: int | None = None, min_events: int | None = None) -> dict:
     """{kernel name: (device us per call, launches per call)} of the
     kernels of ``fn`` whose names hold ``match``, over ``reps`` calls, from
     torch.profiler's device events ({} if it records none): the kernels'
@@ -485,13 +513,19 @@ def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
     session's events dropped; a session with no matching event, or (given
     ``per_call``, the launches of each kernel in one call) one in which a
     kernel kept fewer than 0.9 x ``per_call`` events a call or more than
-    ``per_call``, is repeated, PROFILE_SESSIONS times at most.  With
-    ``per_call`` the last such session fails the script."""
+    ``per_call``, is repeated, ``sessions`` times at most.  With
+    ``per_call`` the last such session fails the script, unless
+    ``kernels`` and ``min_events`` are given: then the session in which
+    the fewest-kept kernel kept the most events counts, if it found all
+    ``kernels`` kernels, none above ``per_call`` and each with at least
+    ``min_events`` events (each kernel's time is then a mean over the
+    events kept; the events a call say how many)."""
     from torch.profiler import ProfilerActivity, profile
     buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
-    for session in range(1, PROFILE_SESSIONS + 1):
+    fullest, partial = {}, {}
+    for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if buf is not None:
@@ -507,8 +541,19 @@ def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
         print(f"torch.profiler session {session}: "
               + (f"events a call {partial}" if found else
                  f"no device event named {match!r}"), file=sys.stderr)
+        if (found and len(found) == kernels
+                and all(n <= per_call for _, n in found.values())
+                and min(n for _, n in found.values())
+                > min((n for _, n in fullest.values()), default=0.0)):
+            fullest = found
+    if min_events is not None and fullest and min(
+            n for _, n in fullest.values()) * reps >= min_events:
+        print(f"torch.profiler: no session kept every event of {match!r}; the fullest "
+              f"counts, events a call { {k[:60]: n for k, (_, n) in fullest.items()} }",
+              file=sys.stderr)
+        return fullest
     check(per_call is None, f"torch.profiler kept {partial or 'no'} events a call "
-          f"of {match!r} in each of {PROFILE_SESSIONS} sessions")
+          f"of {match!r} in each of {sessions} sessions")
     return found
 
 
@@ -526,14 +571,17 @@ def profiled_kernels(prof, match: str = "") -> dict:
     return out
 
 
-def profiled_share(fn, match: str, bound_ms: float) -> dict:
+def profiled_share(fn, match: str, bound_ms: float,
+                   sessions: int = PROFILE_SESSIONS, **fullest) -> dict:
     """The torch.profiler duration of one call of ``fn``'s kernels named
     ``match``, each of which launches once a call (L2 flushed before each
     call, without the CUDA events' floor), and the share of ``bound_ms``
     it reaches.  Only a session that kept 0.9 to 1 events a call of each
-    kernel counts (``device_kernels``); each kernel's time is the mean
-    over the events kept."""
-    kernels = device_kernels(fn, match=match, flush=True, per_call=1)
+    kernel counts (``device_kernels``; ``fullest`` passes its ``kernels``
+    and ``min_events``); each kernel's time is the mean over the events
+    kept."""
+    kernels = device_kernels(fn, match=match, flush=True, per_call=1,
+                             sessions=sessions, **fullest)
     us = sum(t / n for t, n in kernels.values())
     check(us > 0, f"torch.profiler recorded no device time for {match}")
     return {"us": us, "bound_share": bound_ms * 1e3 / us,
@@ -541,10 +589,12 @@ def profiled_share(fn, match: str, bound_ms: float) -> dict:
 
 
 # what the redesigned kernels must issue: tensor-core products (HMMA) and
-# asynchronous copies (LDGSTS) in flash attention, asynchronous 16-byte
+# asynchronous copies (LDGSTS) in flash attention and its backward,
+# asynchronous 16-byte
 # copies and 16-byte stores in the permute, the fused offload pass and
 # decode attention (its partials and its output)
 SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
+               "flash_attention_backward": ("HMMA", "LDGSTS"),
                "topk_split": ("LDGSTS", "STG.E.128"),
                "offload_fused": ("LDGSTS", "STG.E.128"),
                "decode_attention": ("LDGSTS", "STG.E.128")}
@@ -2782,12 +2832,14 @@ def reset_counts() -> None:
         kern.launches = 0
 
 
-def exact_attention_grads(q, k, v, do, *, causal: bool, window: int):
+def exact_attention_grads(q, k, v, do, *, causal: bool, window: int,
+                          q_offset: int = 0, kv_valid_len=None):
     """Dense attention in float64, one batch row at a time: (dq, dk, dv) of
     sum(out * do) by autograd, and each row's log-sum-exp of its scaled
-    live scores (B, Hq, T), -inf for a row with no live key."""
+    live scores (B, Hq, T), -inf for a row with no live key (whose output,
+    and so each gradient through it, is 0)."""
     T, S, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
-    qp = torch.arange(T, device=q.device)[:, None]
+    qp = torch.arange(T, device=q.device)[:, None] + q_offset
     kp = torch.arange(S, device=q.device)[None, :]
     live = torch.ones(T, S, dtype=torch.bool, device=q.device)
     if causal:
@@ -2796,16 +2848,19 @@ def exact_attention_grads(q, k, v, do, *, causal: bool, window: int):
         live &= kp > qp - window
     grads, lses = [[], [], []], []
     for b in range(q.shape[0]):
+        lb = live if kv_valid_len is None else live & (kp < int(kv_valid_len[b]))
         qb, kb, vb = (t[b:b + 1].double().requires_grad_() for t in (q, k, v))
         kr, vr = (t.repeat_interleave(G, 2) for t in (kb, vb))
         s = torch.einsum("bthd,bshd->bhts", qb, kr) / q.shape[-1] ** 0.5
-        s = s.masked_fill(~live, -float("inf"))
+        s = s.masked_fill(~lb, -float("inf"))
         lses.append(torch.logsumexp(s, dim=-1).detach())
-        p = torch.nan_to_num(torch.softmax(s, dim=-1))
+        m = s.amax(dim=-1, keepdim=True).detach()
+        e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)) * lb
+        p = e / e.sum(dim=-1, keepdim=True).clamp(min=1e-300)
         out = torch.einsum("bhts,bshd->bthd", p, vr)
         for acc, g in zip(grads, torch.autograd.grad(out, (qb, kb, vb), do[b:b + 1].double())):
             acc.append(g)
-        del s, p, out
+        del s, e, p, out
     return [torch.cat(g) for g in grads], torch.cat(lses)
 
 
@@ -2817,9 +2872,10 @@ def rmsnorm_grads64(x, scale, g, eps: float = 1e-6):
 
 def lm_kernel_checks() -> dict:
     """(a) The flash and RMSNorm backward kernels against float64 autograd
-    of the dense functions, two calls bitwise, the forward's output with
-    and without its log-sum-exp bitwise, the log-sum-exp against
-    float64's.  Returns {kernel: max |err| over the cases}."""
+    of the dense functions and their plain versions, two calls bitwise,
+    the forward's output with and without its log-sum-exp bitwise, the
+    log-sum-exp against float64's.  Returns {kernel: max |err| over the
+    cases}."""
     gen = torch.Generator(device="cuda").manual_seed(14)
 
     def randn(*shape):
@@ -2827,37 +2883,66 @@ def lm_kernel_checks() -> dict:
 
     errs = {"flash_attention_backward": 0.0, "rmsnorm_backward": 0.0}
     report = []
-    for (B, T, S, Hq, Hkv, D, causal, window) in LM_FLASH_CASES:
+    for (B, T, S, Hq, Hkv, D, causal, window, q_offset, valid) in LM_FLASH_CASES:
         q, k, v = randn(B, T, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         do = randn(B, T, Hq, D)
-        o_plain = flash_attention_cuda(q, k, v, causal=causal, window=window)
-        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
-        check(torch.equal(o, o_plain), f"flash {B, T, S, Hq, Hkv, D, causal, window}: "
-              "the output with the log-sum-exp differs from the output without it")
-        got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal,
-                                            window=window)
-        again = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal,
-                                              window=window)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_valid_len=None if valid is None else
+                  torch.tensor(valid, dtype=torch.int32, device="cuda"))
+        case = {"shape": (B, T, S, Hq, Hkv, D), "causal": causal, "window": window,
+                "q_offset": q_offset, "kv_valid_len": valid}
+        o_plain = flash_attention_cuda(q, k, v, **kw)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        check(torch.equal(o, o_plain), f"flash {case}: the output with the "
+              "log-sum-exp differs from the output without it")
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, **kw)
+        again = flash_attention_backward_cuda(q, k, v, o, do, lse, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"flash backward {B, T, S, Hq, Hkv, D}: two calls differ")
-        ref, lse64 = exact_attention_grads(q, k, v, do, causal=causal, window=window)
-        case = {"shape": (B, T, S, Hq, Hkv, D), "causal": causal, "window": window}
-        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+              f"flash backward {case}: two calls differ")
+        plain = flash_attention_backward_ref(q, k, v, o, do, lse, **kw)
+        ref, lse64 = exact_attention_grads(q, k, v, do, causal=causal, window=window,
+                                           q_offset=q_offset, kv_valid_len=valid)
+        for name, g, pl, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            check(bool(torch.isfinite(g).all()), f"flash backward {case}: {name} "
+                  "not finite")
             err = (g.double() - r).abs().max().item()
             scale = r.abs().max().item()
             check(err <= LM_GRAD_TOL * scale, f"flash backward {case}: {name} off by "
                   f"{err:.3e}, over {LM_GRAD_TOL} of its scale {scale:.3e}")
+            plain_err = (g.double() - pl.double()).abs().max().item()
+            check(plain_err <= LM_GRAD_TOL * scale, f"flash backward {case}: {name} "
+                  f"off its plain version by {plain_err:.3e}, over {LM_GRAD_TOL} of "
+                  f"float64's scale {scale:.3e}")
             case[name] = err / scale
+            case[f"{name}_vs_plain"] = plain_err / scale
             errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
+        if valid is not None and 0 in valid:       # a row with no live key
+            b0 = valid.index(0)
+            check(torch.equal(got[0][b0], torch.zeros_like(got[0][b0])),
+                  f"flash backward {case}: dq of a row with no live key is not 0")
         fin = torch.isfinite(lse64)
         check(torch.equal(fin, torch.isfinite(lse)), f"flash {case}: rows without keys")
         lse_err = (lse.double() - lse64)[fin].abs().max().item()
         check(lse_err <= LM_LSE_TOL, f"flash {case}: log-sum-exp off by {lse_err:.3e}")
         case["lse"] = lse_err
+        if q_offset or valid is not None:
+            # the same gradient through the op a model calls: the forward
+            # and backward kernels once each, bitwise the direct call's
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            before = {n: _build.KERNELS[n].launches for n in LM_KERNELS[:2]}
+            out = attention_ops.flash_attention_op(qg, kg, vg, **kw)
+            via_op = torch.autograd.grad(out, (qg, kg, vg), do)
+            torch.cuda.synchronize()
+            ran = {n: _build.KERNELS[n].launches - before[n] for n in before}
+            check(ran == {n: 1 for n in before}, f"flash {case}: a gradient through "
+                  f"flash_attention_op launched {ran}")
+            check(torch.equal(out, o) and all(torch.equal(a, b) for a, b in zip(via_op, got)),
+                  f"flash {case}: the op's gradient differs from the kernels' own")
+            case["through_op"] = True
+            del qg, kg, vg, out, via_op
         report.append(case)
-        del q, k, v, do, o, o_plain, lse, got, again, ref, lse64
+        del q, k, v, do, o, o_plain, lse, got, again, plain, ref, lse64
     N, d = LM_RMS_ROWS
     x, scale, g = randn(N, d), 1 + 0.1 * randn(d), randn(N, d)
     got = rmsnorm_backward_cuda(x, scale, g)
@@ -2872,8 +2957,9 @@ def lm_kernel_checks() -> dict:
               f"over {LM_RMS_TOL} of its scale {scl:.3e}")
         rms[name] = err / scl
         errs["rmsnorm_backward"] = max(errs["rmsnorm_backward"], err)
-    print(f"phase 14a: flash backward vs float64 autograd (error / scale, bar "
-          f"{LM_GRAD_TOL}; log-sum-exp abs, bar {LM_LSE_TOL}), two calls bitwise, "
+    print(f"phase 14a: flash backward vs float64 autograd and vs its plain version "
+          f"(error / float64's scale, bar {LM_GRAD_TOL}; log-sum-exp abs, bar "
+          f"{LM_LSE_TOL}), two calls bitwise, "
           f"outputs with / without the log-sum-exp bitwise: {report}")
     print(f"phase 14a: rmsnorm backward at {LM_RMS_ROWS} vs float64 (error / scale, "
           f"bar {LM_RMS_TOL}), two calls bitwise: {rms}")
@@ -2885,6 +2971,17 @@ def quantize_bitwise(x, centers, what: str) -> float:
     err = max_err(quantize_cuda(x, centers), quantize_ref(x, centers))
     print(f"phase 14{what}: quantize bitwise on {tuple(x.shape)}")
     return err
+
+
+def flash_backward_bounds(B: int, T: int, Hq: int, D: int) -> dict:
+    """Each flash backward kernel's least time (ms) at a causal T = S call:
+    the dot kernel's bytes (o and dO read, dvec written); the dK/dV
+    kernel's 8 * D and the dQ kernel's 6 * D flops a live pair, as three
+    TF32 products each on the tensor cores (3xTF32)."""
+    pairs = B * Hq * T * (T + 1) // 2
+    return {"flash_bwd_dot": (2 * B * T * Hq * D + B * Hq * T) * 4 / HBM_BYTES_PER_S * 1e3,
+            "flash_bwd_dkdv": 3 * 8 * D * pairs / TF32_OPS_PER_S * 1e3,
+            "flash_bwd_dq": 3 * 6 * D * pairs / TF32_OPS_PER_S * 1e3}
 
 
 def lm_train(cfg, params, card) -> dict:
@@ -2940,7 +3037,9 @@ def lm_train(cfg, params, card) -> dict:
     busy_us = sum(us for us, _ in kernels.values())
     by = {}
     for key, (us, n) in kernels.items():
-        for name, match in (("flash_attention_backward", "flash_bwd_"),
+        for name, match in (("flash_bwd_dot", "flash_bwd_dot_kernel"),
+                            ("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
+                            ("flash_bwd_dq", "flash_bwd_dq_kernel"),
                             ("rmsnorm_backward", "rmsnorm_backward_kernel"),
                             ("rmsnorm_dscale", "rmsnorm_dscale_kernel"),
                             ("flash_attention", "flash_attention_kernel"),
@@ -2950,13 +3049,22 @@ def lm_train(cfg, params, card) -> dict:
                 cur[0] += us / 1e3
                 cur[1] += n
                 break
+    # the flash backward's three kernels, each against its own bound at the
+    # microbatch's shape, over the step's calls
+    bwd_bounds = flash_backward_bounds(LM_MICRO_B, LM_SEQ, cfg.n_heads,
+                                       cfg.resolved_head_dim)
+    parts = [n for n in bwd_bounds if n in by]
+    by["flash_attention_backward"] = [sum(by[n][0] for n in parts),
+                                      sum(by[n][1] for n in parts)]
+    bwd_share = {n: by[n][1] * bwd_bounds[n] / by[n][0] for n in parts}
     tokens = LM_GLOBAL_BATCH * LM_SEQ
     out = {"arch": cfg.name, "seq_len": LM_SEQ, "global_batch": LM_GLOBAL_BATCH,
            "n_micro": LM_MICRO, "first_step_s": first_s, "step_s": host,
            "step_s_median": step_s, "tokens_per_s": tokens / step_s,
            "peak_bytes": peak, "losses": losses, "launches_per_step": launches,
            "profiled_step_s": prof_s, "busy_share": busy_us / 1e6 / prof_s,
-           "kernel_ms_by_name": by, "n_kernels": sum(n for _, n in kernels.values())}
+           "kernel_ms_by_name": by, "flash_backward_bound_share": bwd_share,
+           "n_kernels": sum(n for _, n in kernels.values())}
     print(f"phase 14b: {cfg.name} at full width and depth ({L} layers, "
           f"{param_count(params)} params), train_4k's "
           f"T = {LM_SEQ}, global batch {LM_GLOBAL_BATCH} (cut from 256) in {LM_MICRO} "
@@ -2966,7 +3074,9 @@ def lm_train(cfg, params, card) -> dict:
           f"(rehearsed {expected}); every one of {len(leaves)} gradient leaves "
           f"finite and nonzero; busy {out['busy_share']:.1%} of a profiled step "
           f"({prof_s:.3f} s, {out['n_kernels']} kernels); device ms (launches) by "
-          f"kernel: {by}  [{card}]")
+          f"kernel: {by}; the flash backward's kernels' shares of their own "
+          f"bounds (dot: bytes; dK/dV 8 * D, dQ 6 * D flops a live pair in "
+          f"3xTF32): {bwd_share}  [{card}]")
     return out
 
 
@@ -3147,48 +3257,124 @@ def baselines_run(card) -> dict:
             "quantize_launches": fwd_launches + launches, "quantize_err": max(errs)}
 
 
-def lm_rows(errs, launches, card) -> list:
-    """The two backward kernels' rows of the kernels line: time at the
-    training path's shapes, the plain version's, the library call's
-    backward (timed as a yardstick only) and the bound."""
-    gen = torch.Generator(device="cuda").manual_seed(15)
-
+def lm_backward_inputs(gen):
+    """The two backward kernels' inputs at the training path's shapes,
+    drawn from ``gen`` in this order: the flash backward's q, k, v, dO (q
+    (4, 4096, 14, 64), k/v (4, 4096, 2, 64)) with the forward's o and lse,
+    then RMSNorm's x, scale and g at (16,384, 896); x and scale ask for
+    gradients."""
     def randn(*shape, grad=False):
         return torch.randn(shape, generator=gen, device="cuda").requires_grad_(grad)
 
     B, T, Hq, Hkv, D = LM_MICRO_B, LM_SEQ, 14, 2, 64
-    q, k, v = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
-    do = randn(B, T, Hq, D)
+    q, k, v, do = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D), randn(B, T, Hq, D)
     o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt = k.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous().requires_grad_()
-    vt = v.repeat_interleave(Hq // Hkv, 2).transpose(1, 2).contiguous().requires_grad_()
-    ot = sdpa(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2).contiguous()
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    ol = flash_attention_ref(ql, kl, vl)
     N, d = B * T, 896
     x, scale, g = randn(N, d, grad=True), (1 + 0.1 * randn(d)).requires_grad_(), randn(N, d)
+    return (q, k, v, do, o, lse), (x, scale, g)
+
+
+def lm_backward_work() -> dict:
+    """(bytes, operations) of each backward kernel at those shapes: each
+    input read once and each output written once; RMSNorm's 6 operations
+    an element, the flash backward's 10 * D flops a live (causal) pair."""
+    B, T, Hq, Hkv, D = LM_MICRO_B, LM_SEQ, 14, 2, 64
+    N, d = B * T, 896
+    pairs = B * Hq * T * (T + 1) // 2
+    return {"rmsnorm_backward": ((3 * N * d + 2 * d) * 4, 6 * N * d),
+            "flash_attention_backward": (
+                (4 * B * T * Hq * D + 4 * B * T * Hkv * D + B * Hq * T) * 4, 10 * D * pairs)}
+
+
+def lm_alone(card) -> dict:
+    """Each backward kernel alone by torch.profiler at the training path's
+    shapes: RMSNorm's two kernels against its bound; the flash backward's
+    three each against its own, their sum against the 3xTF32 bound of the
+    10 * D flops a live pair the gradient needs.  Runs before the profiled
+    train step, after which sessions have kept part of the events."""
+    flash_in, (x, scale, g) = lm_backward_inputs(torch.Generator(device="cuda").manual_seed(15))
+    work = lm_backward_work()
+    rms_bound_ms = bound(*work["rmsnorm_backward"])[0]
+    flash_bound_ms = bound(*work["flash_attention_backward"])[0]
+    alone = {"rmsnorm_backward": profiled_share(
+        lambda: rmsnorm_backward_cuda(x.detach(), scale.detach(), g), "rmsnorm_",
+        rms_bound_ms, sessions=LM_PROFILE_SESSIONS, kernels=2,
+        min_events=LM_PROFILE_MIN_EVENTS)}
+    B, T, Hq, D = LM_MICRO_B, LM_SEQ, 14, 64
+    pairs = B * Hq * T * (T + 1) // 2
+    flash_tc_ms = 3 * 10 * D * pairs / TF32_OPS_PER_S * 1e3
+    own = flash_backward_bounds(B, T, Hq, D)
+    found = device_kernels(lambda: flash_attention_backward_cuda(*flash_in), reps=5,
+                           match="flash_bwd_", flush=True, per_call=1,
+                           sessions=LM_PROFILE_SESSIONS, kernels=len(own),
+                           min_events=LM_PROFILE_MIN_EVENTS)
+    split = {}
+    for key, (us, n) in found.items():
+        part = next(p for p in own if p + "_kernel" in key)
+        split[part] = {"us": us, "events_per_call": n, "bound_ms": own[part],
+                       "bound_share": own[part] * 1e3 / us}
+    check(sorted(split) == sorted(own), f"flash backward kernels by torch.profiler: "
+          f"{sorted(split)}")
+    us = sum(p["us"] for p in split.values())
+    alone["flash_attention_backward"] = {
+        "us": us, "bound_share": flash_bound_ms * 1e3 / us,
+        "tc_bound_ms": flash_tc_ms, "tc_bound_share": flash_tc_ms * 1e3 / us,
+        "kernels": split}
+    print(f"phase 14a: by torch.profiler alone: rmsnorm_backward "
+          f"{alone['rmsnorm_backward']['us']:.2f} us, "
+          f"{alone['rmsnorm_backward']['bound_share']:.1%} of its bound (events a call "
+          f"{alone['rmsnorm_backward']['events_per_call']}); "
+          f"flash_attention_backward {us:.2f} us, "
+          f"{alone['flash_attention_backward']['bound_share']:.1%} of the fp32 "
+          f"bound ({flash_bound_ms:.4f} ms), "
+          f"{alone['flash_attention_backward']['tc_bound_share']:.1%} of the "
+          f"3xTF32 bound ({flash_tc_ms:.4f} ms: 3 x 10 * D flops a live pair at "
+          f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); by kernel {split}  [{card}]")
+    return alone
+
+
+def lm_rows(errs, launches, card) -> tuple:
+    """The two backward kernels' rows of the kernels line: time at the
+    training path's shapes, the plain version's, the library call's
+    backward (timed as a yardstick only) and the bound; then the flash
+    backward's time at D = 128 against the library's."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_graph(q, k, v, do):
+        """SDPA's graph on the same inputs (heads first, kv heads
+        expanded) with its dO."""
+        G = q.shape[2] // k.shape[2]
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_()
+        vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_()
+        ot = sdpa(qt, kt, vt, is_causal=True)
+        return ot, (qt, kt, vt), do.transpose(1, 2).contiguous()
+
+    (q, k, v, do, o, lse), (x, scale, g) = lm_backward_inputs(gen)
+    ot, ins_t, dot = sdpa_graph(q, k, v, do)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = flash_attention_ref(ql, kl, vl)
+    d = x.shape[1]
     y_lib = torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)
     y_ref = rmsnorm_ref(x, scale)
-    pairs = B * Hq * T * (T + 1) // 2
+    work = lm_backward_work()
     specs = [
         ("rmsnorm_backward", "src/repro_torch/csrc/rmsnorm_backward.cu",
          "src/repro/kernels/rmsnorm/kernel.py:25",
          lambda: rmsnorm_backward_cuda(x.detach(), scale.detach(), g),
          lambda: torch.autograd.grad(y_ref, (x, scale), g, retain_graph=True),
          lambda: torch.autograd.grad(y_lib, (x, scale), g, retain_graph=True),
-         (3 * N * d + 2 * d) * 4, 6 * N * d, TIMING_REPS),
+         TIMING_REPS),
         ("flash_attention_backward", "src/repro_torch/csrc/flash_attention_backward.cu",
          "src/repro/kernels/attention/kernel.py:78",
          lambda: flash_attention_backward_cuda(q, k, v, o, do, lse),
          lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
-         lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
-         (4 * B * T * Hq * D + 4 * B * T * Hkv * D + B * Hq * T) * 4, 10 * D * pairs, 5),
+         lambda: torch.autograd.grad(ot, ins_t, dot, retain_graph=True), 5),
     ]
     rows = []
-    for name, src, replaces, kern, plain, library, nbytes, ops, reps in specs:
+    for name, src, replaces, kern, plain, library, reps in specs:
+        nbytes, ops = work[name]
         bound_ms, bound_by = bound(nbytes, ops)
         ms, plain_ms, library_ms = (time_ms(fn, reps=reps) for fn in (kern, plain, library))
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3199,7 +3385,27 @@ def lm_rows(errs, launches, card) -> list:
               f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
               f"{nbytes} B, {ops} ops), {launches[name]} launches on the training "
               f"path  [{card}]")
-    return rows
+    del q, k, v, do, o, lse, ot, ins_t, dot, ol, ql, kl, vl
+
+    # the D = 128 instantiation at qwen2-1.5b's heads against SDPA's backward
+    B2, T2, Hq2, Hkv2 = LM_FLASH_D128
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for shape in (
+        (B2, T2, Hq2, 128), (B2, T2, Hkv2, 128), (B2, T2, Hkv2, 128), (B2, T2, Hq2, 128)))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    ot, ins_t, dot = sdpa_graph(q, k, v, do)
+    pairs2 = B2 * Hq2 * T2 * (T2 + 1) // 2
+    d128 = {"shape": (B2, T2, T2, Hq2, Hkv2, 128),
+            "ms": time_ms(lambda: flash_attention_backward_cuda(q, k, v, o, do, lse), reps=10),
+            "library_ms": time_ms(lambda: torch.autograd.grad(ot, ins_t, dot,
+                                                              retain_graph=True), reps=10),
+            "bound_ms": bound((4 * B2 * T2 * Hq2 * 128 + 4 * B2 * T2 * Hkv2 * 128
+                               + B2 * Hq2 * T2) * 4, 10 * 128 * pairs2)[0],
+            "tc_bound_ms": 3 * 10 * 128 * pairs2 / TF32_OPS_PER_S * 1e3}
+    print(f"phase 14: flash_attention_backward at qwen2-1.5b's heads "
+          f"{d128['shape']}, causal: {d128['ms']:.4f} ms, SDPA backward "
+          f"{d128['library_ms']:.4f} ms, fp32 bound {d128['bound_ms']:.4f} ms, "
+          f"3xTF32 bound {d128['tc_bound_ms']:.4f} ms  [{card}]")
+    return rows, {"flash_d128": d128}
 
 
 def phase_lm(cfg, params, card):
@@ -3209,6 +3415,7 @@ def phase_lm(cfg, params, card):
     parts = {}
     t0 = time.perf_counter()
     checks = lm_kernel_checks()
+    alone = lm_alone(card)
     parts["a"] = time.perf_counter() - t0
     with fp32_math():
         t0 = time.perf_counter()
@@ -3228,9 +3435,10 @@ def phase_lm(cfg, params, card):
     for name in LM_KERNELS:
         launches[name] += agile["launches"][name]
     checks["errs"]["quantize"] = max(agile["quantize_err"], base["quantize_err"])
-    rows = lm_rows(checks["errs"], launches, card)
+    rows, timing = lm_rows(checks["errs"], launches, card)
+    timing["alone"] = alone
     numbers = {"checks": checks, "train": train, "vs_cpu": vs_cpu, "agile_lm": agile,
-               "baselines": base, "part_s": parts,
+               "baselines": base, "timing": timing, "part_s": parts,
                "phase_s": time.perf_counter() - t_phase}
     print(f"phase 14: {numbers['phase_s']:.1f} s, by part "
           f"{ {k: round(v, 1) for k, v in parts.items()} }")

@@ -26,7 +26,8 @@
 // fp32 bar (2e-5) this kernel is held to, so each fp32 operand x is split
 // into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round to nearest, ties
 // away from zero) and a product is hi*hi + hi*lo + lo*hi, the small terms
-// first, accumulated in fp32 (lo*lo, below fp32's last bit, is dropped).
+// first, accumulated in fp32 (lo*lo, below fp32's last bit, is dropped);
+// the helpers live in flash_common.cuh, shared with the backward.
 // - Tiles: one block of 4 warps per (64 query rows, q head, batch row);
 //   each warp owns one 16-row group of the mma.sync.m16n8k8 tiles.
 //   blockIdx.x runs over the q tiles last to first, so under causal
@@ -63,7 +64,7 @@
 #include <climits>
 #include <cstdint>
 
-#include "kernels_common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -77,51 +78,6 @@ __host__ __device__ constexpr int kv_tile() { return D == 64 ? 64 : 32; }
 template <int D>
 __host__ __device__ constexpr int smem_floats() {
   return (kBQ + 4 * kv_tile<D>()) * (D + 4);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo up to fp32 rounding: hi keeps the top 10 mantissa bits (its
-// low 13 bits cleared, so x - hi is exact), lo the next 11.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x) & 0xffffe000u;
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in 3xTF32: lo*hi and hi*lo first, then hi*hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
-
-// The A fragment of Q for k-step ks: rows g and g + 8 of the warp's 16,
-// columns 8 ks + t and 8 ks + t + 4.
-__device__ __forceinline__ void q_fragment(const float* sQw, int ld, int ks,
-                                           int g, int t, uint32_t (&h)[4],
-                                           uint32_t (&l)[4]) {
-  const float* p = sQw + g * ld + ks * 8 + t;
-  split_tf32(p[0], h[0], l[0]);
-  split_tf32(p[8 * ld], h[1], l[1]);
-  split_tf32(p[4], h[2], l[2]);
-  split_tf32(p[8 * ld + 4], h[3], l[3]);
 }
 
 template <int D>
@@ -208,7 +164,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (it == 0) {
 #pragma unroll
         for (int ks = 0; ks < NO; ++ks)
-          q_fragment(sQw, LD, ks, g, t, qh[ks], ql[ks]);
+          a_fragment(sQw, LD, ks, g, t, qh[ks], ql[ks]);
       }
     }
     const float* sK = sKV + stage * 2 * BK * LD;
@@ -228,7 +184,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
           al[r] = ql[ks][r];
         }
       } else {
-        q_fragment(sQw, LD, ks, g, t, ah, al);
+        a_fragment(sQw, LD, ks, g, t, ah, al);
       }
 #pragma unroll
       for (int n = 0; n < NS; ++n) {

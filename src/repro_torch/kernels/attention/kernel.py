@@ -20,7 +20,7 @@ from repro_torch.kernels._build import CudaKernel, check_aligned, check_operand
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("flash_attention", [_P, _P, _P, _P] + [_I] * 9
                     + [ctypes.c_float, _P, _P])
-BACKWARD = CudaKernel("flash_attention_backward", [_P] * 7 + [_I] * 8
+BACKWARD = CudaKernel("flash_attention_backward", [_P] * 8 + [_I] * 9
                       + [ctypes.c_float, _P, _P, _P])
 HEAD_DIMS = (64, 128)
 
@@ -39,6 +39,18 @@ def _check_qkv(q, k, v):
         check_aligned(t, name)
 
 
+def _kv_valid_ptr(kv_valid_len, B: int, device):
+    """kv_valid_len as the kernels read it: None, or a contiguous (B,)
+    int32 copy on ``device`` (returned to keep it alive) and its address."""
+    if kv_valid_len is None:
+        return None, None
+    if kv_valid_len.shape != (B,) or kv_valid_len.is_floating_point():
+        raise ValueError(f"kv_valid_len must be (B={B},) integers, got "
+                         f"{tuple(kv_valid_len.shape)} {kv_valid_len.dtype}")
+    kv_valid_len = kv_valid_len.to(device=device, dtype=torch.int32).contiguous()
+    return kv_valid_len, kv_valid_len.data_ptr()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          q_offset: int = 0,
@@ -55,13 +67,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_qkv(q, k, v)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    valid_ptr = None
-    if kv_valid_len is not None:
-        if kv_valid_len.shape != (B,) or kv_valid_len.is_floating_point():
-            raise ValueError(f"kv_valid_len must be (B={B},) integers, got "
-                             f"{tuple(kv_valid_len.shape)} {kv_valid_len.dtype}")
-        kv_valid_len = kv_valid_len.to(device=q.device, dtype=torch.int32).contiguous()
-        valid_ptr = kv_valid_len.data_ptr()
+    kv_valid_len, valid_ptr = _kv_valid_ptr(kv_valid_len, B, q.device)
     o = torch.empty_like(q)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -75,13 +81,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
-                                  window: int = 0):
-    """The gradient of ``flash_attention_cuda(q, k, v, causal=, window=)``
-    (no q_offset, no kv_valid_len) against do = dL/do: (dq, dk, dv) in the
-    shapes of q, k, v, float32, bitwise the same from call to call.  o and
+                                  window: int = 0, q_offset: int = 0,
+                                  kv_valid_len: torch.Tensor | None = None):
+    """The gradient of ``flash_attention_cuda(q, k, v, causal=, window=,
+    q_offset=, kv_valid_len=)`` against do = dL/do: (dq, dk, dv) in the
+    shapes of q, k, v, float32, bitwise the same from call to call; a query
+    row with no live key gets dq = 0, a key no row sees dk = dv = 0.  o and
     lse are that call's output and log-sum-exp; o and do take q's shape
-    and checks, lse is (B, Hq, T) float32.  Raises ValueError on any other
-    input."""
+    and checks, lse is (B, Hq, T) float32, kv_valid_len as the forward
+    takes it.  Raises ValueError on any other input."""
     _check_qkv(q, k, v)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -97,6 +105,7 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     check_operand(lse, "lse", torch.float32, q.device)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    kv_valid_len, valid_ptr = _kv_valid_ptr(kv_valid_len, B, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:       # no query or no key: zeros
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -104,8 +113,8 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     with torch.cuda.device(q.device):
         BACKWARD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-                        B, T, S, Hq, Hkv, D, int(causal), int(window),
-                        1.0 / math.sqrt(D), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(),
+                        valid_ptr, B, T, S, Hq, Hkv, D, int(causal),
+                        int(window), int(q_offset), 1.0 / math.sqrt(D),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         stream=torch.cuda.current_stream().cuda_stream)
     return dq, dk, dv

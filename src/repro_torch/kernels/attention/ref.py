@@ -68,11 +68,13 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_backward_ref(q, k, v, o, do, lse, *, causal: bool = True,
-                                 window: int = 0):
+                                 window: int = 0, q_offset: int = 0,
+                                 kv_valid_len=None):
     """(dq, dk, dv): autograd of ``flash_attention_ref(q, k, v, causal=,
-    window=)`` against do, in the kernel's signature (o and lse, which the
-    kernel reads, are not needed here)."""
+    window=, q_offset=, kv_valid_len=)`` against do, in the kernel's
+    signature (o and lse, which the kernel reads, are not needed here)."""
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window)
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window,
+                                  q_offset=q_offset, kv_valid_len=kv_valid_len)
         return torch.autograd.grad(out, (qq, kk, vv), do)

@@ -56,7 +56,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     probability mass.  Returns (B, T, Hq, D) in q.dtype.  Where a gradient
     is taken on CUDA the kernel runs in
     ``kernels.attention.ops.FlashAttention``, whose backward is the
-    backward kernel (q_offset = 0 and no kv_valid_len there)."""
+    backward kernel."""
     return flash_attention_op(q, k, v, causal=causal, window=window,
                               q_offset=q_offset, kv_valid_len=kv_valid_len)
 

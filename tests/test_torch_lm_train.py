@@ -6,7 +6,8 @@ the jnp functions, ``chunked_cross_entropy``, ``forward_loss`` /
 llama3.2-1b with the JAX weights bridged over, one ``make_train_step``
 step, and the token data; within the port, remat on and off bitwise, and
 the two Functions driven by plain-torch emulations of their kernels' tile
-walks against autograd of the plain versions.
+walks against autograd of the plain versions, the flash backward's walk
+(q_offset, kv_valid_len, windows) also against float64.
 
 Tolerances, each with its reason:
 - values at 1e-5: fp32 sums run in another order;
@@ -15,6 +16,9 @@ Tolerances, each with its reason:
 - the emulated kernels against autograd at 1e-5 of scale: the kernels'
   recompute from the log-sum-exp and their per-tile sums round
   differently from the online softmax's autograd;
+- the emulated flash backward tile walk (3xTF32 products) against dense
+  float64 autograd at 1e-4 of scale, the card's bar (chip_smoke.py
+  LM_GRAD_TOL), and bitwise across two runs;
 - a train step's new params at 1e-6 + 1e-5 of the update's scale: the
   gradients' rounding times lr;
 - token batches and ignored-label counts exactly.
@@ -109,32 +113,75 @@ def test_shapes_and_microbatches_match_jax():
 
 
 # ------------------------------------------------- the two plain backwards --
-FLASH_CASES = [(48, True, 0), (48, True, 16), (130, True, 0), (130, True, 16),
-               (48, False, 0), (130, False, 0)]
+# (T, causal, window) with S = T, B = 2; then the kernels' wider contract,
+# named by id: S, q_offset, per-row kv_valid_len (a 0 among them), B.  Each
+# stays causal or keeps S within one key block, since the jnp function
+# leaks mass to its padded keys when not causal (ROADMAP Queue 3,
+# reference side).
+FLASH_CASES = [pytest.param(T_, causal, window, {}, id=f"{T_}-{causal}-{window}")
+               for T_, causal, window in [(48, True, 0), (48, True, 16),
+                                          (130, True, 0), (130, True, 16),
+                                          (48, False, 0), (130, False, 0)]]
+FLASH_CONTRACT_CASES = [
+    pytest.param(48, True, 0, dict(S=80), id="T<S"),
+    pytest.param(48, True, 0, dict(S=65, q_offset=17), id="q_offset17"),
+    pytest.param(100, True, 0, dict(S=130, q_offset=17), id="q_offset17-T<S"),
+    pytest.param(48, True, 0, dict(B=3, valid=(48, 0, 29)), id="kv_valid_len"),
+    pytest.param(40, True, 0, dict(B=3, S=90, q_offset=50, valid=(90, 0, 61)),
+                 id="kv_valid_len-q_offset50"),
+    pytest.param(48, True, 16, dict(S=80, q_offset=32), id="window16-q_offset32"),
+    pytest.param(21, False, 0, dict(B=3, S=45, valid=(45, 0, 13)),
+                 id="not_causal-kv_valid_len"),
+    pytest.param(30, False, 9, dict(S=60, q_offset=20), id="not_causal-window9-q_offset20"),
+]
 
 
-@pytest.mark.parametrize("T_,causal,window", FLASH_CASES)
-def test_plain_flash_backward_matches_jax_grad(T_, causal, window):
-    q, k, v = (_normal((2, T_, h, 64), s) for s, h in ((0, 4), (1, 2), (2, 2)))
-    do = _normal((2, T_, 4, 64), 3)
+def _flash_inputs(T_, extra, Hq=4, Hkv=2, seed=0):
+    """q, k, v, do as numpy, and the contract's keywords (kv_valid_len
+    as numpy int32 or None)."""
+    B_, S_ = extra.get("B", 2), extra.get("S", T_)
+    q, k, v = (_normal(shape, seed + s) for s, shape in
+               ((0, (B_, T_, Hq, 64)), (1, (B_, S_, Hkv, 64)), (2, (B_, S_, Hkv, 64))))
+    do = _normal((B_, T_, Hq, 64), seed + 3)
+    valid = extra.get("valid")
+    kw = dict(q_offset=extra.get("q_offset", 0),
+              kv_valid_len=None if valid is None else np.asarray(valid, np.int32))
+    return q, k, v, do, kw
+
+
+def _torch_kw(kw):
+    valid = kw["kv_valid_len"]
+    return dict(q_offset=kw["q_offset"],
+                kv_valid_len=None if valid is None else torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("T_,causal,window,extra", FLASH_CASES + FLASH_CONTRACT_CASES)
+def test_plain_flash_backward_matches_jax_grad(T_, causal, window, extra):
+    q, k, v, do, kw = _flash_inputs(T_, extra)
 
     # several KV blocks under causal masking; one block of S keys otherwise,
     # since the jnp function leaks mass to its padded keys when not causal
     # (ROADMAP Queue 3, reference side)
     blocks = dict(q_block=32, kv_block=32) if causal else {}
+    jkw = dict(q_offset=kw["q_offset"], kv_valid_len=None if kw["kv_valid_len"] is None
+               else jnp.asarray(kw["kv_valid_len"]))
 
     def jloss(q, k, v):
-        o = jax_flash(q, k, v, causal=causal, window=window, **blocks)
+        o = jax_flash(q, k, v, causal=causal, window=window, **blocks, **jkw)
         return jnp.sum(o * do)
 
     ref = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o, lse = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
-                                 return_lse=True)
+                                 return_lse=True, **_torch_kw(kw))
     got = flash_attention_backward_ref(tq, tk, tv, o, tdo, lse, causal=causal,
-                                       window=window)
+                                       window=window, **_torch_kw(kw))
     for name, r, g in zip("qkv", ref, got):
         grad_close(r, g, what=f"d{name}")
+    if kw["kv_valid_len"] is not None:            # a row with no live key
+        b0 = list(kw["kv_valid_len"]).index(0)
+        assert torch.equal(got[0][b0], torch.zeros_like(got[0][b0]))
+        assert bool(torch.isneginf(lse[b0]).all())
 
 
 def test_plain_rmsnorm_backward_matches_jax_grad():
@@ -147,58 +194,149 @@ def test_plain_rmsnorm_backward_matches_jax_grad():
 
 
 # ------------------------------------------ the Functions, emulated kernels --
-def _flash_forward_emulated(q, k, v, *, causal, window):
+def _flash_forward_emulated(q, k, v, *, causal, window, q_offset=0, kv_valid_len=None):
     return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_valid_len=kv_valid_len,
                                return_lse=True)
 
 
-def _flash_backward_emulated(q, k, v, o, do, lse, *, causal, window, BQ=16, BK=32):
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits, the 13 bits below cleared (as tests/test_torch_llm_kernels.py)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_toward_zero(x):
+    """What the tensor core keeps of fp32 bits handed over as a .tf32
+    operand: the top 10 mantissa bits, the 13 below dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mma(a, b, acc):
+    """acc + a @ b in m16n8k8 steps, 3xTF32 as the backward splits
+    (csrc/flash_common.cuh split_tf32_fast): hi as cvt.rna, lo = x - hi
+    rounded toward zero; per 8-wide k-step, in fp32, lo*hi and hi*lo and
+    then hi*hi (the order of tests/test_torch_llm_kernels.py)."""
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        ah, bh = _tf32(ak), _tf32(bk)
+        acc = acc + _tf32_toward_zero(ak - ah) @ bh
+        acc = acc + ah @ _tf32_toward_zero(bk - bh)
+        acc = acc + ah @ bh
+    return acc
+
+
+LOG2E = torch.tensor(1.4426950408889634)
+
+
+def _p(s, scale, lse):
+    """P as the kernels compute it in fp32: exp2(s scale log2 e - lse log2 e)."""
+    return torch.exp2(s * (torch.tensor(scale) * LOG2E) - lse * LOG2E)
+
+
+FLASH_BWD_TILE = 64     # keys of a dK/dV block, query rows of a dQ block
+
+
+def _flash_bwd_tiles(D):
+    """(q rows of a dK/dV q tile, keys of a dQ KV tile), per D."""
+    return (64, 64) if D == 64 else (32, 32)
+
+
+def _flash_backward_emulated(q, k, v, o, do, lse, *, causal, window, q_offset=0,
+                             kv_valid_len=None):
     """The backward kernels' tile walk (csrc/flash_attention_backward.cu):
-    dvec = rowsum(dO * O); per (KV tile, kv head) the q tiles that see it,
-    for each of the G query heads, P recomputed from the log-sum-exp and
-    dK / dV summed over the group; per (q tile, q head) the KV tiles it
-    sees, dQ summed over them."""
+    dvec = rowsum(dO * O); per (64-key tile, kv head) the q tiles from
+    max(0, kb - q_offset) (causal) to k_hi - 1 + window - q_offset (window)
+    for each of the G query heads, S^T = K Q^T and dP^T = V dO^T, P^T
+    recomputed from the log-sum-exp by exp2 (+inf past T or for a row with
+    no live key), and dK / dV summed over the group; per (64-row q tile, q head)
+    the KV tiles from the window's first live tile to the causal diagonal
+    or kv_valid_len, dQ summed over them.  Every product in 3xTF32
+    (``_mma``), each tile's from 0 and then added to the running sum in
+    fp32; the mask applied only on a tile that touches a mask edge,
+    with the kernels' test for it; rows and keys past T and S zero."""
     Bn, Tn, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    G, scale = Hq // Hkv, D ** -0.5
+    G, scale, BT = Hq // Hkv, D ** -0.5, FLASH_BWD_TILE
+    BQ, BK = _flash_bwd_tiles(D)
+    inf = float("inf")
     dvec = (do * o).sum(-1).permute(0, 2, 1)                 # (B, Hq, T)
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-    def tile(q0, kb, b, hq):
-        qp = torch.arange(q0, min(q0 + BQ, Tn))[:, None]
-        kp = torch.arange(kb, min(kb + BK, S))[None, :]
-        live = (kp <= qp) if causal else torch.ones_like(qp * kp, dtype=torch.bool)
+    def rows(x, b, h, r0, n):            # n rows from r0, zero past the end
+        out = torch.zeros(n, D)
+        got = x[b, r0:r0 + n, h]
+        out[:got.shape[0]] = got
+        return out
+
+    def row_stats(b, hq, q0, n):         # lse (+inf where P must be 0), dvec
+        lo, dd = torch.full((n,), inf), torch.zeros(n)
+        m = min(n, Tn - q0)
+        lo[:m], dd[:m] = lse[b, hq, q0:q0 + m], dvec[b, hq, q0:q0 + m]
+        return torch.where(lo == -inf, inf, lo), dd
+
+    def edge(kb, n_k, qp_lo, qp_hi, valid):
+        return (kb + n_k > valid or (causal and kb + n_k - 1 > qp_lo)
+                or (window > 0 and kb <= qp_hi - window))
+
+    def live(qp, kp, valid):             # qp (n, 1), kp (1, m) positions
+        m = kp < valid
+        if causal:
+            m = m & (kp <= qp)
         if window > 0:
-            live = live & (kp > qp - window)
-        Q, dO = q[b, qp[:, 0], hq], do[b, qp[:, 0], hq]
-        K, V = k[b, kp[0], hq // G], v[b, kp[0], hq // G]
-        p = torch.where(live, torch.exp(Q @ K.T * scale - lse[b, hq, qp[:, 0]][:, None]), 0.0)
-        ds = p * (dO @ V.T - dvec[b, hq, qp[:, 0]][:, None])
-        return Q, dO, K, p, ds
+            m = m & (kp > qp - window)
+        return m
 
     for b in range(Bn):
+        valid = S if kv_valid_len is None else max(0, min(S, int(kv_valid_len[b])))
         for hk in range(Hkv):
-            for kb in range(0, S, BK):
-                n_k = min(BK, S - kb)
-                q_lo = kb if causal else 0
-                q_hi = min(Tn, kb + n_k - 1 + window) if window > 0 else Tn
-                acc_k, acc_v = torch.zeros(n_k, D), torch.zeros(n_k, D)
-                for hq in range(hk * G, hk * G + G):
-                    for q0 in range(q_lo // BQ * BQ, q_hi, BQ):
-                        Q, dO, _, p, ds = tile(q0, kb, b, hq)
-                        acc_v += p.T @ dO
-                        acc_k += ds.T @ Q
-                dk[b, kb:kb + n_k, hk], dv[b, kb:kb + n_k, hk] = acc_k * scale, acc_v
+            for kb in range(0, S, BT):
+                k_hi = min(kb + BT, valid)
+                i_lo = i_hi = 0
+                if k_hi > kb:
+                    i_lo = max(0, kb - q_offset) if causal else 0
+                    i_hi = min(Tn, k_hi - 1 + window - q_offset) if window > 0 else Tn
+                K, V = rows(k, b, hk, kb, BT), rows(v, b, hk, kb, BT)
+                kp = torch.arange(kb, kb + BT)[:, None]
+                acc_k, acc_v = torch.zeros(BT, D), torch.zeros(BT, D)
+                for hq in range(hk * G, hk * G + G) if i_hi > i_lo else ():
+                    for q0 in range(i_lo // BQ * BQ, i_hi, BQ):
+                        Q, dO = rows(q, b, hq, q0, BQ), rows(do, b, hq, q0, BQ)
+                        lo, dd = row_stats(b, hq, q0, BQ)
+                        st = _mma(K, Q.T, torch.zeros(BT, BQ))
+                        dpt = _mma(V, dO.T, torch.zeros(BT, BQ))
+                        p = _p(st, scale, lo[None, :])
+                        qp_lo = q_offset + q0
+                        if edge(kb, BT, qp_lo, qp_lo + BQ - 1, valid):
+                            qp = torch.arange(qp_lo, qp_lo + BQ)[None, :]
+                            p = torch.where(live(qp, kp, valid), p, 0.0)
+                        ds = p * (dpt - dd[None, :])
+                        acc_v = acc_v + _mma(p, dO, torch.zeros(BT, D))
+                        acc_k = acc_k + _mma(ds, Q, torch.zeros(BT, D))
+                n_k = min(BT, S - kb)
+                dk[b, kb:kb + n_k, hk] = (acc_k * scale)[:n_k]
+                dv[b, kb:kb + n_k, hk] = acc_v[:n_k]
         for hq in range(Hq):
-            for q0 in range(0, Tn, BQ):
-                n_q = min(BQ, Tn - q0)
-                k_end = min(S, q0 + n_q) if causal else S
-                k_begin = max(0, q0 - window + 1) if window > 0 else 0
-                acc = torch.zeros(n_q, D)
+            for q0 in range(0, Tn, BT):
+                n_q = min(BT, Tn - q0)
+                qp_lo, qp_hi = q_offset + q0, q_offset + q0 + n_q - 1
+                k_end = min(valid, max(0, qp_hi + 1)) if causal else valid
+                k_begin = max(0, qp_lo - window + 1) if window > 0 else 0
+                Q, dO = rows(q, b, hq, q0, BT), rows(do, b, hq, q0, BT)
+                lo, dd = row_stats(b, hq, q0, BT)
+                qp = torch.arange(qp_lo, qp_lo + BT)[:, None]
+                acc = torch.zeros(BT, D)
                 for kb in range(k_begin // BK * BK, k_end, BK):
-                    _, _, K, _, ds = tile(q0, kb, b, hq)
-                    acc += ds @ K
-                dq[b, q0:q0 + n_q, hq] = acc * scale
+                    K, V = rows(k, b, hq // G, kb, BK), rows(v, b, hq // G, kb, BK)
+                    s_ = _mma(Q, K.T, torch.zeros(BT, BK))
+                    dp = _mma(dO, V.T, torch.zeros(BT, BK))
+                    p = _p(s_, scale, lo[:, None])
+                    if edge(kb, BK, qp_lo, qp_hi, valid):
+                        p = torch.where(live(qp, torch.arange(kb, kb + BK)[None, :], valid),
+                                        p, 0.0)
+                    acc = acc + _mma(p * (dp - dd[:, None]), K, torch.zeros(BT, D))
+                dq[b, q0:q0 + n_q, hq] = (acc * scale)[:n_q]
     return dq, dk, dv
 
 
@@ -222,21 +360,81 @@ def _rmsnorm_backward_emulated(x, scale, g, *, eps, blocks=3):
     return dx, dscale
 
 
-@pytest.mark.parametrize("T_,S_,causal,window", [(40, 40, True, 0), (37, 37, True, 9),
-                                                 (21, 45, False, 0), (45, 21, False, 7)])
-def test_flash_function_with_emulated_kernels_matches_autograd(T_, S_, causal, window):
-    q = torch.from_numpy(_normal((2, T_, 6, 64), 0)).requires_grad_()
-    k = torch.from_numpy(_normal((2, S_, 2, 64), 1)).requires_grad_()
-    v = torch.from_numpy(_normal((2, S_, 2, 64), 2)).requires_grad_()
-    w = torch.from_numpy(_normal((2, T_, 6, 64), 3))
-    out = FlashAttention.apply(q, k, v, causal, window, _flash_forward_emulated,
+# (T, S, causal, window) with B = 2; then the kernels' wider contract,
+# named by id: q_offset, per-row kv_valid_len (a 0 among them), B
+FUNCTION_CASES = [pytest.param(T_, S_, causal, window, {}, id=f"{T_}-{S_}-{causal}-{window}")
+                  for T_, S_, causal, window in [(40, 40, True, 0), (37, 37, True, 9),
+                                                 (21, 45, False, 0), (45, 21, False, 7)]]
+FUNCTION_CONTRACT_CASES = [
+    pytest.param(48, 65, True, 0, dict(q_offset=17), id="q_offset17"),
+    pytest.param(70, 130, True, 0, dict(q_offset=17), id="q_offset17-T<S"),
+    pytest.param(48, 48, True, 0, dict(B=3, valid=(48, 0, 29)), id="kv_valid_len"),
+    pytest.param(40, 90, True, 0, dict(B=3, q_offset=50, valid=(90, 0, 61)),
+                 id="kv_valid_len-q_offset50"),
+    pytest.param(48, 80, True, 16, dict(q_offset=32), id="window16-q_offset32"),
+    pytest.param(30, 60, False, 9, dict(q_offset=20, valid=(60, 33)),
+                 id="not_causal-window9-q_offset20"),
+]
+
+
+@pytest.mark.parametrize("T_,S_,causal,window,extra", FUNCTION_CASES + FUNCTION_CONTRACT_CASES)
+def test_flash_function_with_emulated_kernels_matches_autograd(T_, S_, causal, window,
+                                                               extra):
+    qn, kn, vn, _, kw = _flash_inputs(T_, dict(extra, S=S_), Hq=6)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
+    w = torch.from_numpy(_normal(qn.shape, 3))
+    kw = _torch_kw(kw)
+    out = FlashAttention.apply(q, k, v, causal, window, kw["q_offset"],
+                               kw["kv_valid_len"], _flash_forward_emulated,
                                _flash_backward_emulated)
     got = torch.autograd.grad((out * w).sum(), (q, k, v))
-    ref_out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    ref_out = flash_attention_ref(q, k, v, causal=causal, window=window, **kw)
     ref = torch.autograd.grad((ref_out * w).sum(), (q, k, v))
     assert torch.equal(out, ref_out)
     for name, r, g in zip("qkv", ref, got):
         grad_close(r, g, what=f"d{name}")
+
+
+def _exact_flash_grads(q, k, v, do, *, causal, window, q_offset, kv_valid_len):
+    """Dense attention in float64 under the kernels' mask, a row with no
+    live key giving 0: (dq, dk, dv) of sum(out * do) by autograd."""
+    T_, S_, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    q64, k64, v64 = (t.double().requires_grad_() for t in (q, k, v))
+    qp = torch.arange(T_)[:, None] + q_offset
+    kp = torch.arange(S_)[None, :]
+    live = torch.ones(q.shape[0], 1, T_, S_, dtype=torch.bool)
+    if causal:
+        live = live & (kp <= qp)
+    if window > 0:
+        live = live & (kp > qp - window)
+    if kv_valid_len is not None:
+        live = live & (kp < kv_valid_len.long()[:, None, None, None])
+    s = torch.einsum("bthd,bshd->bhts", q64, k64.repeat_interleave(G, 2)) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~live, -float("inf"))
+    m = s.amax(-1, keepdim=True).detach()
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)) * live
+    p = e / e.sum(-1, keepdim=True).clamp(min=1e-300)
+    out = torch.einsum("bhts,bshd->bthd", p, v64.repeat_interleave(G, 2))
+    return torch.autograd.grad(out, (q64, k64, v64), do.double())
+
+
+@pytest.mark.parametrize("T_,S_,causal,window,extra", FUNCTION_CASES + FUNCTION_CONTRACT_CASES)
+def test_flash_backward_emulated_tile_walk_matches_float64(T_, S_, causal, window, extra):
+    """The kernels' 3xTF32 tile walk within the card's bar (1e-4 of each
+    gradient's scale, LM_GRAD_TOL of chip_smoke.py) of float64 autograd of
+    dense attention, and bitwise equal across two runs."""
+    qn, kn, vn, don, kw = _flash_inputs(T_, dict(extra, S=S_), Hq=6)
+    q, k, v, do = map(torch.from_numpy, (qn, kn, vn, don))
+    kw = _torch_kw(kw)
+    o, lse = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True, **kw)
+    runs = [_flash_backward_emulated(q, k, v, o, do, lse, causal=causal,
+                                     window=window, **kw) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ref = _exact_flash_grads(q, k, v, do, causal=causal, window=window, **kw)
+    for name, r, g in zip("qkv", ref, runs[0]):
+        assert torch.isfinite(g).all()
+        grad_close(r.numpy(), g, tol=1e-4, what=f"d{name}")
 
 
 def test_rmsnorm_function_with_emulated_kernel_matches_autograd():
