@@ -163,10 +163,35 @@ Phases, each of which raises on failure:
      the two backward kernels' times beside their plain versions', their
      library calls' backward (SDPA ``is_causal`` with heads expanded,
      ``F.rms_norm``; yardsticks only) and their bounds; each alone by
-     torch.profiler (measured after (a), before the profiled train step),
-     the flash backward's three kernels each against its own bound and
-     their sum against the 3xTF32 bound; the flash backward at D = 128
+     torch.profiler (measured after (a), before the profiled train step,
+     in a fresh child process of this script: ``--lm-alone JSON``), the
+     flash backward's three kernels each against its own bound and their
+     sum against the 3xTF32 bound; the flash backward at D = 128
      (qwen2-1.5b's heads) against SDPA's backward.
+  internvl2-1b, whisper-tiny and long_context (slice 11), full width,
+  fp32, TF32 off, seed-0 weights:
+ 15. (a) flash and its backward at whisper-tiny's encoder shape (q, k, v
+     (8, 1500, 6, 64)) and cross shape (q (8, 448, 6, 64) against k/v
+     (8, 1500, 6, 64)), not causal, decode attention at the cross shape
+     (attend_len 1,500, G = 1) and on a full 8,192-slot ring of
+     qwen2-0.5b's heads, against their plain versions (2e-5; the backward
+     within 1e-4 of float64's scale), with times, bounds and the library
+     calls' (SDPA, not causal / with a mask); (b) internvl2-1b through
+     ``ServeEngine(max_len=1024).generate``: 8 requests of 256 patches and
+     256 tokens, 32 greedy tokens, launches from 0 and exact, tokens/s and
+     peak; then 2 requests of 64 tokens on the card against the port's
+     CPU (logits 1e-3, tokens by phase 8's near-tie rule); (c) its
+     ``make_train_step`` at T = 4,096 (256 patches + 3,840 tokens), one
+     microbatch of 2, 2 steps: launches exact, every gradient leaf finite
+     and nonzero, step time, tokens/s, peak; (d) whisper-tiny: 8 requests
+     of 1,500 frames and 4 tokens, 64 greedy tokens, launches exact; 2 of
+     them against the CPU; ``make_train_step`` at B = 16 x (1,500 frames,
+     448 tokens), 3 steps; (e) qwen2-0.5b's prefill of 12,288 tokens with
+     ``long_context`` (window and ring 8,192), 64 decode steps past the
+     wrap, launches exact, each forward's first kernel calls (layer 0's
+     windowed flash among them) held against their plain versions on
+     their inputs; a 512-token prompt decoding the same greedy tokens with
+     and without ``long_context``.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -181,6 +206,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -326,12 +352,11 @@ FP32_OPS_PER_S = 67e12
 BATCH = 256
 TIMING_REPS = 30
 PROFILE_SESSIONS = 3
-# phase 14's backward kernels timed alone by torch.profiler: more tries
-# than elsewhere, and if every session drops some of a kernel's events, the
-# fullest one counts when each kernel kept at least LM_PROFILE_MIN_EVENTS
-# (sessions after the profiled train step have kept 4-9 of 20 events a
-# kernel six times running; the measurement now comes before that step)
-LM_PROFILE_SESSIONS, LM_PROFILE_MIN_EVENTS = 6, 4
+# phase 14's backward kernels timed alone by torch.profiler, in a child
+# process, with more tries than elsewhere; each session must keep every
+# event (late in this long process sessions have kept 0-0.55 events a
+# call; a fresh child process has kept them all)
+LM_PROFILE_SESSIONS = 6
 # logits of the card vs the CPU on rows whose indices agree: fp32 convs
 # sum in another order (cuDNN vs the CPU), through 6 GroupNorm blocks
 LOGIT_TOL = 1e-3
@@ -455,6 +480,10 @@ LM_FLASH_D128 = (2, 2048, 12, 2)
 # as phase 11 (the loss relative, each gradient leaf of its scale)
 LM_GRAD_TOL, LM_LSE_TOL, LM_RMS_TOL, LM_RMS_ROWS = 1e-4, 1e-5, 1e-5, (16384, 896)
 LM_CPU_LOSS_TOL, LM_CPU_GRAD_TOL = 1e-4, 1e-3
+# phase 14's backward kernels timed alone by torch.profiler run in a child
+# process of this script (python3 chip_smoke.py --lm-alone JSON), which
+# writes its numbers there
+LM_ALONE_TIMEOUT_S = 600
 # AgileNN on tokens: SyntheticTokens over the first 512 token ids
 AGILE_LM_VOCAB, AGILE_LM_B, AGILE_LM_T, AGILE_LM_STEPS, AGILE_LM_CPU_B = 512, 16, 128, 3, 4
 # the baselines at 96^2; the server side's MACs are a fixed stand-in, the
@@ -462,6 +491,28 @@ AGILE_LM_VOCAB, AGILE_LM_B, AGILE_LM_T, AGILE_LM_STEPS, AGILE_LM_CPU_B = 512, 16
 BASELINE_B, BASELINE_STEPS, BASELINE_COST_B, BASELINE_REMOTE_MACS = 32, 3, 128, 1.0e8
 # at most this share of the transmitted indices may flip card vs CPU
 BASELINE_FLIP_TOL = 1e-4
+# slice 11, full width, fp32, seed-0 weights: internvl2-1b (256 stubbed
+# patch embeddings of 1024 in front of the dense LM) served through
+# ServeEngine(max_len=1024) on 8 requests of 256 text tokens, 32 greedy
+# tokens, and on 2 requests of 64 tokens against the CPU (8 tokens), then
+# trained at T = 4096 (256 patches + 3,840 tokens), one microbatch of 2
+VLM_ARCH = "internvl2-1b"
+VLM_BATCH, VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 8, 256, 32, 1024
+VLM_CPU_B, VLM_CPU_TEXT, VLM_CPU_NEW, VLM_CPU_MAX_LEN = 2, 64, 8, 512
+VLM_TRAIN_B, VLM_TRAIN_TEXT, VLM_TRAIN_STEPS = 2, 3840, 2
+# whisper-tiny: 1,500 stubbed frame embeddings (30 s of audio) a request,
+# 4-token prompts, 64 greedy tokens, the decoder's 448-token context;
+# trained at B = 16 x (1,500 frames, 448 tokens)
+ASR_ARCH = "whisper-tiny"
+ASR_BATCH, ASR_PROMPT, ASR_NEW, ASR_MAX_LEN, ASR_CPU_B = 8, 4, 64, 448, 2
+ASR_TRAIN_B, ASR_TRAIN_T, ASR_TRAIN_STEPS = 16, 448, 3
+# long_context on qwen2-0.5b: a 12,288-token prompt (window and ring of
+# long_context_window = 8,192), 64 decode steps past the wrap; a 512-token
+# prompt decoded 16 tokens with and without long_context
+LONG_PROMPT, LONG_DECODE, LONG_SHORT, LONG_SHORT_NEW = 12288, 64, 512, 16
+# one train step of internvl2-1b and of whisper-tiny (its full patches or
+# frames) card vs CPU as phase 14c: 2 rows of 32 tokens
+TRAIN_CPU_B, TRAIN_CPU_T = 2, 32
 
 
 def check(cond, msg: str) -> None:
@@ -501,8 +552,7 @@ def time_ms(fn, reps: int = TIMING_REPS, hold_cycles: int = 5_000_000) -> float:
 
 def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
                    per_call: float | None = None,
-                   sessions: int = PROFILE_SESSIONS,
-                   kernels: int | None = None, min_events: int | None = None) -> dict:
+                   sessions: int = PROFILE_SESSIONS) -> dict:
     """{kernel name: (device us per call, launches per call)} of the
     kernels of ``fn`` whose names hold ``match``, over ``reps`` calls, from
     torch.profiler's device events ({} if it records none): the kernels'
@@ -514,17 +564,12 @@ def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
     ``per_call``, the launches of each kernel in one call) one in which a
     kernel kept fewer than 0.9 x ``per_call`` events a call or more than
     ``per_call``, is repeated, ``sessions`` times at most.  With
-    ``per_call`` the last such session fails the script, unless
-    ``kernels`` and ``min_events`` are given: then the session in which
-    the fewest-kept kernel kept the most events counts, if it found all
-    ``kernels`` kernels, none above ``per_call`` and each with at least
-    ``min_events`` events (each kernel's time is then a mean over the
-    events kept; the events a call say how many)."""
+    ``per_call`` the last such session fails the script."""
     from torch.profiler import ProfilerActivity, profile
     buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
-    fullest, partial = {}, {}
+    partial = {}
     for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -541,17 +586,6 @@ def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
         print(f"torch.profiler session {session}: "
               + (f"events a call {partial}" if found else
                  f"no device event named {match!r}"), file=sys.stderr)
-        if (found and len(found) == kernels
-                and all(n <= per_call for _, n in found.values())
-                and min(n for _, n in found.values())
-                > min((n for _, n in fullest.values()), default=0.0)):
-            fullest = found
-    if min_events is not None and fullest and min(
-            n for _, n in fullest.values()) * reps >= min_events:
-        print(f"torch.profiler: no session kept every event of {match!r}; the fullest "
-              f"counts, events a call { {k[:60]: n for k, (_, n) in fullest.items()} }",
-              file=sys.stderr)
-        return fullest
     check(per_call is None, f"torch.profiler kept {partial or 'no'} events a call "
           f"of {match!r} in each of {sessions} sessions")
     return found
@@ -572,16 +606,15 @@ def profiled_kernels(prof, match: str = "") -> dict:
 
 
 def profiled_share(fn, match: str, bound_ms: float,
-                   sessions: int = PROFILE_SESSIONS, **fullest) -> dict:
+                   sessions: int = PROFILE_SESSIONS) -> dict:
     """The torch.profiler duration of one call of ``fn``'s kernels named
     ``match``, each of which launches once a call (L2 flushed before each
     call, without the CUDA events' floor), and the share of ``bound_ms``
     it reaches.  Only a session that kept 0.9 to 1 events a call of each
-    kernel counts (``device_kernels``; ``fullest`` passes its ``kernels``
-    and ``min_events``); each kernel's time is the mean over the events
-    kept."""
+    kernel counts (``device_kernels``); each kernel's time is the mean
+    over the events kept."""
     kernels = device_kernels(fn, match=match, flush=True, per_call=1,
-                             sessions=sessions, **fullest)
+                             sessions=sessions)
     us = sum(t / n for t, n in kernels.values())
     check(us > 0, f"torch.profiler recorded no device time for {match}")
     return {"us": us, "bound_share": bound_ms * 1e3 / us,
@@ -1043,14 +1076,16 @@ def phase_llm_path(cfg, params, card):
                       "greedy_tokens_row0": greedy[0].tokens.tolist()}
 
 
-def top2_margin(cfg, params, prompt, tokens, step: int, max_len: int = CPU_MAX_LEN):
+def top2_margin(cfg, params, prompt, tokens, step: int, max_len: int = CPU_MAX_LEN,
+                extras=None):
     """The top-2 logit margin at decode position ``step`` of one row, fed
     its own greedy ``tokens`` on the params' device (the card or the CPU),
-    and the top logit's size."""
+    and the top logit's size.  ``extras``: the row's patches / frames."""
     dev = params["embed"]["table"].device
-    logits, cache, T = bb.prefill(cfg, params,
-                                  {"tokens": torch.as_tensor(prompt[None], device=dev)},
-                                  max_len=max_len)
+    batch = {"tokens": torch.as_tensor(prompt[None], device=dev)}
+    batch.update({k: torch.as_tensor(v[None], device=dev)
+                  for k, v in (extras or {}).items()})
+    logits, cache, T = bb.prefill(cfg, params, batch, max_len=max_len)
     for i in range(step):
         logits, cache = bb.decode_step(
             cfg, params, torch.tensor([[int(tokens[i])]], device=dev), cache, T + i)
@@ -1058,7 +1093,8 @@ def top2_margin(cfg, params, prompt, tokens, step: int, max_len: int = CPU_MAX_L
     return (top[0] - top[1]).item(), top[0].abs().item()
 
 
-def near_tie(cfg, params, prompt, ref, got, what: str, max_len: int = CPU_MAX_LEN):
+def near_tie(cfg, params, prompt, ref, got, what: str, max_len: int = CPU_MAX_LEN,
+             extras=None):
     """``got`` equals the greedy tokens ``ref`` (decoded from ``params``) up
     to its length, or the first divergence sits on a near-tie of ``ref``'s
     run: a top-2 margin within what LLM_LOGIT_TOL of difference can swap.
@@ -1068,7 +1104,7 @@ def near_tie(cfg, params, prompt, ref, got, what: str, max_len: int = CPU_MAX_LE
     if split.size == 0:
         return None
     i = int(split[0])
-    margin, top = top2_margin(cfg, params, prompt, ref, i, max_len)
+    margin, top = top2_margin(cfg, params, prompt, ref, i, max_len, extras)
     bar = 2 * (LLM_LOGIT_TOL + LLM_LOGIT_TOL * top)
     print(f"{what}: greedy tokens diverge at step {i}; the top-2 margin of "
           f"the reference there is {margin:.3e} (a swap needs < {bar:.3e})")
@@ -1078,33 +1114,11 @@ def near_tie(cfg, params, prompt, ref, got, what: str, max_len: int = CPU_MAX_LE
 
 
 def phase_llm_vs_cpu(cfg, params):
-    """The same params and prompts on the card and on the CPU: prefill
-    logits within LLM_LOGIT_TOL, greedy tokens equal up to a near-tie."""
-    cpu = tree_to(params, "cpu")
+    """The same params and prompts on the card and on the CPU (B =
+    CPU_BATCH, T = CPU_PROMPT, CPU_NEW tokens): ``card_vs_cpu``."""
     prompts = np.random.RandomState(3).randint(0, cfg.vocab, (CPU_BATCH, CPU_PROMPT))
-    lg, _, _ = bb.prefill(cfg, params, {"tokens": torch.as_tensor(prompts, device="cuda")},
-                          max_len=CPU_MAX_LEN)
-    lc, _, _ = bb.prefill(cfg, cpu, {"tokens": torch.as_tensor(prompts)},
-                          max_len=CPU_MAX_LEN)
-    diff = (lg.cpu() - lc).abs().max().item()
-    print(f"phase 8: prefill logits |card - CPU| max {diff:.3e} "
-          f"(B={CPU_BATCH}, T={CPU_PROMPT}; tolerance {LLM_LOGIT_TOL} abs + rel)")
-    check(torch.allclose(lg.cpu(), lc, atol=LLM_LOGIT_TOL, rtol=LLM_LOGIT_TOL),
-          f"prefill logits differ from the CPU run by {diff}")
-    reqs = [Request(tokens=p, max_new_tokens=CPU_NEW) for p in prompts]
-    card = ServeEngine(cfg, params, max_len=CPU_MAX_LEN).generate(reqs)
-    host = ServeEngine(cfg, cpu, max_len=CPU_MAX_LEN, device="cpu").generate(reqs)
-    same = 0
-    for b, (c, h) in enumerate(zip(card, host)):
-        split = np.flatnonzero(c.tokens != h.tokens)
-        if split.size == 0:
-            same += 1
-            continue
-        near_tie(cfg, cpu, prompts[b], h.tokens, c.tokens, f"phase 8: row {b}")
-    print(f"phase 8: greedy tokens ({CPU_NEW} per row) equal on the card and "
-          f"the CPU on {same} of {CPU_BATCH} rows")
-    return {"prefill_logit_max_abs_diff_vs_cpu": diff,
-            "greedy_rows_equal_vs_cpu": same}
+    return card_vs_cpu(cfg, params, [Request(tokens=p, max_new_tokens=CPU_NEW)
+                                     for p in prompts], CPU_MAX_LEN, "phase 8")
 
 
 def phase_llm_timing(cfg, params, launches, errs, card):
@@ -2401,33 +2415,49 @@ PATH_KERNELS = {"flash_attention": (attention_ops, "flash_attention_cuda",
                 "rmsnorm": (rmsnorm_ops, "rmsnorm_cuda", rmsnorm_ref)}
 
 
+def kernel_picks(cfg) -> dict:
+    """Which calls of each serving kernel ``capture_kernel_calls`` keeps:
+    {kernel: (its calls in one forward, the indices kept among them)}.  A
+    dense forward: the first call of each.  An enc-dec forward (whisper):
+    the encoder's first flash call and decoder layer 0's self and cross
+    flash in the prefill, layer 0's self and cross decode attention in
+    each step; its LayerNorm is plain torch, so it has no RMSNorm."""
+    L = cfg.n_layers
+    if cfg.encdec is None:
+        return {"flash_attention": (L, {0}), "decode_attention": (L, {0}),
+                "rmsnorm": (2 * L + 1, {0})}
+    Le = cfg.encdec.n_encoder_layers
+    return {"flash_attention": (Le + 2 * L, {0, Le, Le + 1}),
+            "decode_attention": (2 * L, {0, 1})}
+
+
 def capture_kernel_calls(cfg):
     """Wrap the serving kernels' CUDA wrappers where their ops call them
-    and keep a copy of the inputs of each forward's first call of each
-    (every n_layers-th attention call, every (2 n_layers + 1)-th RMSNorm):
-    the shapes, offsets, valid lengths and depths the path gives them.
-    The wrappers launch as before and count their own launches.  Returns
-    the kept calls and a function that unwraps them."""
-    stride = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers,
-              "rmsnorm": 2 * cfg.n_layers + 1}
-    kept = {n: [] for n in PATH_KERNELS}
-    seen = dict.fromkeys(PATH_KERNELS, 0)
-    real = {n: getattr(mod, attr) for n, (mod, attr, _) in PATH_KERNELS.items()}
+    and keep a copy of the inputs of the calls ``kernel_picks`` names in
+    each forward: the shapes, offsets, valid lengths and depths the path
+    gives them.  The wrappers launch as before and count their own
+    launches.  Returns the kept calls and a function that unwraps them."""
+    picks = kernel_picks(cfg)
+    kept = {n: [] for n in picks}
+    seen = dict.fromkeys(picks, 0)
+    real = {n: getattr(PATH_KERNELS[n][0], PATH_KERNELS[n][1]) for n in picks}
 
     def copy(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     def wrap(name):
+        stride, keep_at = picks[name]
+
         def keep(*a, **kw):
-            if seen[name] % stride[name] == 0:
+            if seen[name] % stride in keep_at:
                 kept[name].append(([copy(x) for x in a],
                                    {k: copy(v) for k, v in kw.items()}))
             seen[name] += 1
             return real[name](*a, **kw)
         return keep
 
-    for n, (mod, attr, _) in PATH_KERNELS.items():
-        setattr(mod, attr, wrap(n))
+    for n in picks:
+        setattr(PATH_KERNELS[n][0], PATH_KERNELS[n][1], wrap(n))
     return kept, lambda: [setattr(PATH_KERNELS[n][0], PATH_KERNELS[n][1], f)
                           for n, f in real.items()]
 
@@ -2460,7 +2490,7 @@ def replay_kernel_calls(kept, what: str):
                     f"{what}: {name} at {sig}, lengths {lens}"))
     counts = {n: len(c) for n, c in kept.items()}
     check(all(counts.values()), f"{what}: a serving kernel was never called: {counts}")
-    print(f"{what}: each forward's first call of each serving kernel ({counts} "
+    print(f"{what}: the calls kernel_picks names in each forward ({counts} "
           f"calls) again on its own inputs and on normal draws, against the "
           f"plain versions within {LLM_KERNEL_TOL}: shapes "
           f"{ {n: sorted(s) for n, s in shapes.items()} }, max |err| {errs}")
@@ -3080,23 +3110,27 @@ def lm_train(cfg, params, card) -> dict:
     return out
 
 
-def lm_vs_cpu(cfg, params) -> dict:
-    """(c) forward_loss and every gradient leaf on the card against the
-    port's CPU run of the same weights, on a 2 x 128 batch."""
-    rng = np.random.RandomState(14)
-    batch = {k: rng.randint(0, cfg.vocab, (2, 128)) for k in ("tokens", "labels")}
+def lm_vs_cpu(cfg, params, batch=None, what: str = "phase 14c") -> dict:
+    """forward_loss and every gradient leaf on the card against the port's
+    CPU run of the same weights, on ``batch`` (numpy; by default a 2 x 128
+    token batch)."""
+    if batch is None:
+        rng = np.random.RandomState(14)
+        batch = {k: rng.randint(0, cfg.vocab, (2, 128)) for k in ("tokens", "labels")}
     res = {}
     for where, p in (("card", params), ("cpu", tree_to(params, "cpu"))):
         (loss, _), grads = value_and_grad(lambda pp: bb.forward_loss(cfg, pp, batch), p)
         res[where] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)])
     loss_err = abs(float(res["card"][0]) - float(res["cpu"][0])) / abs(float(res["cpu"][0]))
-    check(loss_err <= LM_CPU_LOSS_TOL, f"forward_loss card vs CPU: {loss_err:.3e} relative")
+    check(loss_err <= LM_CPU_LOSS_TOL,
+          f"{what}: forward_loss card vs CPU: {loss_err:.3e} relative")
     worst = 0.0
     for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
         e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        check(e <= LM_CPU_GRAD_TOL, f"gradient leaf {i} card vs CPU: {e:.3e} of scale")
+        check(e <= LM_CPU_GRAD_TOL, f"{what}: gradient leaf {i} card vs CPU: {e:.3e} of scale")
         worst = max(worst, e)
-    print(f"phase 14c: forward_loss card vs CPU {loss_err:.3e} relative (bar "
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    print(f"{what}: forward_loss on {shapes} card vs CPU {loss_err:.3e} relative (bar "
           f"{LM_CPU_LOSS_TOL}); every one of {len(res['cpu'][1])} gradient leaves within "
           f"{worst:.3e} of its scale (bar {LM_CPU_GRAD_TOL})")
     return {"loss_rel_err": loss_err, "grad_err": worst}
@@ -3290,24 +3324,22 @@ def lm_alone(card) -> dict:
     """Each backward kernel alone by torch.profiler at the training path's
     shapes: RMSNorm's two kernels against its bound; the flash backward's
     three each against its own, their sum against the 3xTF32 bound of the
-    10 * D flops a live pair the gradient needs.  Runs before the profiled
-    train step, after which sessions have kept part of the events."""
+    10 * D flops a live pair the gradient needs.  Runs in a fresh child
+    process of this script (``lm_alone_child``), right after phase 14a."""
     flash_in, (x, scale, g) = lm_backward_inputs(torch.Generator(device="cuda").manual_seed(15))
     work = lm_backward_work()
     rms_bound_ms = bound(*work["rmsnorm_backward"])[0]
     flash_bound_ms = bound(*work["flash_attention_backward"])[0]
     alone = {"rmsnorm_backward": profiled_share(
         lambda: rmsnorm_backward_cuda(x.detach(), scale.detach(), g), "rmsnorm_",
-        rms_bound_ms, sessions=LM_PROFILE_SESSIONS, kernels=2,
-        min_events=LM_PROFILE_MIN_EVENTS)}
+        rms_bound_ms, sessions=LM_PROFILE_SESSIONS)}
     B, T, Hq, D = LM_MICRO_B, LM_SEQ, 14, 64
     pairs = B * Hq * T * (T + 1) // 2
     flash_tc_ms = 3 * 10 * D * pairs / TF32_OPS_PER_S * 1e3
     own = flash_backward_bounds(B, T, Hq, D)
     found = device_kernels(lambda: flash_attention_backward_cuda(*flash_in), reps=5,
                            match="flash_bwd_", flush=True, per_call=1,
-                           sessions=LM_PROFILE_SESSIONS, kernels=len(own),
-                           min_events=LM_PROFILE_MIN_EVENTS)
+                           sessions=LM_PROFILE_SESSIONS)
     split = {}
     for key, (us, n) in found.items():
         part = next(p for p in own if p + "_kernel" in key)
@@ -3330,6 +3362,30 @@ def lm_alone(card) -> dict:
           f"{alone['flash_attention_backward']['tc_bound_share']:.1%} of the "
           f"3xTF32 bound ({flash_tc_ms:.4f} ms: 3 x 10 * D flops a live pair at "
           f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); by kernel {split}  [{card}]")
+    return alone
+
+
+def lm_alone_child(card) -> dict:
+    """``lm_alone`` in a fresh child process of this script: the device
+    events that torch.profiler has dropped late in this process (0-0.55
+    events a call of a kernel, before the profiled train step too) follow
+    the process, not the step.  The child prints its sessions' events a
+    call and writes its numbers to a JSON file that this process reads."""
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm_alone.json")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--lm-alone", path],
+                       check=True, timeout=LM_ALONE_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        with open(path) as f:
+            alone = json.load(f)
+    kept = {"rmsnorm_backward": alone["rmsnorm_backward"]["events_per_call"],
+            **{f"flash_backward.{n}": k["events_per_call"]
+               for n, k in alone["flash_attention_backward"]["kernels"].items()}}
+    alone["child_s"] = child_s
+    print(f"phase 14a: the backward kernels alone, by torch.profiler in a child process "
+          f"({child_s:.1f} s): events kept a call {kept}")
     return alone
 
 
@@ -3415,7 +3471,7 @@ def phase_lm(cfg, params, card):
     parts = {}
     t0 = time.perf_counter()
     checks = lm_kernel_checks()
-    alone = lm_alone(card)
+    alone = lm_alone_child(card)
     parts["a"] = time.perf_counter() - t0
     with fp32_math():
         t0 = time.perf_counter()
@@ -3445,9 +3501,494 @@ def phase_lm(cfg, params, card):
     return launches, rows, numbers
 
 
+# ------------------------------------------------------------ slice 11 ---
+def slice11_counts() -> dict:
+    return {n: k.launches for n, k in _build.KERNELS.items()}
+
+
+def check_launches(got: dict, expect: dict, what: str) -> None:
+    """Every kernel's launches exactly ``expect``'s (0 for a kernel it
+    does not name)."""
+    full = {n: expect.get(n, 0) for n in got}
+    check(got == full, f"{what}: launches {got}, expected {full}")
+
+
+def flash_work(B: int, T: int, S: int, H: int, D: int, causal: bool) -> dict:
+    """(bytes, operations) of the flash forward and backward at q (B, T,
+    H, D), k/v (B, S, H, D), no window or offset: each input read and each
+    output written once; 4 * D flops a live (query, key) pair forward, 10
+    * D backward (dot: o and dO read, dvec written; the log-sum-exp
+    read).  Causal, query t sees keys 0 .. t."""
+    live = sum(min(t + 1, S) for t in range(T)) if causal else T * S
+    pairs = B * H * live
+    return {"forward": ((2 * B * T * H * D + 2 * B * S * H * D) * 4, 4 * D * pairs),
+            "backward": ((4 * B * T * H * D + 4 * B * S * H * D + B * H * T) * 4,
+                         10 * D * pairs),
+            "pairs": pairs}
+
+
+def slice11_kernels(card) -> dict:
+    """Phase 15a: flash (forward and backward) at whisper-tiny's shapes:
+    its encoder (T = S = 1,500, not causal), its cross-attention (448
+    queries against 1,500 frames), its decoder's causal self-attention at
+    the train shape (B = 16, T = 448) and at the serving prefill's (a
+    4-token prompt), all at G = 1; decode attention at the cross shape
+    (attend_len 1,500), at the decoder's self shape (a 448-slot cache at
+    the first and last serving depth, G = 1) and on a full 8,192-slot
+    long_context ring (qwen2-0.5b's heads); each against its plain
+    version (the backward also against float64 autograd), with its time
+    beside its bound and the library call's."""
+    asr, llm = get_config(ASR_ARCH), get_config(LLM_ARCH)
+    B, F, H, D = ASR_BATCH, asr.encdec.n_frames, asr.n_heads, asr.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(151)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def heads_first(t, rep=1):
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+    errs = dict.fromkeys(("flash_attention", "flash_attention_backward",
+                          "decode_attention"), 0.0)
+    flash = {}
+    for what, (Bf, T, S, causal) in (
+            ("encoder", (B, F, F, False)), ("cross", (B, ASR_MAX_LEN, F, False)),
+            ("decoder self, train", (ASR_TRAIN_B, ASR_TRAIN_T, ASR_TRAIN_T, True)),
+            ("decoder self, prefill", (B, ASR_PROMPT, ASR_PROMPT, True))):
+        q, k, v, do = randn(Bf, T, H, D), randn(Bf, S, H, D), randn(Bf, S, H, D), randn(Bf, T, H, D)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        errs["flash_attention"] = max(errs["flash_attention"], close_err(
+            o, flash_attention_ref(q, k, v, causal=causal), LLM_KERNEL_TOL,
+            f"phase 15a: flash at the {what} shape"))
+        got = flash_attention_backward_cuda(q, k, v, o, do, lse, causal=causal)
+        plain = flash_attention_backward_ref(q, k, v, o, do, lse, causal=causal)
+        ref, _ = exact_attention_grads(q, k, v, do, causal=causal, window=0)
+        case = {"q": (Bf, T, H, D), "kv": (Bf, S, H, D), "causal": causal}
+        for name, g, pl, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            check(bool(torch.isfinite(g).all()), f"phase 15a: {what} {name} not finite")
+            err, scale = (g.double() - r).abs().max().item(), r.abs().max().item()
+            plain_err = (g.double() - pl.double()).abs().max().item()
+            check(err <= LM_GRAD_TOL * scale and plain_err <= LM_GRAD_TOL * scale,
+                  f"phase 15a: flash backward at the {what} shape: {name} off float64 "
+                  f"by {err:.3e}, off its plain version by {plain_err:.3e}, over "
+                  f"{LM_GRAD_TOL} of float64's scale {scale:.3e}")
+            case[name], case[f"{name}_vs_plain"] = err / scale, plain_err / scale
+            errs["flash_attention_backward"] = max(errs["flash_attention_backward"], err)
+        del plain, ref
+        qt, kt, vt = (heads_first(t).requires_grad_() for t in (q, k, v))
+        ot, dot = sdpa(qt, kt, vt, is_causal=causal), heads_first(do)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = flash_attention_ref(ql, kl, vl, causal=causal)
+        work = flash_work(Bf, T, S, H, D, causal)
+        (fb, fby), (bb_ms, bby) = bound(*work["forward"]), bound(*work["backward"])
+        with torch.no_grad():
+            case["forward"] = {
+                "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal)),
+                "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                                    reps=10),
+                "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal)),
+                "bound_ms": fb, "bound_by": fby,
+                "tc_bound_ms": 3 * work["forward"][1] / TF32_OPS_PER_S * 1e3}
+        case["backward"] = {
+            "ms": time_ms(lambda: flash_attention_backward_cuda(q, k, v, o, do, lse,
+                                                                causal=causal), reps=10),
+            "plain_ms": time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                                            retain_graph=True), reps=5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                              retain_graph=True), reps=10),
+            "bound_ms": bb_ms, "bound_by": bby,
+            "tc_bound_ms": 3 * work["backward"][1] / TF32_OPS_PER_S * 1e3}
+        flash[what] = case
+        del q, k, v, do, o, lse, got, qt, kt, vt, ot, dot, ql, kl, vl, ol
+    decode = {}
+    ring = (1, llm.long_context_window, llm.n_heads, llm.n_kv_heads, llm.resolved_head_dim)
+    for what, (Bd, S, Hq, Hkv, D), n in (
+            ("cross", (B, F, H, H, D), F),
+            ("self, first step", (B, ASR_MAX_LEN, H, H, D), ASR_PROMPT + 1),
+            ("self, last step", (B, ASR_MAX_LEN, H, H, D), ASR_PROMPT + ASR_NEW - 1),
+            ("ring", ring, ring[1])):
+        page = auto_page_size(S) or DEFAULT_PAGE
+        qd, kc, vc = randn(Bd, 1, Hq, D), randn(Bd, S, Hkv, D), randn(Bd, S, Hkv, D)
+        errs["decode_attention"] = max(errs["decode_attention"], close_err(
+            decode_attention_cuda(qd, kc, vc, n, page_size=page),
+            decode_attention_ref(qd, kc, vc, n), LLM_KERNEL_TOL,
+            f"phase 15a: decode attention at the {what} shape"))
+        G = Hq // Hkv
+        qdt, kct, vct = heads_first(qd), heads_first(kc, G), heads_first(vc, G)
+        live = (torch.arange(S, device="cuda") < n).view(1, 1, 1, S)
+        b_ms, b_by = bound((2 * Bd * Hq * D + 2 * Bd * n * Hkv * D) * 4,
+                           4 * Bd * Hq * n * D)
+        decode[what] = {
+            "q": (Bd, 1, Hq, D), "cache": (Bd, S, Hkv, D), "attend_len": n,
+            "ms": time_ms(lambda: decode_attention_cuda(qd, kc, vc, n, page_size=page)),
+            "plain_ms": time_ms(lambda: decode_attention_ref(qd, kc, vc, n)),
+            "library_ms": time_ms(lambda: sdpa(qdt, kct, vct, attn_mask=live)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    torch.cuda.synchronize()
+    print(f"phase 15a: whisper-tiny's shapes (G = 1) and the long_context ring, within "
+          f"{LLM_KERNEL_TOL} of the plain versions (the backward within {LM_GRAD_TOL} of "
+          f"float64's scale, error / scale): flash {flash}; decode attention {decode}; "
+          f"max |err| {errs}  [{card}]")
+    return {"errs": errs, "flash": flash, "decode": decode}
+
+
+def vlm_requests(cfg, n: int, text: int, new: int, seed: int) -> list:
+    """n requests of ``text`` uniform tokens behind n_patches normal patch
+    embeddings (the stubbed InternViT's output), ``new`` greedy tokens."""
+    rng = np.random.RandomState(seed)
+    P, Vd = cfg.vlm.n_patches, cfg.vlm.vision_dim
+    return [Request(tokens=rng.randint(0, cfg.vocab, text), max_new_tokens=new,
+                    extras={"patches": rng.standard_normal((P, Vd)).astype(np.float32)})
+            for _ in range(n)]
+
+
+def asr_requests(cfg, n: int, seed: int) -> list:
+    """n requests of ASR_PROMPT uniform tokens over n_frames normal frame
+    embeddings (the stubbed conv frontend's output), ASR_NEW greedy
+    tokens."""
+    rng = np.random.RandomState(seed)
+    F = cfg.encdec.n_frames
+    return [Request(tokens=rng.randint(0, cfg.vocab, ASR_PROMPT), max_new_tokens=ASR_NEW,
+                    extras={"frames": rng.standard_normal((F, cfg.d_model)).astype(np.float32)})
+            for _ in range(n)]
+
+
+def serve_extras(cfg, params, reqs, max_len: int, expect, what: str, card) -> dict:
+    """``ServeEngine(max_len).generate`` of requests with extras, launch
+    counts from 0 and checked exactly against ``expect(steps)``; wall s,
+    tokens/s and peak memory; the calls ``kernel_picks`` names in each
+    forward of a second generate, held against the plain versions; then
+    the prefill alone."""
+    eng = ServeEngine(cfg, params, max_len=max_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = slice11_counts()
+    steps = outs[0].steps
+    check_launches(launches, expect(steps), what)
+    new = reqs[0].max_new_tokens
+    for c in outs:
+        check(c.steps == new and len(c.tokens) == new and c.tokens.min() >= 0
+              and c.tokens.max() < cfg.vocab,
+              f"{what}: a completion of {len(c.tokens)} tokens, {c.steps} steps")
+    peak = torch.cuda.max_memory_allocated()
+    kept, restore = capture_kernel_calls(cfg)
+    try:
+        eng.generate(reqs)
+    finally:
+        restore()
+    kernel_errs = replay_kernel_calls(kept, what)
+    del kept
+    batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda"),
+             **{k: torch.as_tensor(np.stack([r.extras[k] for r in reqs]), device="cuda")
+                for k in reqs[0].extras}}
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, total_T = bb.prefill(cfg, params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    out = {"requests": len(reqs), "context": total_T, "new_tokens": new,
+           "generate_s": wall, "tokens_per_s": len(reqs) * new / wall,
+           "peak_bytes": peak, "launches": launches, "kernel_errs": kernel_errs,
+           "prefill_s": statistics.median(host),
+           "greedy_tokens_row0": outs[0].tokens.tolist()}
+    print(f"{what}: ServeEngine(max_len={max_len}).generate of {len(reqs)} requests, "
+          f"context {total_T}, {new} greedy tokens each: {wall:.3f} s, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_bytes'] / 2**30:.2f} GiB; "
+          f"its prefill alone {out['prefill_s'] * 1e3:.1f} ms; launches "
+          f"{ {n: c for n, c in launches.items() if c} } (exact)  [{card}]")
+    return out
+
+
+def card_vs_cpu(cfg, params, reqs, max_len: int, what: str) -> dict:
+    """The same params and requests (their extras too) on the card and on
+    the port's CPU: prefill logits within LLM_LOGIT_TOL, greedy tokens of
+    ``ServeEngine(max_len).generate`` equal up to a near-tie."""
+    cpu = tree_to(params, "cpu")
+    extras = reqs[0].extras or {}
+    batch = {"tokens": np.stack([r.tokens for r in reqs]),
+             **{k: np.stack([r.extras[k] for r in reqs]) for k in extras}}
+    lg, _, _ = bb.prefill(cfg, params, {k: torch.as_tensor(v, device="cuda")
+                                        for k, v in batch.items()}, max_len=max_len)
+    lc, _, _ = bb.prefill(cfg, cpu, {k: torch.as_tensor(v) for k, v in batch.items()},
+                          max_len=max_len)
+    diff = (lg.cpu() - lc).abs().max().item()
+    check(torch.allclose(lg.cpu(), lc, atol=LLM_LOGIT_TOL, rtol=LLM_LOGIT_TOL),
+          f"{what}: prefill logits differ from the CPU run by {diff}")
+    card_out = ServeEngine(cfg, params, max_len=max_len).generate(reqs)
+    host_out = ServeEngine(cfg, cpu, max_len=max_len, device="cpu").generate(reqs)
+    same, splits = 0, []
+    for b, (c, h) in enumerate(zip(card_out, host_out)):
+        at = near_tie(cfg, cpu, reqs[b].tokens, h.tokens, c.tokens, f"{what}: row {b}",
+                      max_len, reqs[b].extras)
+        same += at is None
+        splits.append(at)
+    print(f"{what}: {len(reqs)} requests of {batch['tokens'].shape[1]} tokens"
+          f"{' + ' + str(sorted(extras)) if extras else ''}: prefill logits |card - CPU| "
+          f"max {diff:.3e} (bar {LLM_LOGIT_TOL} abs + rel); greedy tokens "
+          f"({reqs[0].max_new_tokens} a row) equal on {same} of {len(reqs)} rows, "
+          f"divergence steps {splits}")
+    return {"prefill_logit_max_abs_diff_vs_cpu": diff, "greedy_rows_equal_vs_cpu": same,
+            "divergence_steps": splits}
+
+
+def train_extras(cfg, params, batches, expect, what: str, card) -> dict:
+    """``make_train_step`` (one microbatch) over ``batches``: launch counts
+    of the first step from 0 and checked exactly, every gradient leaf
+    (its momentum, zero before it) finite and nonzero; host s a step,
+    tokens (positions) / s and peak memory."""
+    B, T = batches[0]["tokens"].shape
+    if cfg.vlm is not None:
+        T += batches[0]["patches"].shape[1]
+    step = make_train_step(cfg, InputShape("train", T, B, "train"), n_micro_override=1)
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    p, host, losses = params, [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batch)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            launches = slice11_counts()
+            reset_counts()
+            check_launches(launches, expect, f"{what}: one train step")
+            leaves = tree_leaves(opt["momentum"])
+            bad = [j for j, t in enumerate(leaves)
+                   if not bool(torch.isfinite(t).all()) or float(t.abs().max()) == 0.0]
+            check(not bad, f"{what}: gradient leaves not finite or all zero: {bad} of "
+                  f"{len(leaves)}")
+    later = slice11_counts()
+    check(all(later[n] == launches[n] * (len(batches) - 1) for n in later),
+          f"{what}: launches of the later steps {later}, one step's {launches}")
+    check(all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
+    step_s = statistics.median(host[1:])
+    out = {"batch": B, "positions": T, "step_s": host, "step_s_median": step_s,
+           "tokens_per_s": B * T / step_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "launches_per_step": launches, "gradient_leaves": len(leaves)}
+    print(f"{what}: make_train_step at B = {B} x T = {T}: steps {[round(s, 3) for s in host]} "
+          f"s (the first left out of the rate), {out['tokens_per_s']:.0f} "
+          f"positions/s after the first, peak {out['peak_bytes'] / 2**30:.2f} GiB, losses "
+          f"{losses}; launches of one step { {n: c for n, c in launches.items() if c} } "
+          f"(exact); every one of {len(leaves)} gradient leaves finite and nonzero  [{card}]")
+    del p, opt
+    return out
+
+
+def vlm_run(card) -> tuple:
+    """Phase 15b-c: internvl2-1b at full width, seed-0 weights: serving
+    through the engine with patches, the card against the CPU, training
+    at T = 4,096 (256 patches + 3,840 tokens)."""
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = bb.init_params(cfg, seed=0)
+    init_s = time.perf_counter() - t0
+    L = cfg.n_layers
+    serve = serve_extras(
+        cfg, params, vlm_requests(cfg, VLM_BATCH, VLM_TEXT, VLM_NEW, 150), VLM_MAX_LEN,
+        lambda steps: {"rmsnorm": (2 * L + 1) * steps, "flash_attention": L,
+                       "decode_attention": L * (steps - 1)},
+        f"phase 15b: {VLM_ARCH}", card)
+    launches = dict(serve["launches"])
+    vs_cpu = card_vs_cpu(cfg, params, vlm_requests(cfg, VLM_CPU_B, VLM_CPU_TEXT,
+                                                     VLM_CPU_NEW, 151),
+                           VLM_CPU_MAX_LEN, f"phase 15b: {VLM_ARCH} card vs CPU")
+    gen = torch.Generator(device="cuda").manual_seed(152)
+    P, Vd = cfg.vlm.n_patches, cfg.vlm.vision_dim
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (VLM_TRAIN_B, VLM_TRAIN_TEXT),
+                                        generator=gen, device="cuda"),
+                "labels": torch.randint(0, cfg.vocab, (VLM_TRAIN_B, VLM_TRAIN_TEXT),
+                                        generator=gen, device="cuda"),
+                "patches": torch.randn((VLM_TRAIN_B, P, Vd), generator=gen, device="cuda")}
+               for _ in range(VLM_TRAIN_STEPS)]
+    train = train_extras(cfg, params, batches, lm_expected_launches(L, 1),
+                         f"phase 15c: {VLM_ARCH}", card)
+    for n, c in train["launches_per_step"].items():
+        launches[n] += c * len(batches)
+    rng = np.random.RandomState(154)
+    train["vs_cpu"] = lm_vs_cpu(cfg, params, {
+        "tokens": rng.randint(0, cfg.vocab, (TRAIN_CPU_B, TRAIN_CPU_T)),
+        "labels": rng.randint(0, cfg.vocab, (TRAIN_CPU_B, TRAIN_CPU_T)),
+        "patches": rng.standard_normal((TRAIN_CPU_B, P, Vd)).astype(np.float32)},
+        f"phase 15c: {VLM_ARCH}")
+    out = {"params": param_count(params), "init_s": init_s, "serve": serve,
+           "vs_cpu": vs_cpu, "train": train}
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def asr_run(card) -> tuple:
+    """Phase 15d: whisper-tiny at full width, seed-0 weights: serving with
+    1,500 frames a request, the card against the CPU, training at B = 16
+    x (1,500 frames, 448 tokens)."""
+    cfg = get_config(ASR_ARCH)
+    params = bb.init_params(cfg, seed=0)
+    Le, Ld = cfg.encdec.n_encoder_layers, cfg.n_layers
+    # the encoder's self-attention, each decoder layer's self and cross
+    # attention in the prefill; self and cross decode attention a step
+    serve = serve_extras(
+        cfg, params, asr_requests(cfg, ASR_BATCH, 160), ASR_MAX_LEN,
+        lambda steps: {"flash_attention": Le + 2 * Ld,
+                       "decode_attention": 2 * Ld * (steps - 1)},
+        f"phase 15d: {ASR_ARCH}", card)
+    launches = dict(serve["launches"])
+    vs_cpu = card_vs_cpu(cfg, params, asr_requests(cfg, ASR_CPU_B, 161), ASR_MAX_LEN,
+                           f"phase 15d: {ASR_ARCH} card vs CPU")
+    gen = torch.Generator(device="cuda").manual_seed(162)
+    F = cfg.encdec.n_frames
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (ASR_TRAIN_B, ASR_TRAIN_T),
+                                        generator=gen, device="cuda"),
+                "labels": torch.randint(0, cfg.vocab, (ASR_TRAIN_B, ASR_TRAIN_T),
+                                        generator=gen, device="cuda"),
+                "frames": torch.randn((ASR_TRAIN_B, F, cfg.d_model), generator=gen,
+                                      device="cuda")}
+               for _ in range(ASR_TRAIN_STEPS)]
+    # remat runs each layer's forward twice: 2 (Le + 2 Ld) flash forwards,
+    # Le + 2 Ld backwards; LayerNorm is plain torch
+    train = train_extras(cfg, params, batches,
+                         {"flash_attention": 2 * (Le + 2 * Ld),
+                          "flash_attention_backward": Le + 2 * Ld},
+                         f"phase 15d: {ASR_ARCH}", card)
+    for n, c in train["launches_per_step"].items():
+        launches[n] += c * len(batches)
+    rng = np.random.RandomState(164)
+    train["vs_cpu"] = lm_vs_cpu(cfg, params, {
+        "tokens": rng.randint(0, cfg.vocab, (TRAIN_CPU_B, TRAIN_CPU_T)),
+        "labels": rng.randint(0, cfg.vocab, (TRAIN_CPU_B, TRAIN_CPU_T)),
+        "frames": rng.standard_normal((TRAIN_CPU_B, F, cfg.d_model)).astype(np.float32)},
+        f"phase 15d: {ASR_ARCH}")
+    out = {"params": param_count(params), "serve": serve, "vs_cpu": vs_cpu,
+           "train": train}
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def long_context_run(cfg, params, card) -> tuple:
+    """Phase 15e: qwen2-0.5b's prefill of a LONG_PROMPT-token prompt with
+    long_context (a window of long_context_window tokens and a ring of as
+    many slots), timed with its peak memory; again with LONG_DECODE greedy
+    decode steps past the ring's wrap, launch counts exact; the first call
+    of each kernel in every forward held against its plain version on its
+    own inputs (layer 0's windowed flash among them); a LONG_SHORT-token
+    prompt giving the same greedy tokens with long_context as without."""
+    W, L = cfg.long_context_window, cfg.n_layers
+    tokens = torch.as_tensor(np.random.RandomState(153).randint(0, cfg.vocab, (1, LONG_PROMPT)),
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bb.prefill(cfg, params, {"tokens": tokens}, long_context=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kept, restore = capture_kernel_calls(cfg)
+    reset_counts()
+    try:
+        logits, cache, T = bb.prefill(cfg, params, {"tokens": tokens}, long_context=True)
+        check(cache["k"].shape[2] == W and T == LONG_PROMPT,
+              f"phase 15e: a ring of {cache['k'].shape[2]} slots after {T} tokens")
+        host, seq = [], []
+        tok = torch.argmax(logits, -1)
+        for i in range(LONG_DECODE):
+            seq.append(int(tok))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = bb.decode_step(cfg, params, tok[:, None], cache, T + i)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()), f"phase 15e: decode step {i} logits")
+            tok = torch.argmax(logits, -1)
+    finally:
+        restore()
+    launches = slice11_counts()
+    check_launches(launches, {"rmsnorm": (2 * L + 1) * (1 + LONG_DECODE),
+                              "flash_attention": L, "decode_attention": L * LONG_DECODE},
+                   "phase 15e")
+    check([kw.get("window") for _, kw in kept["flash_attention"]] == [W],
+          f"phase 15e: layer 0's flash call took {kept['flash_attention'][0][1]}")
+    errs = replay_kernel_calls(kept, "phase 15e")
+    del kept, cache
+    short = tokens[:, :LONG_SHORT]
+    runs = {}
+    for lc in (True, False):
+        logits, cache, T = bb.prefill(cfg, params, {"tokens": short}, long_context=lc)
+        first, toks = logits, []
+        for i in range(LONG_SHORT_NEW):
+            tok = torch.argmax(logits, -1)
+            toks.append(int(tok))
+            logits, cache = bb.decode_step(cfg, params, tok[:, None], cache, T + i)
+        runs[lc] = (first, toks)
+    check(runs[True][1] == runs[False][1], f"phase 15e: a {LONG_SHORT}-token prompt "
+          f"decodes {runs[True][1]} with long_context, {runs[False][1]} without")
+    short_diff = (runs[True][0] - runs[False][0]).abs().max().item()
+    out = {"prompt": LONG_PROMPT, "window": W, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": LONG_PROMPT / prefill_s, "prefill_peak_bytes": peak,
+           "decode_step_s": host,
+           "decode_step_ms_median": statistics.median(host) * 1e3, "launches": launches,
+           "kernel_errs": errs, "greedy_tokens": seq, "short_prompt": LONG_SHORT,
+           "short_logit_max_abs_diff": short_diff}
+    print(f"phase 15e: {cfg.name} long_context: prefill of {LONG_PROMPT} tokens at B = 1, "
+          f"window {W}, in {prefill_s:.3f} s ({out['prefill_tokens_per_s']:.0f} tokens/s), "
+          f"peak {peak / 2**30:.2f} GiB, a ring of {W} slots; {LONG_DECODE} decode steps past the wrap, median "
+          f"{out['decode_step_ms_median']:.2f} ms host; launches "
+          f"{ {n: c for n, c in launches.items() if c} } (exact); a {LONG_SHORT}-token "
+          f"prompt gives the same {LONG_SHORT_NEW} greedy tokens with long_context and "
+          f"without (prefill logits |diff| {short_diff:.3e})  [{card}]")
+    return launches, out
+
+
+def phase_slice11(llm_cfg, llm_params, card) -> tuple:
+    """Phase 15: (a)-(e); returns (launches on the paths by kernel, the
+    largest kernel error by kernel, numbers)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    with fp32_math():
+        t0 = time.perf_counter()
+        kernels = slice11_kernels(card)
+        parts["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vlm_launches, vlm = vlm_run(card)
+        parts["b-c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        asr_launches, asr = asr_run(card)
+        parts["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        long_launches, long = long_context_run(llm_cfg, llm_params, card)
+        parts["e"] = time.perf_counter() - t0
+    launches = {n: vlm_launches[n] + asr_launches[n] + long_launches[n] for n in vlm_launches}
+    errs = dict(kernels["errs"])
+    for kept in (vlm["serve"]["kernel_errs"], asr["serve"]["kernel_errs"],
+                 long["kernel_errs"]):
+        for n, e in kept.items():
+            errs[n] = max(errs.get(n, 0.0), e)
+    numbers = {"kernels": kernels, "vlm": vlm, "asr": asr, "long_context": long,
+               "launches": launches, "part_s": parts,
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 15: {numbers['phase_s']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }; launches on its paths "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    return launches, errs, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
+    ap.add_argument("--lm-alone", metavar="JSON",
+                    help="only time phase 14's backward kernels alone by torch.profiler "
+                         "(the kernels built already) and write the numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3459,6 +4000,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = card_line()
+    if args.lm_alone:
+        with open(args.lm_alone, "w") as f:
+            json.dump(lm_alone(card), f)
+        return 0
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
     libs = _build.build(sorted(_build.KERNELS))
@@ -3504,6 +4049,7 @@ def main() -> int:
     sched_launches, sched = phase_sched(llm_cfg, llm_params, card)
     prefix_launches, prefix = phase_prefix(llm_cfg, llm_params, card)
     lm_launches, lm_kernel_rows, lm = phase_lm(llm_cfg, llm_params, card)
+    s11_launches, s11_errs, s11 = phase_slice11(llm_cfg, llm_params, card)
     for row in rows:               # the kernels' launches over every path
         row["launches"] += (gw_launches[row["name"]]
                             + train_launches.get(row["name"], 0)
@@ -3515,6 +4061,9 @@ def main() -> int:
                                  prefix["kernel_errs"].get(row["name"], 0.0),
                                  lm["checks"]["errs"].get(row["name"], 0.0))
     rows += lm_kernel_rows
+    for row in rows:               # and over slice 11's paths
+        row["launches"] += s11_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], s11_errs.get(row["name"], 0.0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -3535,9 +4084,10 @@ def main() -> int:
                                    "requests_per_client": GATEWAY_REQS,
                                    "width": GATEWAY_WIDTH, **gw},
                        "train": train, "scheduler": sched, "prefix": prefix,
-                       "lm": lm},
+                       "lm": lm, "slice11": s11},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s "
+          f"(phase 15 {s11['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

@@ -9,8 +9,9 @@ numpy.
   become OIHW, the ``mapping`` array becomes the static permutation
   tuple, and everything else keeps its layout.
 - ``backbone_params_from_numpy``: an LLM backbone tree.  The JAX package
-  stacks its layers on a leading (n_superblocks,) axis; the port keeps a
-  list of per-layer dicts.  Dense weights keep their (in, out) layout.
+  stacks its layers on a leading (n_superblocks,) axis (an enc-dec's
+  encoder and decoder layers on a plain (L,) axis); the port keeps a list
+  of per-layer dicts.  Dense weights keep their (in, out) layout.
 - ``agile_lm_params_from_numpy``: an AgileNN-on-tokens tree
   (``core/agile_lm.py``): its backbone as above, the rest as it is.
 """
@@ -55,10 +56,19 @@ def backbone_params_from_numpy(tree, cfg, device=None):
 
     ``tree["blocks"]`` holds one dict per sublayer of a superblock, each
     leaf stacked over superblocks; layer ``s * superblock + j`` of the
-    port is leaf ``[s]`` of sublayer ``j``."""
-    sublayer_specs(cfg)                 # dense archs only, for now
+    port is leaf ``[s]`` of sublayer ``j``.  An enc-dec tree's
+    ``"encoder"`` and ``"blocks"`` are each one dict whose leaves are
+    stacked over layers; layer ``i`` is leaf ``[i]``.  Every other entry
+    (``vision_proj``, the norms, the embedding) keeps its layout."""
+    sublayer_specs(cfg)                 # no MoE, hybrid or xLSTM, for now
     device = resolve_device(device)
-    out = {k: _leaves_to(v, device) for k, v in tree.items() if k != "blocks"}
+    stacked = ("encoder", "blocks")
+    out = {k: _leaves_to(v, device) for k, v in tree.items() if k not in stacked}
+    if cfg.encdec is not None:
+        for k, n in (("encoder", cfg.encdec.n_encoder_layers),
+                     ("blocks", cfg.n_layers)):
+            out[k] = [_leaves_to(_index(tree[k], i), device) for i in range(n)]
+        return out
     subs = list(tree["blocks"])
     out["blocks"] = [
         _leaves_to(_index(sub, s), device)

@@ -2,9 +2,9 @@
 
 The fields and defaults are those of ``repro.configs.base``, so a config
 means the same model in both packages.  ``dtype`` gives a torch dtype.
-Only the dense archs are registered by the port so far; the spec
-dataclasses of the others (MoE, hybrid, xLSTM, enc-dec, VLM) are kept so
-that a config carrying them can be named and refused.
+The port registers the dense archs, internvl2-1b (VLM) and whisper-tiny
+(enc-dec); the spec dataclasses of the others (MoE, hybrid, xLSTM) are
+kept so that a config carrying them can be named and refused.
 """
 from __future__ import annotations
 

@@ -1,17 +1,33 @@
-"""Dense decoder backbone: ArchConfig -> init / training loss / prefill /
+"""Decoder backbones: ArchConfig -> init / training loss / prefill /
 decode.
 
-The port of ``repro.models.backbone`` for dense archs (qwen2, llama3.2):
-every layer is RMSNorm -> causal GQA self-attention with RoPE -> residual,
-RMSNorm -> SwiGLU FFN -> residual, and a final RMSNorm before the (tied)
-readout.  Where the JAX package stacks the layers on a leading
-(n_superblocks,) axis and scans them, the port keeps ``params["blocks"]``
+The port of ``repro.models.backbone`` for the dense archs (qwen2,
+llama3.2), the VLM (internvl2-1b) and the enc-dec (whisper-tiny):
+
+- dense: every layer is RMSNorm -> causal GQA self-attention with RoPE ->
+  residual, RMSNorm -> SwiGLU FFN -> residual, and a final RMSNorm before
+  the (tied) readout.
+- VLM: the dense LM, with the batch's stubbed patch embeddings (B, P,
+  vision_dim) projected by ``vision_proj`` and put in front of the token
+  embeddings; their labels are -100.
+- enc-dec: an encoder over the batch's stubbed frame embeddings (B, F, d)
+  plus sinusoidal positions (LayerNorm -> non-causal self-attention,
+  LayerNorm -> GELU MLP), and a decoder whose layers add cross-attention
+  to the encoder's output between the causal self-attention and the MLP;
+  the decoder's token embeddings carry sinusoidal positions too.
+
+Where the JAX package stacks the layers on a leading axis and scans them,
+the port keeps ``params["blocks"]`` (and the enc-dec ``params["encoder"]``)
 as a Python list of per-layer dicts and loops over it.
 
 The decode cache is ``{"k", "v"}``, each one (L, B, S, Hkv, D) tensor
-whose ``[i]`` slice is layer i's contiguous ring of S slots.
-``decode_step`` writes into it IN PLACE and returns the same dict (the
-JAX package returns new arrays).
+whose ``[i]`` slice is layer i's contiguous ring of S slots; an enc-dec
+cache adds ``{"ck", "cv"}``, each (L, B, F, H, D), the cross-attention
+K/V of the encoder's output.  ``decode_step`` writes into it IN PLACE and
+returns the same dict (the JAX package returns new arrays).
+``prefill(long_context=True)`` runs a full-attention arch as a sliding
+window of ``cfg.long_context_window`` tokens, in prefill and in a ring
+cache of that many slots.
 
 ``forward_loss`` is the training forward (mean next-token cross-entropy
 by ``chunked_cross_entropy``) and ``forward_hidden`` the final hidden
@@ -26,11 +42,13 @@ same loss and gradients.
 (the continuous scheduler's staged admissions), writing the segment's
 K/V into the cache in place as ``decode_step`` does.
 
-Configs with MoE, hybrid (Mamba), xLSTM, enc-dec or VLM parts raise
+Configs with MoE, hybrid (Mamba) or xLSTM parts raise
 NotImplementedError: those branches are not ported yet.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any
 
 import torch
@@ -38,16 +56,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, tree_to
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn.activations import swiglu_ffn, swiglu_ffn_init
+from repro_torch.nn.activations import mlp, mlp_init, swiglu_ffn, swiglu_ffn_init
 from repro_torch.nn.attention import (
     attention_apply,
     attention_decode_apply,
     attention_init,
+    cross_attention_apply,
+    cross_attention_decode,
+    cross_kv,
     flash_attention,
     project_qkv,
 )
 from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
-from repro_torch.nn.norm import rmsnorm, rmsnorm_init
+from repro_torch.nn.norm import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
 
 # parts of a config the port's backbone cannot run yet, and where they wait
@@ -55,8 +76,6 @@ _UNPORTED = (
     ("moe", "ROADMAP Queue 1 item 6 (arch zoo: MoE)"),
     ("hybrid", "ROADMAP Queue 1 item 6 (arch zoo: Mamba hybrid)"),
     ("xlstm", "ROADMAP Queue 1 item 6 (arch zoo: xLSTM)"),
-    ("encdec", "ROADMAP Queue 1 item 6 (arch zoo: enc-dec)"),
-    ("vlm", "ROADMAP Queue 1 item 6 (arch zoo: VLM)"),
 )
 
 
@@ -64,25 +83,120 @@ def _check_dense(cfg: ArchConfig) -> None:
     for name, item in _UNPORTED:
         if getattr(cfg, name) is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port's backbone runs dense archs only; "
-                f"`{name}` configs wait for {item}")
+                f"{cfg.name}: the port's backbone runs dense archs only "
+                f"(with a VLM prefix or an enc-dec encoder); `{name}` configs "
+                f"wait for {item}")
 
 
 def sublayer_specs(cfg: ArchConfig) -> list[dict]:
-    """Per-sublayer spec of one superblock: a dense arch has one
-    attention sublayer with a dense FFN."""
+    """Per-sublayer spec of one superblock: a dense arch (and the VLM and
+    enc-dec decoders) has one attention sublayer with a dense FFN."""
     _check_dense(cfg)
     return [{"kind": "attn", "ffn": "dense"}]
 
 
+# --------------------------------------------------------------- helpers ---
+def _norm_init(cfg: ArchConfig) -> dict:
+    return (rmsnorm_init(cfg.d_model) if cfg.norm == "rmsnorm"
+            else layernorm_init(cfg.d_model))
+
+
+def _norm(cfg: ArchConfig, p, x):
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
+def _ffn(cfg: ArchConfig, p, x):
+    """The dense FFN: whisper's GELU MLP under LayerNorm configs, SwiGLU
+    otherwise."""
+    return mlp(p, x) if cfg.norm == "layernorm" else swiglu_ffn(p, x)
+
+
+def _f32(c: float) -> float:
+    return torch.tensor(c, dtype=torch.float32).item()
+
+
+# Cephes' expf (the range reduction by ln 2 in two parts, a degree-5
+# polynomial), which XLA:CPU emits for a float32 exp, with its multiply-adds
+# fused.  torch.exp rounds differently in about 1 of 10 entries of a
+# position table's frequencies.
+_EXP_LN2 = tuple(_f32(c) for c in (0.693359375, -2.12194440e-4))
+_EXP_POLY = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                                    4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp_f32(x):
+    """exp of a float32 tensor, bit for bit the JAX package's on the CPU
+    (XLA's Cephes expf with fused multiply-adds).  Each fused step runs in
+    float64, whose 53 bits hold the float32 product exactly, and rounds to
+    float32 once; tested over every frequency of d <= 2,048 and 200,001
+    points of [-80, 80]."""
+    def fma(a, b, c):
+        return (a.double() * b + c).float()
+
+    x = torch.clamp(x.float(), -88.3762626647949, 88.3762626647950)
+    n = torch.floor(x * 1.44269504088896341 + 0.5)
+    for c in _EXP_LN2:
+        x = fma(n, -c, x.double())
+    y = torch.full_like(x, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        y = fma(y, x.double(), c)
+    y = fma(y, (x * x).double(), x.double()) + 1.0
+    return y * torch.exp2(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _frequencies(d: int, device: torch.device):
+    """(d / 2,) float32 frequencies of a d-wide position table, computed
+    once per width and device (do not write to the result)."""
+    return exp_f32(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                   * (-math.log(10000.0) / d))
+
+
+def sinusoidal_positions(T: int, d: int, offset: int = 0, *, device=None):
+    """(T, d) float32 sinusoidal position table of positions offset ..
+    offset + T - 1: sin in the even columns, cos in the odd.
+
+    The frequencies come from ``exp_f32``, bitwise the JAX package's:
+    torch.exp differs from XLA:CPU's float32 exp by one ulp in some of
+    them, which the positions scale (about 1e-4 at 1,500 frames)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    pos = (torch.arange(T, device=device) + offset)[:, None].float()
+    angle = pos * _frequencies(d, device)
+    return torch.stack((torch.sin(angle), torch.cos(angle)), dim=-1).reshape(T, d)
+
+
 # ------------------------------------------------------------------ init ---
 def _init_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    ffn_init = mlp_init if cfg.norm == "layernorm" else swiglu_ffn_init
     return {
-        "norm": rmsnorm_init(cfg.d_model),
+        "norm": _norm_init(cfg),
         "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias),
-        "ffn_norm": rmsnorm_init(cfg.d_model),
-        "ffn": swiglu_ffn_init(gen, cfg.d_model, cfg.d_ff),
+        "ffn_norm": _norm_init(cfg),
+        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def _init_encoder_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    return {
+        "norm": _norm_init(cfg),
+        "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_heads,
+                               cfg.resolved_head_dim),
+        "ffn_norm": _norm_init(cfg),
+        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def _init_decoder_layer_encdec(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    return {
+        "norm": _norm_init(cfg),
+        "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim),
+        "cross_norm": _norm_init(cfg),
+        "cross": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_heads,
+                                cfg.resolved_head_dim),
+        "ffn_norm": _norm_init(cfg),
+        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff),
     }
 
 
@@ -97,9 +211,18 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     gen = torch.Generator().manual_seed(seed)
     params: dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab, cfg.d_model),
-        "final_norm": rmsnorm_init(cfg.d_model),
-        "blocks": [_init_layer(cfg, gen) for _ in range(cfg.n_layers)],
+        "final_norm": _norm_init(cfg),
     }
+    if cfg.encdec is not None:
+        params["encoder"] = [_init_encoder_layer(cfg, gen)
+                             for _ in range(cfg.encdec.n_encoder_layers)]
+        params["enc_final_norm"] = _norm_init(cfg)
+        params["blocks"] = [_init_decoder_layer_encdec(cfg, gen)
+                            for _ in range(cfg.n_layers)]
+    else:
+        params["blocks"] = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
+    if cfg.vlm is not None:
+        params["vision_proj"] = dense_init(gen, cfg.vlm.vision_dim, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab,
                                        use_bias=False)
@@ -109,26 +232,87 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
 # --------------------------------------------------------------- forward ---
 def _apply_sublayer(cfg: ArchConfig, p, x, *, window: int, kv_valid_len=None):
     """Full-sequence (prefill) layer.  Returns (x, (k, v))."""
-    h = rmsnorm(p["norm"], x)
+    h = _norm(cfg, p["norm"], x)
     y, k, v = attention_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, causal=True, window=window,
         rope_theta=cfg.rope_theta, return_kv=True, kv_valid_len=kv_valid_len)
     x = x + y
-    x = x + swiglu_ffn(p["ffn"], rmsnorm(p["ffn_norm"], x))
+    x = x + _ffn(cfg, p["ffn"], _norm(cfg, p["ffn_norm"], x))
     return x, (k, v)
 
 
-def _run_layers(cfg: ArchConfig, params, x, *, window: int, remat: bool = True):
-    """Every layer over x (B, T, d); each in a checkpoint under a gradient
-    when ``remat``."""
-    for p in params["blocks"]:
+def _layer_loop(layers, x, body, remat: bool, *args):
+    """x through ``body(p, x, *args) -> x`` for each layer dict of
+    ``layers``; each in a non-reentrant checkpoint under a gradient when
+    ``remat``."""
+    for p in layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(lambda p_, x_: _apply_sublayer(cfg, p_, x_, window=window)[0],
-                           p, x, use_reentrant=False)
+            x = checkpoint(body, p, x, *args, use_reentrant=False)
         else:
-            x, _ = _apply_sublayer(cfg, p, x, window=window)
+            x = body(p, x, *args)
     return x
+
+
+def _run_layers(cfg: ArchConfig, params, x, *, window: int, remat: bool = True):
+    """Every layer over x (B, T, d)."""
+    return _layer_loop(params["blocks"], x, lambda p, h: _apply_sublayer(
+        cfg, p, h, window=window)[0], remat)
+
+
+def _encoder_layer(cfg: ArchConfig, p, h):
+    a = _norm(cfg, p["norm"], h)
+    h = h + attention_apply(p["attn"], a, n_heads=cfg.n_heads,
+                            n_kv_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+                            causal=False, rope_theta=0.0)
+    return h + mlp(p["ffn"], _norm(cfg, p["ffn_norm"], h))
+
+
+def _run_encoder(cfg: ArchConfig, params, frames, *, remat: bool = True):
+    """Whisper-style encoder over the stubbed frame embeddings (B, F, d)."""
+    x = frames.to(cfg.dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 device=x.device).to(x.dtype)
+    x = _layer_loop(params["encoder"], x,
+                    lambda p, h: _encoder_layer(cfg, p, h), remat)
+    return _norm(cfg, params["enc_final_norm"], x)
+
+
+def _decoder_layer_encdec(cfg: ArchConfig, p, h, enc_out):
+    """One enc-dec decoder layer over the full sequence.  Returns (h, its
+    cache entries k, v, ck, cv)."""
+    hd = cfg.resolved_head_dim
+    a = _norm(cfg, p["norm"], h)
+    sa, k, v = attention_apply(p["attn"], a, n_heads=cfg.n_heads,
+                               n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+                               causal=True, rope_theta=0.0, return_kv=True)
+    h = h + sa
+    c = _norm(cfg, p["cross_norm"], h)
+    ck, cv = cross_kv(p["cross"], enc_out, n_kv_heads=cfg.n_heads, head_dim=hd)
+    h = h + cross_attention_apply(p["cross"], c, ck, cv, n_heads=cfg.n_heads,
+                                  head_dim=hd)
+    h = h + mlp(p["ffn"], _norm(cfg, p["ffn_norm"], h))
+    return h, (k, v, ck, cv)
+
+
+def _run_decoder_encdec(cfg: ArchConfig, params, x, enc_out, *,
+                        remat: bool = True):
+    """Whisper-style decoder over the full sequence x (B, T, d)."""
+    return _layer_loop(params["blocks"], x, lambda p, h, e: _decoder_layer_encdec(
+        cfg, p, h, e)[0], remat, enc_out)
+
+
+def _hidden(cfg: ArchConfig, params, batch, *, window: int, remat: bool):
+    """Final hidden states before the final norm, and the labels (VLM:
+    padded with -100 over the patches)."""
+    x, labels = _embed_inputs(cfg, params, batch)
+    if cfg.encdec is not None:
+        enc_out = _run_encoder(cfg, params, _batch_tensor(params, batch, "frames"),
+                               remat=remat)
+        x = _run_decoder_encdec(cfg, params, x, enc_out, remat=remat)
+    else:
+        x = _run_layers(cfg, params, x, window=window, remat=remat)
+    return x, labels
 
 
 def _readout_weight(cfg: ArchConfig, params):
@@ -177,34 +361,60 @@ def chunked_cross_entropy(x, w_vocab, labels, *, chunk: int = 512,
     return loss_sum / torch.clamp(cnt, min=1.0)
 
 
+def _check_batch(cfg: ArchConfig, batch) -> None:
+    """Refuse keys the config does not take: "patches" belong to a VLM,
+    "frames" to an enc-dec (which needs them)."""
+    allowed = {"tokens", "labels"}
+    allowed |= {"patches"} if cfg.vlm is not None else set()
+    allowed |= {"frames"} if cfg.encdec is not None else set()
+    extra = sorted(set(batch) - allowed)
+    if extra:
+        raise ValueError(f"{cfg.name} does not take {extra} (its batch keys: "
+                         f"{sorted(allowed)})")
+    if cfg.encdec is not None and "frames" not in batch:
+        raise ValueError(f"{cfg.name}: an enc-dec batch needs its \"frames\"")
+
+
+def _batch_tensor(params, batch, key: str):
+    return torch.as_tensor(batch[key], device=params["embed"]["table"].device)
+
+
 def _embed_inputs(cfg: ArchConfig, params, batch):
-    """(x (B, T, d), labels or None) of a token batch: {"tokens": (B, T)
-    [, "labels": (B, T)]}, tensors or numpy arrays, moved to the params'
-    device."""
-    extras = sorted(set(batch) - {"tokens", "labels"})
-    if extras:
-        raise NotImplementedError(
-            f"the port's backbone takes token batches only, got {extras}: "
-            "patch / frame inputs wait for ROADMAP Queue 1 item 6 (arch zoo)")
-    dev = params["embed"]["table"].device
-    x = embedding(params["embed"], torch.as_tensor(batch["tokens"], device=dev).long())
+    """(x (B, T, d), labels or None) of a batch: {"tokens": (B, T)
+    [, "labels": (B, T)] [, "patches": (B, P, vision_dim)] [, "frames":
+    (B, F, d)]}, tensors or numpy arrays, moved to the params' device.  A
+    VLM puts the projected patches in front of the tokens (labels -100
+    there); a config without RoPE adds sinusoidal positions."""
+    _check_batch(cfg, batch)
+    x = embedding(params["embed"], _batch_tensor(params, batch, "tokens").long())
     labels = batch.get("labels")
     if labels is not None:
-        labels = torch.as_tensor(labels, device=dev).long()
+        labels = _batch_tensor(params, batch, "labels").long()
+    if cfg.vlm is not None and "patches" in batch:
+        pv = dense(params["vision_proj"],
+                   _batch_tensor(params, batch, "patches").to(cfg.dtype))
+        x = torch.cat([pv, x], dim=1)
+        if labels is not None:
+            pad = torch.full(pv.shape[:2], -100, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+    if cfg.rope_theta == 0:                 # sinusoidal positions (whisper)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(x.dtype)
     return x, labels
 
 
 def forward_loss(cfg: ArchConfig, params, batch, *, window: int = 0,
                  loss_chunk: int = 512, remat: bool = True):
     """Training forward: mean next-token CE.  Returns (loss, metrics) with
-    JAX's metric keys; a dense arch has no MoE aux losses (zeros).
+    JAX's metric keys; these archs have no MoE aux losses (zeros).
 
-    batch: {"tokens": (B, T), "labels": (B, T)}."""
+    batch: {"tokens": (B, T), "labels": (B, T)} [+ "patches" (VLM) /
+    "frames" (enc-dec)]."""
     sublayer_specs(cfg)
-    window = window or cfg.sliding_window
-    x, labels = _embed_inputs(cfg, params, batch)
-    x = _run_layers(cfg, params, x, window=window, remat=remat)
-    x = rmsnorm(params["final_norm"], x)
+    x, labels = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
+                        remat=remat)
+    x = _norm(cfg, params["final_norm"], x)
     ce = chunked_cross_entropy(x, _readout_weight(cfg, params), labels,
                                chunk=loss_chunk)
     zero = torch.zeros((), device=x.device)
@@ -215,32 +425,42 @@ def forward_hidden(cfg: ArchConfig, params, batch, *, window: int = 0,
                    remat: bool = True):
     """Final hidden states (B, T, d): AgileNN's remote path."""
     sublayer_specs(cfg)
-    window = window or cfg.sliding_window
-    x, _ = _embed_inputs(cfg, params, batch)
-    x = _run_layers(cfg, params, x, window=window, remat=remat)
-    return rmsnorm(params["final_norm"], x)
+    x, _ = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
+                   remat=remat)
+    return _norm(cfg, params["final_norm"], x)
 
 
 # ------------------------------------------------------------- decoding ----
-def cache_window(cfg: ArchConfig, context_len: int) -> int:
-    """KV ring-buffer capacity for a decode context of `context_len`.
-    (The JAX package's ``long_context`` switch to a sliding window at 500k
-    tokens is not ported.)"""
+def cache_window(cfg: ArchConfig, context_len: int, *,
+                 long_context: bool = False) -> int:
+    """KV ring-buffer capacity for a decode context of `context_len`: the
+    native sliding window, else with ``long_context`` (full-attention
+    archs switch to a sliding window at 500k tokens) the
+    ``long_context_window``, else the whole context."""
     if cfg.sliding_window:
         return min(cfg.sliding_window, context_len)
+    if long_context:
+        return min(cfg.long_context_window, context_len)
     return context_len
 
 
 def init_cache(cfg: ArchConfig, batch: int, context_len: int, *,
-               device=None) -> dict:
+               long_context: bool = False, device=None) -> dict:
     """Zero decode cache: {"k", "v"}, each (L, B, S, Hkv, D) in cfg.dtype
-    (CUDA by default)."""
+    (CUDA by default), S = cache_window(context_len, long_context=); an
+    enc-dec cache adds {"ck", "cv"}, each (L, B, F, H, D)."""
     sublayer_specs(cfg)
-    S = cache_window(cfg, context_len)
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    S = cache_window(cfg, context_len, long_context=long_context)
+    hd = cfg.resolved_head_dim
     device = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
+    out = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+           "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if cfg.encdec is not None:
+        cross = (cfg.n_layers, batch, cfg.encdec.n_frames, cfg.n_heads, hd)
+        out["ck"] = torch.zeros(cross, dtype=cfg.dtype, device=device)
+        out["cv"] = torch.zeros(cross, dtype=cfg.dtype, device=device)
+    return out
 
 
 def _ring_compact(kv, S: int, T: int):
@@ -254,63 +474,93 @@ def _ring_compact(kv, S: int, T: int):
     return torch.roll(tail, T % S, dims=-3)
 
 
-def prefill(cfg: ArchConfig, params, batch, *, max_len: int = 0, lengths=None):
+def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
+            max_len: int = 0, lengths=None):
     """Prefill: run the context, return (last-token logits, decode cache,
-    prompt length).
+    context length).
 
-    batch: {"tokens": (B, T) integer tensor}.  The cache is ring-compacted
-    to cache_window(max_len) slots (max_len: total context + generation
-    budget; defaults to prompt length + 64).
+    batch: {"tokens": (B, T) integer tensor} [+ "patches" (VLM), whose P
+    positions come first and count in the context length; + "frames"
+    (enc-dec), which the encoder takes].  The cache is ring-compacted to
+    cache_window(max_len, long_context=) slots (max_len: total context +
+    generation budget; defaults to context length + 64).  With
+    ``long_context`` a full-attention arch attends within the last
+    min(long_context_window, context length) positions.
 
-    lengths: optional (B,) valid prompt lengths of a right-padded batch:
-    pad keys are masked out of attention for every row, and the logits are
-    gathered at each row's last real token.  The padded width must fit the
-    cache window."""
+    lengths: optional (B,) valid prompt lengths of a right-padded token
+    batch (no patches, not enc-dec): pad keys are masked out of attention
+    for every row, and the logits are gathered at each row's last real
+    token.  The padded width must fit the cache window."""
     sublayer_specs(cfg)
-    if set(batch) != {"tokens"}:
-        raise NotImplementedError(
-            f"prefill takes token batches only, got {sorted(batch)}: patch / "
-            "frame extras wait for ROADMAP Queue 1 item 6 (arch zoo)")
-    tokens = batch["tokens"]
-    B, T = tokens.shape
-    x = embedding(params["embed"], tokens)
-    S = cache_window(cfg, max_len or T + 64)
-    if lengths is not None and T > S:
-        raise ValueError(f"bucket {T} exceeds cache window {S}: ring "
+    if lengths is not None and (cfg.encdec is not None or "patches" in batch):
+        raise ValueError("bucketed (right-padded) prefill takes token batches "
+                         "of a decoder-only arch")
+    x, _ = _embed_inputs(cfg, params, batch)
+    B, total_T = x.shape[0], x.shape[1]
+    S = cache_window(cfg, max_len or total_T + 64, long_context=long_context)
+    if lengths is not None and total_T > S:
+        raise ValueError(f"bucket {total_T} exceeds cache window {S}: ring "
                          "compaction would drop real (non-pad) tokens")
     hd = cfg.resolved_head_dim
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, hd)
     cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
              "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i, p in enumerate(params["blocks"]):
-        x, (k, v) = _apply_sublayer(cfg, p, x, window=cfg.sliding_window,
-                                    kv_valid_len=lengths)
-        cache["k"][i] = _ring_compact(k, S, T)
-        cache["v"][i] = _ring_compact(v, S, T)
-    x = rmsnorm(params["final_norm"], x)
+    if cfg.encdec is not None:
+        enc_out = _run_encoder(cfg, params, _batch_tensor(params, batch, "frames"))
+        cross = (cfg.n_layers, B, enc_out.shape[1], cfg.n_heads, hd)
+        cache["ck"] = torch.empty(cross, dtype=x.dtype, device=x.device)
+        cache["cv"] = torch.empty(cross, dtype=x.dtype, device=x.device)
+        for i, p in enumerate(params["blocks"]):
+            x, (k, v, ck, cv) = _decoder_layer_encdec(cfg, p, x, enc_out)
+            cache["k"][i] = _ring_compact(k, S, total_T)
+            cache["v"][i] = _ring_compact(v, S, total_T)
+            cache["ck"][i], cache["cv"][i] = ck, cv
+    else:
+        window = cfg.sliding_window or (
+            cache_window(cfg, total_T, long_context=True) if long_context else 0)
+        for i, p in enumerate(params["blocks"]):
+            x, (k, v) = _apply_sublayer(cfg, p, x, window=window,
+                                        kv_valid_len=lengths)
+            cache["k"][i] = _ring_compact(k, S, total_T)
+            cache["v"][i] = _ring_compact(v, S, total_T)
+    x = _norm(cfg, params["final_norm"], x)
     if lengths is None:
         last = x[:, -1]
     else:
         last = x[torch.arange(B, device=x.device), lengths.to(x.device) - 1]
-    return _logits(cfg, params, last), cache, T
+    return _logits(cfg, params, last), cache, total_T
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
     """One decoding step.  tokens: (B, 1) integer tensor; cache from
     init_cache/prefill; cache_len: an int (every row at one depth) or a
-    (B,) tensor (each row at its own depth).  Returns (logits (B, vocab)
+    (B,) tensor (each row at its own depth; RoPE archs only, since
+    sinusoidal positions take one offset).  Returns (logits (B, vocab)
     float32, cache), the cache updated IN PLACE."""
     sublayer_specs(cfg)
+    per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0
+    if per_row and cfg.rope_theta <= 0:
+        raise ValueError(f"{cfg.name}: a per-row cache_len needs RoPE positions "
+                         "(absolute sinusoidal offsets are scalar-only)")
+    hd = cfg.resolved_head_dim
     x = embedding(params["embed"], tokens)
+    if cfg.rope_theta == 0:
+        x = x + sinusoidal_positions(1, cfg.d_model, offset=int(cache_len),
+                                     device=x.device).to(x.dtype)
     for i, p in enumerate(params["blocks"]):
-        h = rmsnorm(p["norm"], x)
+        h = _norm(cfg, p["norm"], x)
         y, _, _ = attention_decode_apply(
             p["attn"], h, cache["k"][i], cache["v"][i], cache_len,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+            rope_theta=cfg.rope_theta)
         x = x + y
-        x = x + swiglu_ffn(p["ffn"], rmsnorm(p["ffn_norm"], x))
-    x = rmsnorm(params["final_norm"], x)
+        if cfg.encdec is not None:
+            c = _norm(cfg, p["cross_norm"], x)
+            x = x + cross_attention_decode(p["cross"], c, cache["ck"][i],
+                                           cache["cv"][i], n_heads=cfg.n_heads,
+                                           head_dim=hd)
+        x = x + _ffn(cfg, p["ffn"], _norm(cfg, p["ffn_norm"], x))
+    x = _norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, 0]), cache
 
 
@@ -333,9 +583,11 @@ def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
     last_index: an int, or a (B,) sequence / integer tensor, of the
     segment row whose logits are returned.  Returns (logits (B, vocab)
     float32, cache).  Chunked prefill needs a pure-attention dense-FFN
-    RoPE decoder with no sliding window (ValueError otherwise)."""
+    RoPE decoder with no sliding window, no patches and no encoder
+    (ValueError otherwise)."""
     sublayer_specs(cfg)
-    if cfg.rope_theta <= 0 or cfg.sliding_window:
+    if (cfg.rope_theta <= 0 or cfg.sliding_window or cfg.vlm is not None
+            or cfg.encdec is not None):
         raise ValueError(
             f"{cfg.name}: chunked prefill needs a pure-attention dense-FFN "
             "RoPE decoder with no sliding window (a ring cache breaks "

@@ -1,13 +1,21 @@
-"""Activation functions and the SwiGLU feed-forward (llama/qwen style)."""
+"""Activation functions, the SwiGLU feed-forward (llama/qwen style) and
+the plain GELU MLP with biases (whisper style)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.nn.linear import dense, dense_init
 
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    """GELU in its tanh form, as the JAX package's ``jax.nn.gelu(x,
+    approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
@@ -22,3 +30,14 @@ def swiglu_ffn(params, x):
     g = silu(dense(params["gate"], x))
     u = dense(params["up"], x)
     return dense(params["down"], g * u)
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+    return {
+        "fc1": dense_init(gen, d_model, d_ff, use_bias=True),
+        "fc2": dense_init(gen, d_ff, d_model, use_bias=True),
+    }
+
+
+def mlp(params, x):
+    return dense(params["fc2"], gelu(dense(params["fc1"], x)))

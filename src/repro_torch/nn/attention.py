@@ -1,5 +1,6 @@
-"""Causal self-attention: GQA / MHA, sliding window, flash prefill and
-paged single-token decode.
+"""Attention: GQA / MHA self-attention (causal, sliding window), flash
+prefill and paged single-token decode, and encoder-decoder
+cross-attention.
 
 Layout conventions, as in ``repro.nn.attention``:
   queries      (B, T, Hq, D)
@@ -8,7 +9,10 @@ Layout conventions, as in ``repro.nn.attention``:
 ``flash_attention`` is the prefill and training path and
 ``decode_attention`` the single-token serving path; on CUDA tensors they are the hand-written
 kernels of ``kernels/attention`` and ``kernels/decode_attention``, on CPU
-tensors their plain versions.  Cross-attention (enc-dec) is not ported yet.
+tensors their plain versions.  Cross-attention (whisper) runs the same
+two: ``flash_attention(causal=False)`` over the encoder's F frames for a
+whole decoder sequence, ``decode_attention`` at attend_len = F for one
+token.
 """
 from __future__ import annotations
 
@@ -134,6 +138,33 @@ def attention_decode_apply(params, x, k_cache, v_cache, cache_len, *,
     out = decode_attention(q, k_cache, v_cache, attend_len)
     out = dense(params["wo"], out.reshape(B, 1, n_heads * head_dim))
     return out, k_cache, v_cache
+
+
+def cross_kv(params, enc_out, *, n_kv_heads: int, head_dim: int):
+    """Cross-attention K/V of the encoder output (B, F, d): each
+    (B, F, n_kv_heads, head_dim)."""
+    B, F, _ = enc_out.shape
+    k = dense(params["wk"], enc_out).reshape(B, F, n_kv_heads, head_dim)
+    v = dense(params["wv"], enc_out).reshape(B, F, n_kv_heads, head_dim)
+    return k, v
+
+
+def cross_attention_apply(params, x, k, v, *, n_heads: int, head_dim: int):
+    """Decoder queries x (B, T, d) against the encoder's K/V (B, F, H, D),
+    no mask: flash attention with T != S, not causal."""
+    B, T, _ = x.shape
+    q = dense(params["wq"], x).reshape(B, T, n_heads, head_dim)
+    out = flash_attention(q, k, v, causal=False)
+    return dense(params["wo"], out.reshape(B, T, n_heads * head_dim))
+
+
+def cross_attention_decode(params, x, k, v, *, n_heads: int, head_dim: int):
+    """One-token cross-attention: x (B, 1, d) against all F cached encoder
+    K/V slots (decode attention at attend_len = F)."""
+    B = x.shape[0]
+    q = dense(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    out = decode_attention(q, k, v, k.shape[1])
+    return dense(params["wo"], out.reshape(B, 1, n_heads * head_dim))
 
 
 # ----------------------------------------------------------- references ----

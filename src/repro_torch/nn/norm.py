@@ -22,7 +22,13 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     return rmsnorm_op(x, params["scale"], eps=eps)
 
 
+def layernorm_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
 def layernorm(params, x, *, eps: float = 1e-5):
+    """LayerNorm over the last axis (whisper): plain torch on either
+    device, as the JAX package's ``layernorm_apply`` is jnp there."""
     x32 = x.float()
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)

@@ -11,12 +11,15 @@ The port of ``repro.serve.engine``.  Two execution paths share one
     (B, max_len) buffer and masks rows that hit their EOS or their own
     ``max_new_tokens``.  The loop reads one flag per step back to the
     host (has every row finished?), so it stops at the step the JAX loop
-    stops at, and ``steps`` counts as it does.
+    stops at, and ``steps`` counts as it does.  Requests with ``extras``
+    (patches of a VLM, frames of an enc-dec) take this path only: every
+    request of a call must carry the same keys, and the context a row
+    holds counts its patches.
   * continuous batching — mixed lengths and deadlines route through
     ``repro_torch.serve.scheduler.ContinuousScheduler`` (built lazily,
     seeded with ``seed + 1``).  Architectures the scheduler rules out
-    fall back to one equal-length call per prompt length; deadlines on
-    those raise ValueError.
+    fall back to one equal-length call per prompt length (so do requests
+    with extras); deadlines on those raise ValueError.
 
 A mesh (sharded serving) waits for ROADMAP Queue 1 item 7.
 """
@@ -60,6 +63,19 @@ class Completion:
     steps: int
     timed_out: bool = False            # deadline-evicted mid-decode: tokens
                                        # hold whatever was generated in time
+
+
+def _stack_extras(requests: list[Request], device) -> dict:
+    """The extras batch: every request must carry the same keys (a mixed
+    batch would silently drop or misalign modality inputs)."""
+    key_sets = {frozenset((r.extras or {}).keys()) for r in requests}
+    if len(key_sets) > 1:
+        raise ValueError(
+            "all requests in a batch must carry the same extras keys; got "
+            + " vs ".join(str(sorted(s)) for s in key_sets))
+    ex = requests[0].extras or {}
+    return {k: torch.as_tensor(np.stack([np.asarray(r.extras[k]) for r in requests]),
+                               device=device) for k in ex}
 
 
 class ServeEngine:
@@ -111,17 +127,15 @@ class ServeEngine:
         scheduler out (deadlines then raise ValueError)."""
         if not requests:
             raise ValueError("empty batch")
-        if any(r.extras is not None for r in requests):
-            raise NotImplementedError(
-                "requests with extras (patches / frames) wait for ROADMAP "
-                "Queue 1 item 6 (arch zoo)")
-        schedulable = supports_continuous_batching(self.cfg)
+        schedulable = (supports_continuous_batching(self.cfg)
+                       and all(r.extras is None for r in requests))
         deadlines = any(r.deadline_s is not None for r in requests)
         if deadlines and not schedulable:
             raise ValueError(
                 "per-request deadlines are honored by the continuous "
-                "scheduler only; this architecture routes through the "
-                "equal-length path, which cannot evict mid-decode")
+                "scheduler only; this architecture (or extras-carrying "
+                "batch) routes through the equal-length path, which cannot "
+                "evict mid-decode")
         if len({len(r.tokens) for r in requests}) == 1 and not deadlines:
             return self._generate_equal(requests)
         if schedulable:
@@ -144,20 +158,22 @@ class ServeEngine:
         dev, B = self.device, len(requests)
         tokens = torch.as_tensor(np.stack([r.tokens for r in requests]),
                                  dtype=torch.long, device=dev)
-        T = tokens.shape[1]
+        batch = {"tokens": tokens, **_stack_extras(requests, dev)}
+        total_T = tokens.shape[1]
+        if self.cfg.vlm is not None and "patches" in batch:
+            total_T += batch["patches"].shape[1]
         max_new = max(r.max_new_tokens for r in requests)
         if max_new > self.max_len:
             raise ValueError(f"max_new_tokens {max_new} exceeds engine "
                              f"max_len {self.max_len}")
-        if self.cfg.sliding_window == 0 and T + max_new > self.max_len:
+        if self.cfg.sliding_window == 0 and total_T + max_new > self.max_len:
             # full-attention caches are not rings: a wrap would overwrite
             # context the model still attends to
             raise ValueError(
-                f"context {T} + max_new_tokens {max_new} exceeds "
+                f"context {total_T} + max_new_tokens {max_new} exceeds "
                 f"engine max_len {self.max_len}: decode would ring-wrap over "
                 "live context")
-        logits, cache, total_T = bb.prefill(self.cfg, self.params,
-                                            {"tokens": tokens},
+        logits, cache, total_T = bb.prefill(self.cfg, self.params, batch,
                                             max_len=self.max_len)
         temps = torch.tensor([r.temperature for r in requests],
                              dtype=torch.float32, device=dev)

@@ -565,7 +565,8 @@ def test_train_step_bf16_grads_and_opt_init():
 def test_backbone_refuses_extras_and_other_families():
     cfg = get_config("qwen2-0.5b").reduced()
     params = tbb.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # patches belong to a VLM config: a dense one refuses them
+    with pytest.raises(ValueError, match="does not take"):
         tbb.forward_loss(cfg, params, {"tokens": np.zeros((1, 4), np.int32),
                                        "labels": np.zeros((1, 4), np.int32),
                                        "patches": np.zeros((1, 2, 8), np.float32)})
