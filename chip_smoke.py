@@ -193,6 +193,28 @@ Phases, each of which raises on failure:
      their inputs; a 512-token prompt decoding the same greedy tokens with
      and without ``long_context``.
 
+  moonshot-v1-16b-a3b in bf16 and the MoE archs (slice 12), in a fresh
+  child process (``--moe-alone JSON``):
+ 16. (a) the bf16 halves of flash attention (q = k/v (8, 256, 16, 128),
+     causal), decode attention (the 288-slot cache at attend 257 and 287)
+     and RMSNorm ((2048, 2048) and (8, 2048)), each bitwise the fp32
+     kernel on the widened inputs, rounded to bf16, and within the JAX
+     package's bf16 bars of its plain version (3e-2, 3e-2, 2e-2), timed
+     beside the fp32 kernel, the plain version, the library call (SDPA,
+     ``F.rms_norm``, bf16) and the bound (bytes at 2 B an element, or the
+     bf16 tensor-core rate); (b) moonshot-v1-16b-a3b at full width and
+     depth in bf16 (28.89 B params, 53.8 GiB, drawn on the card from seed
+     0) through ``ServeEngine(max_len=288).generate``: 8 prompts of 256
+     tokens, 32 greedy tokens, launches from 0 and exact (48 flash a
+     prefill, 48 decode attention a step, 97 RMSNorm a forward); weights,
+     peak, tokens/s, the dropped fraction of the prefill and of each
+     decode step; a second generate's picked kernel calls replayed against
+     the plain versions and bitwise against the fp32 kernels; the prefill
+     alone, each decode step's host time and its kernels' device time by
+     torch.profiler; (c) reduced moonshot, mixtral (its window cut to 32)
+     and arctic in fp32, the card against the port's CPU: prefill and 4
+     decode steps, logits within 1e-4.
+
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -306,6 +328,7 @@ from repro_torch.nn.activations import swiglu_ffn  # noqa: E402
 from repro_torch.nn.attention import project_qkv  # noqa: E402
 from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.module import param_count  # noqa: E402
+from repro_torch.nn.moe import _pick_group_size  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
 from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
@@ -513,6 +536,30 @@ LONG_PROMPT, LONG_DECODE, LONG_SHORT, LONG_SHORT_NEW = 12288, 64, 512, 16
 # one train step of internvl2-1b and of whisper-tiny (its full patches or
 # frames) card vs CPU as phase 14c: 2 rows of 32 tokens
 TRAIN_CPU_B, TRAIN_CPU_T = 2, 32
+# slice 12: moonshot-v1-16b-a3b at full width and depth in bf16 (28.89 B
+# parameters, 53.8 GiB, drawn on the card from seed 0) through
+# ServeEngine(max_len=288).generate: 8 prompts of 256 tokens, 32 greedy
+# tokens; in a fresh child process (python3 chip_smoke.py --moe-alone JSON)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 256, 32
+MOE_MAX_LEN = MOE_PROMPT + MOE_NEW
+MOE_ALONE_TIMEOUT_S = 600
+# decode steps traced by torch.profiler (their kernels' device time)
+MOE_PROFILE_STEPS = 4
+# the bf16 kernels against their plain versions: the JAX package's bf16
+# bars (tests/test_kernels.py, tests/test_decode_attention.py); against
+# the fp32 kernel on the widened inputs, rounded to bf16: bitwise
+BF16_TOL = {"flash_attention": 3e-2, "decode_attention": 3e-2, "rmsnorm": 2e-2}
+# bf16 on the tensor cores, dense (NVIDIA data sheet, 700 W): the least
+# time of a bf16 kernel's operations
+BF16_OPS_PER_S = 989e12
+# reduced moonshot, mixtral and arctic in fp32 (TF32 off), seed-0 weights,
+# the card against the port's CPU: prefill and MOE_CPU_DECODE greedy steps
+# of MOE_CPU_B x MOE_CPU_T tokens, logits within MOE_CPU_TOL abs + rel
+# (fp32 sums in another order through 2 layers); mixtral's 4,096 window
+# cut to MOE_CPU_WINDOW so that the prompt and its ring cross it
+MOE_REDUCED = ("moonshot-v1-16b-a3b", "mixtral-8x7b", "arctic-480b")
+MOE_CPU_B, MOE_CPU_T, MOE_CPU_DECODE, MOE_CPU_WINDOW, MOE_CPU_TOL = 2, 64, 4, 32, 1e-4
 
 
 def check(cond, msg: str) -> None:
@@ -2359,13 +2406,15 @@ def sync(device=None):
 
 
 def expected_launches(cfg, calls) -> dict:
+    """Every kernel's launches over ``calls`` forwards of the fp32 serving
+    path: 0 for the backward kernels (serving takes no gradient) and the
+    bf16 halves."""
     L = cfg.n_layers
     forwards = calls["prefill"] + calls["prefill_chunk"] + calls["decode_step"]
-    return {"rmsnorm": (2 * L + 1) * forwards,
-            "flash_attention": L * (calls["prefill"] + calls["prefill_chunk"]),
-            "decode_attention": L * calls["decode_step"],
-            # serving takes no gradient: no backward kernel runs
-            "rmsnorm_backward": 0, "flash_attention_backward": 0}
+    return dict.fromkeys(_build.KERNELS, 0) | {
+        "rmsnorm": (2 * L + 1) * forwards,
+        "flash_attention": L * (calls["prefill"] + calls["prefill_chunk"]),
+        "decode_attention": L * calls["decode_step"]}
 
 
 def prefix_kernel_checks(cfg, page):
@@ -2462,11 +2511,12 @@ def capture_kernel_calls(cfg):
                           for n, f in real.items()]
 
 
-def replay_kernel_calls(kept, what: str):
+def replay_kernel_calls(kept, what: str, tol=LLM_KERNEL_TOL):
     """Each kept call again through its CUDA wrapper and its plain version,
-    on the kept inputs and on normal draws of the same shapes (the same
-    offsets, valid lengths and depths), within LLM_KERNEL_TOL; returns the
-    largest |err| per kernel and the distinct shapes held."""
+    on the kept inputs and on normal draws of the same shapes and dtypes
+    (the same offsets, valid lengths and depths), within ``tol`` (a float,
+    or one per kernel); returns the largest |err| per kernel and the
+    distinct shapes held."""
     gen = torch.Generator().manual_seed(131)
     errs, shapes = {}, {}
     for name, calls in kept.items():
@@ -2478,7 +2528,7 @@ def replay_kernel_calls(kept, what: str):
                    + tuple(f"{k}={v}" for k, v in sorted(kw.items())
                            if not isinstance(v, torch.Tensor)))
             shapes.setdefault(name, set()).add(sig)
-            drawn = [torch.randn(x.shape, generator=gen).to(x.device)
+            drawn = [torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
                      if isinstance(x, torch.Tensor) and x.is_floating_point() else x
                      for x in a]
             ref_kw = {k: v for k, v in kw.items() if k != "page_size"}
@@ -2486,13 +2536,14 @@ def replay_kernel_calls(kept, what: str):
                 lens = [x.tolist() for x in [*args, *kw.values()]
                         if isinstance(x, torch.Tensor) and not x.is_floating_point()]
                 errs[name] = max(errs[name], close_err(
-                    kernel(*args, **kw), ref(*args, **ref_kw), LLM_KERNEL_TOL,
+                    kernel(*args, **kw), ref(*args, **ref_kw),
+                    tol[name] if isinstance(tol, dict) else tol,
                     f"{what}: {name} at {sig}, lengths {lens}"))
     counts = {n: len(c) for n, c in kept.items()}
     check(all(counts.values()), f"{what}: a serving kernel was never called: {counts}")
     print(f"{what}: the calls kernel_picks names in each forward ({counts} "
           f"calls) again on its own inputs and on normal draws, against the "
-          f"plain versions within {LLM_KERNEL_TOL}: shapes "
+          f"plain versions within {tol}: shapes "
           f"{ {n: sorted(s) for n, s in shapes.items()} }, max |err| {errs}")
     return errs
 
@@ -3983,12 +4034,357 @@ def phase_slice11(llm_cfg, llm_params, card) -> tuple:
     return launches, errs, numbers
 
 
+# ------------------------------------------------------------ slice 12 ---
+def bf16_bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time of a bf16 kernel: its bytes over HBM's rate, its
+    operations over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def widened(args):
+    return [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+            for a in args]
+
+
+def bf16_bitwise(kernel, args, kw, what: str):
+    """``kernel`` on bf16 ``args`` against the same wrapper on the args
+    widened to float32 (the fp32 kernel), rounded to bf16: bit for bit.
+    Returns the bf16 output."""
+    got = kernel(*args, **kw)
+    wide = kernel(*widened(args), **kw)
+    check(got.dtype == torch.bfloat16 and torch.equal(got, wide.to(torch.bfloat16)),
+          f"{what}: the bf16 kernel is not bitwise the fp32 kernel on the widened "
+          f"inputs, rounded (max |diff| "
+          f"{(got.float() - wide.to(torch.bfloat16).float()).abs().max().item()})")
+    return got
+
+
+def moe_kernels(cfg, card) -> dict:
+    """Phase 16a: the three bf16 kernels at moonshot-v1-16b-a3b's serving
+    shapes (flash at the prefill's q = k/v (8, 256, 16, 128), causal;
+    decode attention on the 288-slot cache at the first and last step's
+    depth; RMSNorm on the prefill's 2,048 rows and a decode step's 8, d =
+    2,048), each bitwise the fp32 kernel on the widened inputs (rounded)
+    and within BF16_TOL of its plain version; their times by CUDA events
+    beside the fp32 kernel's on the widened inputs, the plain version's,
+    the library call's (SDPA, ``F.rms_norm``, in bf16) and the bound."""
+    B, T, S = MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN
+    H, Hkv, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    G = H // Hkv
+    gen = torch.Generator(device="cuda").manual_seed(160)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def heads_first(t, rep=1):
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+    def row(name, kern, args, plain, library, nbytes, ops, what, extra=None):
+        got = bf16_bitwise(kern, args, {}, f"phase 16a: {what}")
+        err = close_err(got, plain(), BF16_TOL[name], f"phase 16a: {what}")
+        bound_ms, bound_by = bf16_bound(nbytes, ops)
+        wide = widened(args)
+        return {"shape": what, "max_abs_err": err, "bitwise_fp32": True,
+                "ms": time_ms(lambda: kern(*args)), "fp32_ms": time_ms(lambda: kern(*wide)),
+                "plain_ms": time_ms(plain, reps=10), "library_ms": time_ms(library),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                **(extra or {})}
+
+    out = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
+    q, k, v = randn(B, T, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
+    pairs = B * H * T * (T + 1) // 2
+    out["flash_attention"].append(row(
+        "flash_attention", flash_attention_cuda, (q, k, v),
+        lambda: flash_attention_ref(q, k, v), lambda: sdpa(qt, kt, vt, is_causal=True),
+        (2 * B * T * H * D + 2 * B * T * Hkv * D) * 2, 4 * D * pairs,
+        f"q = k/v {(B, T, H, D)}, causal",
+        {"tc_3xtf32_bound_ms": 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3,
+         "fp32_simt_bound_ms": 4 * D * pairs / FP32_OPS_PER_S * 1e3}))
+    del q, k, v, qt, kt, vt
+    for n in (T + 1, S - 1):
+        q, kc, vc = randn(B, 1, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        qt, kt, vt = heads_first(q), heads_first(kc, G), heads_first(vc, G)
+        live = (torch.arange(S, device="cuda") < n).view(1, 1, 1, S)
+        out["decode_attention"].append(row(
+            "decode_attention", decode_attention_cuda, (q, kc, vc, n),
+            lambda: decode_attention_ref(q, kc, vc, n),
+            lambda: sdpa(qt, kt, vt, attn_mask=live),
+            (2 * B * H * D + 2 * B * n * Hkv * D) * 2, 4 * B * H * n * D,
+            f"q {(B, 1, H, D)}, cache {(B, S, Hkv, D)}, attend {n}"))
+        del q, kc, vc, qt, kt, vt
+    for rows in (B * T, B):
+        x = randn(rows, d)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+        out["rmsnorm"].append(row(
+            "rmsnorm", rmsnorm_cuda, (x, scale), lambda: rmsnorm_ref(x, scale),
+            lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-6),
+            (2 * rows * d + d) * 2, 4 * rows * d, f"({rows}, {d})"))
+    torch.cuda.synchronize()
+    for name, cases in out.items():
+        for c in cases:
+            print(f"phase 16a: {name} bf16 at {c['shape']}: bitwise the fp32 kernel on "
+                  f"the widened inputs; |err| vs plain {c['max_abs_err']:.3e} (bar "
+                  f"{BF16_TOL[name]}); {c['ms']:.4f} ms (fp32 kernel {c['fp32_ms']:.4f}), "
+                  f"plain {c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+                  f"{c['bound_ms']:.4f} ({c['bound_by']})"
+                  + (f", 3xTF32 bound {c['tc_3xtf32_bound_ms']:.4f}"
+                     if "tc_3xtf32_bound_ms" in c else "") + f"  [{card}]")
+    return out
+
+
+def inference_capacity(cfg, n_tokens: int) -> int:
+    """Slots an expert takes from a group of ``n_tokens`` at the inference
+    capacity factor (``models/backbone.py::_apply_ffn(dropless=True)``)."""
+    m = cfg.moe
+    cf = m.n_experts / m.top_k if m.n_experts <= 8 else min(4.0, m.n_experts / m.top_k)
+    S = _pick_group_size(n_tokens, 4096)
+    return min(max(4, int(cf * S * m.top_k / m.n_experts)), S)
+
+
+def moe_serve(card) -> dict:
+    """Phase 16b: moonshot-v1-16b-a3b at full width and depth in bf16,
+    drawn on the card, through ``ServeEngine.generate`` (launch counts from
+    0, exact); its weights, peak, tokens/s and dropped fractions; a second
+    generate's picked kernel calls replayed against the plain versions and
+    bitwise against the fp32 kernels; the prefill alone, each decode step's
+    host time and, by torch.profiler, its kernels' device time."""
+    cfg = get_config(MOE_ARCH)
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bb.init_params(cfg, seed=0, gen_device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    check(all(t.dtype == torch.bfloat16 and t.device.type == "cuda" for t in leaves),
+          "phase 16b: a parameter is not bf16 on the card")
+    n_params = param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.RandomState(161)
+    reqs = [Request(tokens=rng.randint(0, cfg.vocab, MOE_PROMPT), max_new_tokens=MOE_NEW)
+            for _ in range(MOE_BATCH)]
+    eng = ServeEngine(cfg, params, max_len=MOE_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = slice11_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = outs[0].steps
+    check(steps == MOE_NEW, f"phase 16b: {steps} steps for {MOE_NEW} tokens")
+    check_launches(launches, {"flash_attention_bf16": L,
+                              "decode_attention_bf16": L * (steps - 1),
+                              "rmsnorm_bf16": (2 * L + 1) * steps}, "phase 16b")
+    for c in outs:
+        check(len(c.tokens) == MOE_NEW and c.tokens.min() >= 0
+              and c.tokens.max() < cfg.vocab, f"phase 16b: a completion {c.tokens}")
+    aux = eng.moe_aux
+    dropped = {"prefill": float(aux["prefill"]["dropped_fraction"]),
+               "decode": [float(a["dropped_fraction"]) for a in aux["decode"]]}
+    lb = {"prefill": float(aux["prefill"]["load_balance_loss"]),
+          "decode": [float(a["load_balance_loss"]) for a in aux["decode"]]}
+    check(len(dropped["decode"]) == steps - 1
+          and all(0.0 <= f < 1.0 for f in [dropped["prefill"], *dropped["decode"]]),
+          f"phase 16b: dropped fractions {dropped}")
+    tokens = [c.tokens.tolist() for c in outs]
+
+    kept, restore = capture_kernel_calls(cfg)
+    try:
+        again = eng.generate(reqs)
+    finally:
+        restore()
+    check([c.tokens.tolist() for c in again] == tokens,
+          "phase 16b: a second greedy generate gave other tokens")
+    kernel_errs = replay_kernel_calls(kept, "phase 16b", tol=BF16_TOL)
+    for name, calls in kept.items():
+        mod, attr, _ = PATH_KERNELS[name]
+        for a, kw in calls:
+            bf16_bitwise(getattr(mod, attr), a, kw, f"phase 16b: {name} replayed")
+    n_kept = {n: len(c) for n, c in kept.items()}
+    del kept
+
+    batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, T = bb.prefill(cfg, params, batch, max_len=MOE_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    host = []
+    for i in range(MOE_NEW - 1):
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = bb.decode_step(cfg, params, tok, cache, T + i)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache, T = bb.prefill(cfg, params, batch, max_len=MOE_MAX_LEN)
+    tok = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(MOE_PROFILE_STEPS):
+            logits, cache = bb.decode_step(cfg, params, tok, cache, T + i)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = profiled_kernels(prof)
+    device_us = sum(us for us, _ in kernels.values()) / MOE_PROFILE_STEPS
+    n_kernels = sum(n for _, n in kernels.values()) / MOE_PROFILE_STEPS
+    top = sorted(((us / MOE_PROFILE_STEPS / 1e3, k[:48]) for k, (us, _) in kernels.items()),
+                 reverse=True)[:6]
+    out = {"arch": MOE_ARCH, "params": n_params, "weight_bytes": weight_bytes,
+           "init_s": init_s, "requests": MOE_BATCH, "prompt": MOE_PROMPT,
+           "new_tokens": MOE_NEW, "generate_s": wall,
+           "tokens_per_s": MOE_BATCH * MOE_NEW / wall, "peak_bytes": peak,
+           "launches": launches, "dropped_fraction": dropped, "load_balance_loss": lb,
+           "kernel_errs": kernel_errs, "replayed_calls": n_kept,
+           "prefill_s": statistics.median(prefill_s), "prefill_s_all": prefill_s,
+           "decode_step_host_ms": [h * 1e3 for h in host],
+           "decode_step_host_ms_median": statistics.median(host) * 1e3,
+           "decode_step_device_ms": device_us / 1e3,
+           "decode_step_kernels": n_kernels,
+           "profiled_steps_host_ms": prof_s * 1e3 / MOE_PROFILE_STEPS,
+           "decode_top_kernels_ms": top, "greedy_tokens_row0": tokens[0]}
+    print(f"phase 16b: {MOE_ARCH} at full width and depth ({L} layers, {n_params / 1e9:.2f} B "
+          f"params, {weight_bytes / 2**30:.2f} GiB of bf16 weights, drawn on the card in "
+          f"{init_s:.1f} s): ServeEngine(max_len={MOE_MAX_LEN}).generate of {MOE_BATCH} x "
+          f"{MOE_PROMPT}-token prompts, {MOE_NEW} greedy tokens each, in {wall:.3f} s "
+          f"({out['tokens_per_s']:.1f} tokens/s); peak {peak / 2**30:.2f} GiB; launches "
+          f"{ {n: c for n, c in launches.items() if c} } (exact)  [{card}]")
+    print(f"phase 16b: prefill alone {out['prefill_s'] * 1e3:.1f} ms (host, median of 3: "
+          f"{[round(x * 1e3, 1) for x in prefill_s]}); decode steps on the host "
+          f"{[round(h * 1e3, 2) for h in host]} ms (median "
+          f"{out['decode_step_host_ms_median']:.2f}); a decode step's kernels "
+          f"{out['decode_step_device_ms']:.2f} ms of device time in {n_kernels:.0f} "
+          f"launches (torch.profiler over {MOE_PROFILE_STEPS} steps, "
+          f"{out['profiled_steps_host_ms']:.2f} ms a step on the host there); top "
+          f"kernels (ms a step) {top}  [{card}]")
+    print(f"phase 16b: dropped_fraction: prefill {dropped['prefill']:.4f} "
+          f"({inference_capacity(cfg, MOE_BATCH * MOE_PROMPT)} slots an expert), decode "
+          f"steps {[round(f, 4) for f in dropped['decode']]} "
+          f"({inference_capacity(cfg, MOE_BATCH)} slots an expert); load_balance_loss "
+          f"prefill {lb['prefill']:.4f}  [{card}]")
+    del params, eng, logits, cache, outs, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_vs_cpu(card) -> dict:
+    """Phase 16c: reduced moonshot (shared expert), mixtral (sliding
+    window, cut to MOE_CPU_WINDOW) and arctic (dense residual) in fp32,
+    seed-0 weights, the card against the port's CPU: prefill logits and
+    MOE_CPU_DECODE decode steps teacher-forced on the CPU's greedy tokens,
+    within MOE_CPU_TOL; the dropped fractions of both."""
+    out = {}
+    for name in MOE_REDUCED:
+        cfg = get_config(name).reduced()
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=MOE_CPU_WINDOW)
+        cpu = bb.init_params(cfg, seed=0, device="cpu")
+        params = tree_to(cpu, "cuda")
+        toks = np.random.RandomState(162).randint(0, cfg.vocab, (MOE_CPU_B, MOE_CPU_T))
+        max_len = MOE_CPU_T + MOE_CPU_DECODE + 4
+        runs = {}
+        for where, p in (("card", params), ("cpu", cpu)):
+            aux = [{}]
+            batch = {"tokens": torch.as_tensor(toks, device=p["embed"]["table"].device)}
+            logits, cache, T = bb.prefill(cfg, p, batch, max_len=max_len, aux=aux[0])
+            runs[where] = ([logits.cpu()], aux, cache)
+        ref_seq, diffs = runs["cpu"][0], []
+        for i in range(MOE_CPU_DECODE):
+            tok = torch.argmax(ref_seq[-1], -1)[:, None]
+            for where, p in (("card", params), ("cpu", cpu)):
+                seq, aux, cache = runs[where]
+                aux.append({})
+                logits, cache = bb.decode_step(cfg, p, tok.to(cache["k"].device), cache,
+                                               T + i, aux=aux[-1])
+                seq.append(logits.cpu())
+                runs[where] = (seq, aux, cache)
+        for i, (a, b) in enumerate(zip(runs["card"][0], runs["cpu"][0])):
+            diffs.append((a - b).abs().max().item())
+            check(torch.allclose(a, b, atol=MOE_CPU_TOL, rtol=MOE_CPU_TOL),
+                  f"phase 16c: {name} {'prefill' if i == 0 else f'decode step {i}'} "
+                  f"logits differ from the CPU run by {diffs[-1]}")
+        drops = {w: [float(a["dropped_fraction"]) for a in runs[w][1]] for w in runs}
+        out[name] = {"window": cfg.sliding_window, "max_abs_diff": diffs, "dropped": drops}
+        print(f"phase 16c: {cfg.name} (window {cfg.sliding_window}), fp32: prefill of "
+              f"{MOE_CPU_B} x {MOE_CPU_T} and {MOE_CPU_DECODE} decode steps, logits |card - "
+              f"CPU| {[f'{x:.2e}' for x in diffs]} (bar {MOE_CPU_TOL} abs + rel); dropped "
+              f"fractions card {drops['card']}, CPU {drops['cpu']}  [{card}]")
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_alone(card) -> dict:
+    """Phase 16 (a)-(c) in a fresh child process of this script, which
+    prints its lines and writes its numbers to a JSON file (``phase_moe``)."""
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    kernels = moe_kernels(cfg, card)
+    t_a = time.perf_counter() - t0
+    serve = moe_serve(card)
+    t_b = time.perf_counter() - t0 - t_a
+    vs_cpu = moe_vs_cpu(card)
+    return {"kernels": kernels, "serve": serve, "vs_cpu": vs_cpu,
+            "part_s": {"a": t_a, "b": t_b, "c": time.perf_counter() - t0 - t_a - t_b}}
+
+
+def phase_moe(card) -> tuple:
+    """Phase 16: ``moe_alone`` in a fresh child process (the 53.8 GiB model
+    wants an allocator that the earlier phases never touched); returns the
+    three bf16 kernels' rows of the kernels line and the numbers."""
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_alone.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-alone", path],
+                       check=True, timeout=MOE_ALONE_TIMEOUT_S)
+        with open(path) as f:
+            moe = json.load(f)
+    moe["phase_s"] = time.perf_counter() - t0
+    sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/attention/kernel.py:78"),
+               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention/kernel.py:79"),
+               "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm/kernel.py:25")}
+    rows = []
+    for name, (src, replaces) in sources.items():
+        cases = moe["kernels"][name]
+        main = cases[-1] if name == "decode_attention" else cases[0]
+        err = max([c["max_abs_err"] for c in cases]
+                  + [moe["serve"]["kernel_errs"].get(name, 0.0)])
+        rows.append({"name": f"{name}_bf16", "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": moe["serve"]["launches"][f"{name}_bf16"],
+                     "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                     "library_ms": main["library_ms"]})
+    print(f"phase 16: {moe['phase_s']:.1f} s in a child process, by part "
+          f"{ {k: round(v, 1) for k, v in moe['part_s'].items()} }")
+    return rows, moe
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--lm-alone", metavar="JSON",
                     help="only time phase 14's backward kernels alone by torch.profiler "
                          "(the kernels built already) and write the numbers here")
+    ap.add_argument("--moe-alone", metavar="JSON",
+                    help="only run phase 16 (moonshot-v1-16b-a3b in bf16; the kernels "
+                         "built already) and write the numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4004,9 +4400,13 @@ def main() -> int:
         with open(args.lm_alone, "w") as f:
             json.dump(lm_alone(card), f)
         return 0
+    if args.moe_alone:
+        with open(args.moe_alone, "w") as f:
+            json.dump(moe_alone(card), f)
+        return 0
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
-    libs = _build.build(sorted(_build.KERNELS))
+    libs = _build.build(_build.sources())
     build_s = time.perf_counter() - t0
     print(f"phase 2: built {sorted(libs)} in {build_s:.2f} s")
     for name, lib in libs.items():
@@ -4064,6 +4464,8 @@ def main() -> int:
     for row in rows:               # and over slice 11's paths
         row["launches"] += s11_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], s11_errs.get(row["name"], 0.0))
+    moe_rows, moe = phase_moe(card)
+    rows += moe_rows
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -4084,10 +4486,10 @@ def main() -> int:
                                    "requests_per_client": GATEWAY_REQS,
                                    "width": GATEWAY_WIDTH, **gw},
                        "train": train, "scheduler": sched, "prefix": prefix,
-                       "lm": lm, "slice11": s11},
+                       "lm": lm, "slice11": s11, "moe": moe},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s "
-          f"(phase 15 {s11['phase_s']:.1f} s)")
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s "
+          f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

@@ -11,7 +11,9 @@ numpy.
 - ``backbone_params_from_numpy``: an LLM backbone tree.  The JAX package
   stacks its layers on a leading (n_superblocks,) axis (an enc-dec's
   encoder and decoder layers on a plain (L,) axis); the port keeps a list
-  of per-layer dicts.  Dense weights keep their (in, out) layout.
+  of per-layer dicts.  Dense weights keep their (in, out) layout, an MoE
+  layer's stacked experts their (E, in, out), and every leaf is cast to
+  the config's dtype.
 - ``agile_lm_params_from_numpy``: an AgileNN-on-tokens tree
   (``core/agile_lm.py``): its backbone as above, the rest as it is.
 """
@@ -43,35 +45,43 @@ def params_from_numpy(tree, device=None):
     return _convert(tree, resolve_device(device))
 
 
-def _leaves_to(tree, device):
+def _leaves_to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _leaves_to(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=device)
+        return {k: _leaves_to(v, device, dtype) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree), device=device)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
 def backbone_params_from_numpy(tree, cfg, device=None):
     """The port's backbone params (``repro_torch.models.backbone``) on
     ``device`` (CUDA by default; raises when CUDA is absent and no device
-    was named), each tensor in its array's dtype.
+    was named), each floating-point tensor cast to ``cfg.dtype`` (a bf16
+    config takes float32 arrays of bf16 values without loss; the port does
+    not read numpy's bf16 extension type).
 
     ``tree["blocks"]`` holds one dict per sublayer of a superblock, each
     leaf stacked over superblocks; layer ``s * superblock + j`` of the
-    port is leaf ``[s]`` of sublayer ``j``.  An enc-dec tree's
+    port is leaf ``[s]`` of sublayer ``j``.  An MoE sublayer's ``moe``
+    (``router``, stacked ``gate`` / ``up`` / ``down`` of shape (E, a, b)),
+    ``shared`` and ``dense_res`` come over with it.  An enc-dec tree's
     ``"encoder"`` and ``"blocks"`` are each one dict whose leaves are
     stacked over layers; layer ``i`` is leaf ``[i]``.  Every other entry
     (``vision_proj``, the norms, the embedding) keeps its layout."""
-    sublayer_specs(cfg)                 # no MoE, hybrid or xLSTM, for now
+    sublayer_specs(cfg)                 # no hybrid or xLSTM, for now
     device = resolve_device(device)
+    dtype = cfg.dtype
     stacked = ("encoder", "blocks")
-    out = {k: _leaves_to(v, device) for k, v in tree.items() if k not in stacked}
+    out = {k: _leaves_to(v, device, dtype) for k, v in tree.items()
+           if k not in stacked}
     if cfg.encdec is not None:
         for k, n in (("encoder", cfg.encdec.n_encoder_layers),
                      ("blocks", cfg.n_layers)):
-            out[k] = [_leaves_to(_index(tree[k], i), device) for i in range(n)]
+            out[k] = [_leaves_to(_index(tree[k], i), device, dtype)
+                      for i in range(n)]
         return out
     subs = list(tree["blocks"])
     out["blocks"] = [
-        _leaves_to(_index(sub, s), device)
+        _leaves_to(_index(sub, s), device, dtype)
         for s in range(cfg.n_superblocks) for sub in subs]
     return out
 

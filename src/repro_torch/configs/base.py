@@ -1,9 +1,11 @@
 """Architecture configuration dataclasses and the config registry.
 
 The fields and defaults are those of ``repro.configs.base``, so a config
-means the same model in both packages.  ``dtype`` gives a torch dtype.
-The port registers the dense archs, internvl2-1b (VLM) and whisper-tiny
-(enc-dec); the spec dataclasses of the others (MoE, hybrid, xLSTM) are
+means the same model in both packages.  ``dtype`` gives a torch dtype
+(``param_dtype``: the MoE archs are bfloat16 at full size, and
+``reduced()`` forces float32 as the JAX package's does).  The port
+registers the dense archs, internvl2-1b (VLM), whisper-tiny (enc-dec) and
+the MoE archs; the spec dataclasses of the others (hybrid, xLSTM) are
 kept so that a config carrying them can be named and refused.
 """
 from __future__ import annotations

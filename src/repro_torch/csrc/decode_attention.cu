@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), fp32: split-K flash-decoding
-// of one query token per row against a KV cache.
+// Paged decode attention for Hopper (sm_90a), fp32 or bf16: split-K
+// flash-decoding of one query token per row against a KV cache.
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention/kernel.py
 // `paged_decode_attention_tpu` (body `_paged_decode_kernel`): for every
@@ -53,6 +53,16 @@
 //     results, so its launch overlaps the split kernel.
 // `page` is the TPU kernel's page: it is range-checked (1..128) and no
 // longer shapes the work, which the split and the tile do.
+// bf16 (q, the cache and o bf16; the TPU kernel widens them to fp32 and
+// returns q's dtype): the same kernels with bf16 tiles.  q and each tile
+// of K and V land in shared memory as bf16 by the same 16-byte cp.async,
+// half the bytes of fp32, and each group of four elements is widened to a
+// float4 as it is read; the fp32 arithmetic, the fp32 partials and the
+// combine are unchanged, and the combine rounds each output to bf16
+// (__float2bfloat16_rn).  The output is bitwise the fp32 kernel's on the
+// widened inputs, rounded to bf16.  Bound at moonshot-v1-16b-a3b's decode
+// (B = 8, Hkv = Hq = 16, D = 128, attend up to 288): B * attend * Hkv * D
+// * 2 * 2 bytes, 18.9 MB at attend 288, about 5.6 us at 3.35 TB/s.
 #include "kernels_common.cuh"
 
 namespace {
@@ -64,31 +74,59 @@ constexpr int kMaxGroup = 16;           // G = Hq / Hkv
 constexpr int kMaxPage = 128;
 constexpr int kHeadsPerWarp = kMaxGroup / kWarps;
 
-template <int D>
+template <typename Elt, int D>
 struct SplitSmem {
-  float q[kMaxGroup * D];
-  float k[2][kTile * D];
-  float v[2][kTile * D];
+  Elt q[kMaxGroup * D];
+  Elt k[2][kTile * D];
+  Elt v[2][kTile * D];
   float p[kMaxGroup * kTile];           // scores, then probabilities
   float corr[kMaxGroup];                // each head's rescale of the tile
 };
+
+// elements of Elt in a 16-byte copy
+template <typename Elt>
+__host__ __device__ constexpr int per16() { return 16 / (int)sizeof(Elt); }
+
+// four neighbouring elements as fp32, and four outputs rounded to Elt
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 __device__ __forceinline__ int row_attend(const int* rows, int all, int b,
                                           int S) {
   return max(0, min(S, rows ? rows[b] : all));
 }
 
-template <int D>
+template <typename Elt, int D>
 __global__ void __launch_bounds__(kThreads4)
-decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+decode_split_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
+                    const Elt* __restrict__ v,
                     const int* __restrict__ attend_rows, int attend_all,
                     int S, int Hkv, int G, int split, float scale,
                     float* __restrict__ part_acc,
                     float* __restrict__ part_ml) {
-  constexpr int D4 = D / 4;             // float4s per row
-  constexpr int KV4 = D / 32;           // float4s of a row per lane (8 lanes)
+  constexpr int D4 = D / 4;             // groups of 4 per row
+  constexpr int KV4 = D / 32;           // groups of 4 of a row per lane (8 lanes)
   constexpr int PAIRS = kMaxGroup * D4 / kThreads4;
+  constexpr int EL = per16<Elt>();      // elements per 16-byte copy
+  constexpr int DC = D / EL;            // 16-byte copies per row
   // the combine may be scheduled now; it waits for this grid's results
   asm volatile("griddepcontrol.launch_dependents;");
   const int h = blockIdx.y, b = blockIdx.z;
@@ -98,22 +136,22 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s1 = min(attend, s0 + split);
 
   extern __shared__ __align__(16) float smem_raw[];
-  SplitSmem<D>& sm = *reinterpret_cast<SplitSmem<D>*>(smem_raw);
+  SplitSmem<Elt, D>& sm = *reinterpret_cast<SplitSmem<Elt, D>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long bh = (long long)b * Hkv + h;
   const long long slot_stride = (long long)Hkv * D;
-  const float* kb = k + ((long long)b * S * Hkv + h) * D;
-  const float* vb = v + ((long long)b * S * Hkv + h) * D;
+  const Elt* kb = k + ((long long)b * S * Hkv + h) * D;
+  const Elt* vb = v + ((long long)b * S * Hkv + h) * D;
 
-  for (int i = tid; i < G * D4; i += kThreads4)
-    cp_async16(&sm.q[4 * i], q + bh * G * D + 4 * i, 16);
+  for (int i = tid; i < G * DC; i += kThreads4)
+    cp_async16(&sm.q[EL * i], q + bh * G * D + EL * i, 16);
   auto issue = [&](int t0, int stage) {   // live slots of [t0, t0 + kTile)
     const int n = min(kTile, s1 - t0);
-    for (int i = tid; i < n * D4; i += kThreads4) {
-      const long long off = (long long)(t0 + i / D4) * slot_stride
-                            + 4 * (i % D4);
-      cp_async16(&sm.k[stage][4 * i], kb + off, 16);
-      cp_async16(&sm.v[stage][4 * i], vb + off, 16);
+    for (int i = tid; i < n * DC; i += kThreads4) {
+      const long long off = (long long)(t0 + i / DC) * slot_stride
+                            + EL * (i % DC);
+      cp_async16(&sm.k[stage][EL * i], kb + off, 16);
+      cp_async16(&sm.v[stage][EL * i], vb + off, 16);
     }
   };
 
@@ -136,8 +174,8 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();                 // q and this tile have landed
     __syncthreads();
-    const float* K = sm.k[stage];
-    const float* V = sm.v[stage];
+    const Elt* K = sm.k[stage];
+    const Elt* V = sm.v[stage];
 
     // scores: warp w takes slots w * kTile / 4 ... in passes of four; lane
     // (j, t) = (lane >> 3, lane & 7) holds columns 4 (t + 8u) of slot j
@@ -149,13 +187,12 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float4 kr[KV4];
 #pragma unroll
       for (int u = 0; u < KV4; ++u)
-        kr[u] = *reinterpret_cast<const float4*>(&K[j * D + 4 * (t + 8 * u)]);
+        kr[u] = load4(&K[j * D + 4 * (t + 8 * u)]);
       for (int g = 0; g < G; ++g) {
         float dot = 0.0f;
 #pragma unroll
         for (int u = 0; u < KV4; ++u) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(&sm.q[g * D + 4 * (t + 8 * u)]);
+          const float4 qv = load4(&sm.q[g * D + 4 * (t + 8 * u)]);
           dot = fmaf(qv.x, kr[u].x, dot);
           dot = fmaf(qv.y, kr[u].y, dot);
           dot = fmaf(qv.z, kr[u].z, dot);
@@ -208,7 +245,7 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 8
         for (int j = 0; j < n; ++j) {
           const float pj = pg[j];
-          const float4 vv = *reinterpret_cast<const float4*>(&V[j * D + 4 * c]);
+          const float4 vv = load4(&V[j * D + 4 * c]);
           a.x = fmaf(pj, vv.x, a.x);
           a.y = fmaf(pj, vv.y, a.y);
           a.z = fmaf(pj, vv.z, a.z);
@@ -243,13 +280,13 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // one warp per (row, kv head, query head): lane i holds split i's weight
 // (32 splits at a time); lane (sub, c) = (lane / D4, lane % D4) sums the
 // float4 column c of the splits sub, sub + 32 / D4, ...
-template <int D>
+template <typename Elt, int D>
 __global__ void __launch_bounds__(kThreads4)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
                       const int* __restrict__ attend_rows, int attend_all,
                       int B, int S, int Hkv, int G, int split, int n_splits,
-                      float* __restrict__ o) {
+                      Elt* __restrict__ o) {
   constexpr int D4 = D / 4, SUBS = 32 / D4;
   // launched early (programmatic dependent launch): wait for the split
   // kernel to finish and its partials to be visible
@@ -302,30 +339,31 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   }
   if (sub == 0) {
     const float l = fmaxf(den, 1e-20f);
-    reinterpret_cast<float4*>(o + (bh * G + g) * D)[c] =
-        make_float4(num.x / l, num.y / l, num.z / l, num.w / l);
+    store4(o + (bh * G + g) * D + 4 * c,
+           make_float4(num.x / l, num.y / l, num.z / l, num.w / l));
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v,
+template <typename Elt, int D>
+int launch(const Elt* q, const Elt* k, const Elt* v,
            const int* attend_rows, int attend_all, int B, int S, int Hkv,
            int G, int split, int n_splits, float scale, float* part,
-           float* o, cudaStream_t stream) {
+           Elt* o, cudaStream_t stream) {
   float* part_ml = part + (long long)B * Hkv * n_splits * G * D;
   if (n_splits > 0) {
-    constexpr int bytes = (int)sizeof(SplitSmem<D>);
+    constexpr int bytes = (int)sizeof(SplitSmem<Elt, D>);
     static bool configured = false;
     if (!configured && bytes > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          decode_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
+          decode_split_kernel<Elt, D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return (int)err;
     }
     configured = true;
-    decode_split_kernel<D><<<dim3(n_splits, Hkv, B), kThreads4, bytes,
-                             stream>>>(q, k, v, attend_rows, attend_all, S,
-                                       Hkv, G, split, scale, part, part_ml);
+    decode_split_kernel<Elt, D><<<dim3(n_splits, Hkv, B), kThreads4, bytes,
+                                  stream>>>(q, k, v, attend_rows, attend_all,
+                                            S, Hkv, G, split, scale, part,
+                                            part_ml);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -340,11 +378,35 @@ int launch(const float* q, const float* k, const float* v,
   cfg.attrs = &early;
   cfg.numAttrs = n_splits > 0 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_combine_kernel<D>, (const float*)part,
+      &cfg, decode_combine_kernel<Elt, D>, (const float*)part,
       (const float*)part_ml, attend_rows, attend_all, B, S, Hkv, G, split,
       n_splits, o);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename Elt>
+int dispatch(const Elt* q, const Elt* k, const Elt* v, const int* attend_rows,
+             int attend_all, int B, int S, int Hkv, int G, int D, int page,
+             int split, int n_splits, float scale, float* part, Elt* o,
+             void* stream) {
+  if (B < 0 || S < 0 || Hkv < 1 || Hkv > 65535 || B > 65535 || G < 1 ||
+      G > kMaxGroup || page < 1 || page > kMaxPage || split < kTile ||
+      split % kTile || n_splits < 0 ||
+      (long long)n_splits * split < (attend_rows ? S : min(attend_all, S)))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<Elt, 64>(q, k, v, attend_rows, attend_all, B, S, Hkv, G,
+                             split, n_splits, scale, part, o, st);
+    case 128:
+      return launch<Elt, 128>(q, k, v, attend_rows, attend_all, B, S, Hkv, G,
+                              split, n_splits, scale, part, o, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -357,21 +419,15 @@ extern "C" int decode_attention_launch(const float* q, const float* k,
                                        int G, int D, int page, int split,
                                        int n_splits, float scale, float* part,
                                        float* o, void* stream) {
-  if (B < 0 || S < 0 || Hkv < 1 || Hkv > 65535 || B > 65535 || G < 1 ||
-      G > kMaxGroup || page < 1 || page > kMaxPage || split < kTile ||
-      split % kTile || n_splits < 0 ||
-      (long long)n_splits * split < (attend_rows ? S : min(attend_all, S)))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, attend_rows, attend_all, B, S, Hkv, G, split,
-                        n_splits, scale, part, o, st);
-    case 128:
-      return launch<128>(q, k, v, attend_rows, attend_all, B, S, Hkv, G,
-                         split, n_splits, scale, part, o, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, attend_rows, attend_all, B, S, Hkv, G, D, page,
+                  split, n_splits, scale, part, o, stream);
+}
+
+extern "C" int decode_attention_bf16_launch(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const int* attend_rows, int attend_all, int B, int S, int Hkv, int G,
+    int D, int page, int split, int n_splits, float scale, float* part,
+    __nv_bfloat16* o, void* stream) {
+  return dispatch(q, k, v, attend_rows, attend_all, B, S, Hkv, G, D, page,
+                  split, n_splits, scale, part, o, stream);
 }

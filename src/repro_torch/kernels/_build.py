@@ -2,7 +2,10 @@
 
 Each ``repro_torch/csrc/<name>.cu`` is compiled by nvcc for ``sm_90a`` into
 its own shared library with a plain C interface, at first use, and loaded
-with ``ctypes``.  A library is named by a hash of the sources and flags,
+with ``ctypes``.  A library may export more than one entry point: the
+bf16 halves of RMSNorm, flash attention and decode attention
+(``<name>_bf16_launch``) live in their fp32 kernel's source, each a
+``CudaKernel`` of its own with its own launch count.  A library is named by a hash of the sources and flags,
 under ``build/kernels/`` at the repository root, so an edited source is
 rebuilt and an unchanged one is not.  Nothing here runs when a module is
 imported: the first CUDA tensor handed to a kernel wrapper builds it.
@@ -30,6 +33,11 @@ BUILD_TIMEOUT_S = 600
 
 # every CudaKernel, by name: the registry of launch counts
 KERNELS: dict[str, "CudaKernel"] = {}
+
+
+def sources() -> list[str]:
+    """The sources (``csrc/<name>.cu``) of every registered kernel."""
+    return sorted({k.library for k in KERNELS.values()})
 
 
 def find_nvcc() -> str | None:
@@ -95,14 +103,16 @@ def build(names) -> dict[str, Path]:
 
 def check_operand(t, what: str, dtype, device=None) -> None:
     """Raise ValueError unless ``t`` is a contiguous CUDA tensor of
-    ``dtype`` (on ``device`` when given): what the kernels take.  The type
-    is checked before the device, so a wrong dtype is named as such on
-    any device."""
+    ``dtype`` (one dtype, or a tuple of those the kernel takes; on
+    ``device`` when given): what the kernels take.  The type is checked
+    before the device, so a wrong dtype is named as such on any device."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, got "
                          f"{type(t)}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what}: the CUDA kernel takes {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what}: the CUDA kernel takes "
+                         f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if not t.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, got "
                          f"{t.device}")
@@ -110,6 +120,23 @@ def check_operand(t, what: str, dtype, device=None) -> None:
         raise ValueError(f"{what}: the CUDA kernel takes a contiguous tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
+
+
+# the element types of the forward kernels, and where their backward
+# kernels' bf16 halves wait
+FORWARD_DTYPES = (torch.float32, torch.bfloat16)
+BF16_BACKWARD_ITEM = ("ROADMAP Queue 1 item 6(d) (MoE training, with the "
+                      "bf16 backward kernels)")
+
+
+def refuse_bf16_backward(t, what: str) -> None:
+    """Raise NotImplementedError for a bf16 tensor handed to a backward
+    kernel, or to a forward under a gradient: the backward kernels take
+    float32 only."""
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: the backward kernels take float32; their bf16 halves "
+            f"wait for {BF16_BACKWARD_ITEM}")
 
 
 def check_aligned(t, what: str) -> None:
@@ -132,14 +159,17 @@ def perm_array(perm, C: int):
 
 
 class CudaKernel:
-    """One kernel's C entry point ``<name>_launch`` and its launch count.
+    """One kernel's C entry point ``<name>_launch`` in the library built
+    from ``csrc/<library>.cu`` (``library`` defaults to ``name``), and its
+    launch count.
 
     The C entry enqueues the kernel on the stream it is given and returns
     ``cudaGetLastError()``; a non-zero code raises here, since a refused
     launch never runs and a later synchronize would not report it."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, library: str | None = None):
         self.name = name
+        self.library = library or name
         self.argtypes = argtypes
         self.launches = 0
         self._lib = None
@@ -147,7 +177,7 @@ class CudaKernel:
         KERNELS[name] = self
 
     def _load(self):
-        self._lib = ctypes.CDLL(str(build([self.name])[self.name]))
+        self._lib = ctypes.CDLL(str(build([self.library])[self.library]))
         fn = getattr(self._lib, f"{self.name}_launch")
         fn.argtypes = self.argtypes + [ctypes.c_void_p]     # + stream
         fn.restype = ctypes.c_int

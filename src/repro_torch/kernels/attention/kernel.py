@@ -4,8 +4,10 @@ csrc/flash_attention_backward.cu).
 
 The forward replaces ``repro.kernels.attention.kernel.flash_attention_tpu``
 with the contract of the jnp ``repro.nn.attention.flash_attention`` that
-the JAX model calls; the backward has no TPU counterpart (the JAX model
-differentiates that jnp function).  The source notes in the .cu give
+the JAX model calls, in float32 (``flash_attention_launch``) and in bf16
+(``flash_attention_bf16_launch``, a launch count of its own); the
+backward has no TPU counterpart (the JAX model differentiates that jnp
+function) and takes float32 only.  The source notes in the .cu give
 bounds and designs.
 """
 from __future__ import annotations
@@ -15,17 +17,25 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_aligned, check_operand
+from repro_torch.kernels._build import (
+    FORWARD_DTYPES,
+    CudaKernel,
+    check_aligned,
+    check_operand,
+    refuse_bf16_backward,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("flash_attention", [_P, _P, _P, _P] + [_I] * 9
-                    + [ctypes.c_float, _P, _P])
+_FORWARD_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P]
+KERNEL = CudaKernel("flash_attention", _FORWARD_ARGS)
+KERNEL_BF16 = CudaKernel("flash_attention_bf16", _FORWARD_ARGS,
+                         library="flash_attention")
 BACKWARD = CudaKernel("flash_attention_backward", [_P] * 8 + [_I] * 9
                       + [ctypes.c_float, _P, _P, _P])
 HEAD_DIMS = (64, 128)
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v, dtypes=FORWARD_DTYPES):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, T, Hq, D) and k, v (B, S, Hkv, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -34,8 +44,9 @@ def _check_qkv(q, k, v):
     if D not in HEAD_DIMS or k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"the kernel takes D in {HEAD_DIMS} and Hq a multiple "
                          f"of Hkv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    check_operand(q, "q", dtypes, q.device)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(t, name, torch.float32, q.device)
+        check_operand(t, name, q.dtype, q.device)
         check_aligned(t, name)
 
 
@@ -56,14 +67,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          q_offset: int = 0,
                          kv_valid_len: torch.Tensor | None = None,
                          return_lse: bool = False):
-    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned
-    float32 on one CUDA device, D in (64, 128), Hq a multiple of Hkv.
-    kv_valid_len: optional (B,) integer count of live keys per row.  Returns
-    (B, T, Hq, D) float32, and with ``return_lse`` also each row's
-    log-sum-exp of its scaled live scores, (B, Hq, T) float32 (-inf for a
-    row with no live key); the output is bitwise the same either way.
-    Raises ValueError on any other input; a misaligned view is refused,
-    not copied."""
+    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned,
+    all float32 or all bfloat16, on one CUDA device, D in (64, 128), Hq a
+    multiple of Hkv.  kv_valid_len: optional (B,) integer count of live
+    keys per row.  Returns (B, T, Hq, D) in q's dtype (bf16: the float32
+    kernel's arithmetic on the widened inputs, bitwise, rounded at the
+    end), and with ``return_lse`` also each row's log-sum-exp of its
+    scaled live scores, (B, Hq, T) float32 (-inf for a row with no live
+    key); the output is bitwise the same either way.  Raises ValueError on
+    any other input; a misaligned view is refused, not copied."""
     _check_qkv(q, k, v)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -71,8 +83,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    kernel = KERNEL if q.dtype == torch.float32 else KERNEL_BF16
     with torch.cuda.device(q.device):
-        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
+        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr,
                       B, T, S, Hq, Hkv, D, int(causal), int(window),
                       int(q_offset), 1.0 / math.sqrt(D), o.data_ptr(),
                       lse.data_ptr() if return_lse else None,
@@ -89,8 +102,10 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     row with no live key gets dq = 0, a key no row sees dk = dv = 0.  o and
     lse are that call's output and log-sum-exp; o and do take q's shape
     and checks, lse is (B, Hq, T) float32, kv_valid_len as the forward
-    takes it.  Raises ValueError on any other input."""
-    _check_qkv(q, k, v)
+    takes it.  Raises NotImplementedError on bf16 (its half waits for a
+    ROADMAP item) and ValueError on any other input."""
+    refuse_bf16_backward(q, "flash_attention_backward_cuda")
+    _check_qkv(q, k, v, torch.float32)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):

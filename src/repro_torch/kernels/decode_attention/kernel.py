@@ -1,7 +1,9 @@
 """Launch wrapper of the split-K paged decode-attention CUDA kernel
 (csrc/decode_attention.cu).
 
-Replaces ``repro.kernels.decode_attention.kernel.paged_decode_attention_tpu``.
+Replaces ``repro.kernels.decode_attention.kernel.paged_decode_attention_tpu``,
+in float32 (``decode_attention_launch``) and in bf16
+(``decode_attention_bf16_launch``, a launch count of its own).
 The source note in the .cu gives its byte bound and design; ``split_slots``
 here is the rule that cuts a row's cache slots into the splits that the
 kernel's blocks take.
@@ -14,11 +16,18 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_aligned, check_operand
+from repro_torch.kernels._build import (
+    FORWARD_DTYPES,
+    CudaKernel,
+    check_aligned,
+    check_operand,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("decode_attention", [_P, _P, _P, _P] + [_I] * 9
-                    + [ctypes.c_float, _P, _P])
+_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P]
+KERNEL = CudaKernel("decode_attention", _ARGS)
+KERNEL_BF16 = CudaKernel("decode_attention_bf16", _ARGS,
+                         library="decode_attention")
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16
 MAX_PAGE = 128
@@ -48,12 +57,15 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, attend_len, *,
                           page_size: int = 64):
     """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); contiguous, 16-byte
-    aligned float32 on one CUDA device, D in (64, 128), G = Hq / Hkv <= 16.
+    aligned, all float32 or all bfloat16, on one CUDA device, D in (64,
+    128), G = Hq / Hkv <= 16.
     attend_len: an int for every row, or a () / (B,) integer tensor: the
     count of live cache slots per row (clipped to [0, S]).  Any S works.
     ``page_size`` (the TPU kernel's page, 1..128) is checked and does not
     shape the work: the kernel cuts each row into ``split_slots`` splits.
-    Returns (B, 1, Hq, D) float32, 0 on a row with attend_len = 0.  Raises
+    Returns (B, 1, Hq, D) in q's dtype (bf16: the float32 kernel's
+    arithmetic on the widened inputs, bitwise, rounded at the end), 0 on a
+    row with attend_len = 0.  Raises
     ValueError on any other input; a misaligned view is refused, not
     copied."""
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -69,8 +81,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"cache {tuple(k_cache.shape)}")
     if not 1 <= page_size <= MAX_PAGE:
         raise ValueError(f"page_size must be in [1, {MAX_PAGE}], got {page_size}")
+    check_operand(q, "q", FORWARD_DTYPES, q.device)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        check_operand(t, name, torch.float32, q.device)
+        check_operand(t, name, q.dtype, q.device)
         check_aligned(t, name)
     G = Hq // Hkv
     rows_ptr, attend_all = None, 0
@@ -90,8 +103,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     part = torch.empty(B * Hkv * n_splits * G * (D + 2), dtype=torch.float32,
                        device=q.device)
     o = torch.empty_like(q)
+    kernel = KERNEL if q.dtype == torch.float32 else KERNEL_BF16
     with torch.cuda.device(q.device):
-        KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       rows_ptr, attend_all, B, S, Hkv, G, D, page_size, split,
                       n_splits, 1.0 / math.sqrt(D), part.data_ptr(),
                       o.data_ptr(), stream=torch.cuda.current_stream().cuda_stream)

@@ -1,9 +1,11 @@
 """Launch wrappers of the RMSNorm CUDA kernels (csrc/rmsnorm.cu and its
 gradient, csrc/rmsnorm_backward.cu).
 
-The forward replaces ``repro.kernels.rmsnorm.kernel.rmsnorm_tpu``; the
-backward has no TPU counterpart (the JAX model differentiates its jnp
-``rmsnorm_apply``).  The source notes in the .cu give bounds and designs.
+The forward replaces ``repro.kernels.rmsnorm.kernel.rmsnorm_tpu``, in
+float32 (``rmsnorm_launch``) and in bf16 (``rmsnorm_bf16_launch``, a
+launch count of its own); the backward has no TPU counterpart (the JAX
+model differentiates its jnp ``rmsnorm_apply``) and takes float32 only.
+The source notes in the .cu give bounds and designs.
 """
 from __future__ import annotations
 
@@ -11,11 +13,17 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, check_operand
+from repro_torch.kernels._build import (
+    FORWARD_DTYPES,
+    CudaKernel,
+    check_operand,
+    refuse_bf16_backward,
+)
 
 _P = ctypes.c_void_p
-KERNEL = CudaKernel("rmsnorm", [_P, _P, ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_float, _P])
+_FORWARD_ARGS = [_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _P]
+KERNEL = CudaKernel("rmsnorm", _FORWARD_ARGS)
+KERNEL_BF16 = CudaKernel("rmsnorm_bf16", _FORWARD_ARGS, library="rmsnorm")
 BACKWARD = CudaKernel("rmsnorm_backward", [_P, _P, _P, ctypes.c_longlong,
                                            ctypes.c_int, ctypes.c_float,
                                            _P, _P, _P])
@@ -25,22 +33,25 @@ MAX_WIDTH = 8192
 BACKWARD_BLOCKS = 1024
 
 
-def _check(x, scale):
+def _check(x, scale, dtypes=FORWARD_DTYPES):
     if x.dim() != 2 or scale.shape != x.shape[-1:] or not 1 <= x.shape[1] <= MAX_WIDTH:
         raise ValueError(f"x must be (N, d <= {MAX_WIDTH}) and scale (d,), got "
                          f"{tuple(x.shape)}, {tuple(scale.shape)}")
-    check_operand(x, "x", torch.float32)
-    check_operand(scale, "scale", torch.float32, x.device)
+    check_operand(x, "x", dtypes)
+    check_operand(scale, "scale", x.dtype, x.device)
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
-    """x: (N, d) contiguous float32 CUDA rows, any N, d <= 8192; scale:
-    (d,) float32 on the same device.  Returns (N, d) float32.  Raises
-    ValueError on any other input."""
+    """x: (N, d) contiguous float32 or bfloat16 CUDA rows, any N, d <= 8192;
+    scale: (d,) of x's dtype on the same device.  Returns (N, d) in x's
+    dtype: bf16 is widened to fp32, normalised in fp32 and rounded at the
+    end (bitwise the float32 kernel on the widened inputs, rounded).
+    Raises ValueError on any other input."""
     _check(x, scale)
     y = torch.empty_like(x)
+    kernel = KERNEL if x.dtype == torch.float32 else KERNEL_BF16
     with torch.cuda.device(x.device):
-        KERNEL.launch(x.data_ptr(), scale.data_ptr(), x.shape[0], x.shape[1],
+        kernel.launch(x.data_ptr(), scale.data_ptr(), x.shape[0], x.shape[1],
                       eps, y.data_ptr(),
                       stream=torch.cuda.current_stream().cuda_stream)
     return y
@@ -49,10 +60,12 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
 def rmsnorm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
                           g: torch.Tensor, *, eps: float = 1e-6):
     """The gradient of ``rmsnorm_cuda`` at (x, scale) against g = dL/dy,
-    all as ``rmsnorm_cuda`` takes them (g of x's shape).  Returns
+    all float32, as ``rmsnorm_cuda`` takes them (g of x's shape).  Returns
     (dx (N, d), dscale (d,)), float32; bitwise the same from call to call.
-    Raises ValueError on any other input."""
-    _check(x, scale)
+    Raises NotImplementedError on bf16 (its half waits for a ROADMAP
+    item) and ValueError on any other input."""
+    refuse_bf16_backward(x, "rmsnorm_backward_cuda")
+    _check(x, scale, torch.float32)
     if g.shape != x.shape:
         raise ValueError(f"g must be x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
     check_operand(g, "g", torch.float32, x.device)

@@ -2,14 +2,17 @@
 version for CPU tensors, no fallback between them.
 
 Where a gradient is asked for on CUDA the forward kernel runs inside
-``RMSNorm``, an autograd Function whose backward is the backward kernel;
-without one the forward kernel is called as it is, so inference launches
-exactly what it launched before the Function existed."""
+``RMSNorm``, an autograd Function whose backward is the backward kernel
+(float32 only: a bf16 gradient on CUDA raises NotImplementedError);
+without one the forward kernel is called as it is, in float32 or bf16, so
+inference launches exactly what it launched before the Function
+existed."""
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels._build import refuse_bf16_backward
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -38,13 +41,15 @@ class RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
-    """x: (..., d); scale: (d,).  Returns x's shape; differentiable in x
-    and scale on either device."""
+    """x: (..., d); scale: (d,) of x's dtype (float32 or bfloat16 on CUDA).
+    Returns x's shape and dtype; differentiable in x and scale on the CPU,
+    and on CUDA in float32."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
     d = x.shape[-1]
     x2 = x.reshape(-1, d).contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        refuse_bf16_backward(x2, "rmsnorm_op under a gradient")
         y = RMSNorm.apply(x2, scale, eps, rmsnorm_cuda, rmsnorm_backward_cuda)
     else:
         y = rmsnorm_cuda(x2, scale, eps=eps)

@@ -2,11 +2,20 @@
 decode.
 
 The port of ``repro.models.backbone`` for the dense archs (qwen2,
-llama3.2), the VLM (internvl2-1b) and the enc-dec (whisper-tiny):
+llama3.2), the MoE archs (moonshot-v1-16b-a3b, mixtral-8x7b,
+arctic-480b), the VLM (internvl2-1b) and the enc-dec (whisper-tiny):
 
 - dense: every layer is RMSNorm -> causal GQA self-attention with RoPE ->
   residual, RMSNorm -> SwiGLU FFN -> residual, and a final RMSNorm before
   the (tied) readout.
+- MoE: the dense layer with the FFN replaced by ``nn/moe.py``'s top-k
+  experts (plus arctic's parallel dense residual FFN and moonshot's
+  always-on shared expert, added to the experts' output).  Training uses
+  the config's capacity factor; ``prefill`` and ``decode_step`` use the
+  inference capacity (E / k when E <= 8, else min(4, E / k)), which drops
+  slots only where the JAX package's drops them.  The aux losses
+  (``load_balance_loss``, ``dropped_fraction``) are averaged over the MoE
+  layers; ``forward_loss`` adds 0.01 x the load-balance loss.
 - VLM: the dense LM, with the batch's stubbed patch embeddings (B, P,
   vision_dim) projected by ``vision_proj`` and put in front of the token
   embeddings; their labels are -100.
@@ -42,8 +51,13 @@ same loss and gradients.
 (the continuous scheduler's staged admissions), writing the segment's
 K/V into the cache in place as ``decode_step`` does.
 
-Configs with MoE, hybrid (Mamba) or xLSTM parts raise
-NotImplementedError: those branches are not ported yet.
+Parameters are drawn in ``cfg.dtype`` (bfloat16 for the MoE archs at full
+size), each on its way to the device before the next is drawn.  A bf16
+model follows the JAX package's casts: norms, the router and the MoE
+combine in float32, K/V kept in a bf16 cache, logits in float32.
+
+Configs with hybrid (Mamba) or xLSTM parts raise NotImplementedError:
+those branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -54,7 +68,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device, tree_to
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.activations import mlp, mlp_init, swiglu_ffn, swiglu_ffn_init
 from repro_torch.nn.attention import (
@@ -68,14 +82,14 @@ from repro_torch.nn.attention import (
     project_qkv,
 )
 from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
 
 # parts of a config the port's backbone cannot run yet, and where they wait
 _UNPORTED = (
-    ("moe", "ROADMAP Queue 1 item 6 (arch zoo: MoE)"),
-    ("hybrid", "ROADMAP Queue 1 item 6 (arch zoo: Mamba hybrid)"),
-    ("xlstm", "ROADMAP Queue 1 item 6 (arch zoo: xLSTM)"),
+    ("hybrid", "ROADMAP Queue 1 item 6(e) (arch zoo: Mamba hybrid)"),
+    ("xlstm", "ROADMAP Queue 1 item 6(c) (arch zoo: xLSTM)"),
 )
 
 
@@ -84,21 +98,22 @@ def _check_dense(cfg: ArchConfig) -> None:
         if getattr(cfg, name) is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the port's backbone runs dense archs only "
-                f"(with a VLM prefix or an enc-dec encoder); `{name}` configs "
-                f"wait for {item}")
+                f"(with MoE FFNs, a VLM prefix or an enc-dec encoder); "
+                f"`{name}` configs wait for {item}")
 
 
 def sublayer_specs(cfg: ArchConfig) -> list[dict]:
-    """Per-sublayer spec of one superblock: a dense arch (and the VLM and
-    enc-dec decoders) has one attention sublayer with a dense FFN."""
+    """Per-sublayer spec of one superblock: a dense or MoE arch (and the
+    VLM and enc-dec decoders) has one attention sublayer, with a dense FFN
+    or, under ``cfg.moe``, an MoE FFN."""
     _check_dense(cfg)
-    return [{"kind": "attn", "ffn": "dense"}]
+    return [{"kind": "attn", "ffn": "moe" if cfg.moe is not None else "dense"}]
 
 
 # --------------------------------------------------------------- helpers ---
-def _norm_init(cfg: ArchConfig) -> dict:
-    return (rmsnorm_init(cfg.d_model) if cfg.norm == "rmsnorm"
-            else layernorm_init(cfg.d_model))
+def _norm_init(cfg: ArchConfig, **place) -> dict:
+    return (rmsnorm_init(cfg.d_model, **place) if cfg.norm == "rmsnorm"
+            else layernorm_init(cfg.d_model, **place))
 
 
 def _norm(cfg: ArchConfig, p, x):
@@ -166,80 +181,143 @@ def sinusoidal_positions(T: int, d: int, offset: int = 0, *, device=None):
 
 
 # ------------------------------------------------------------------ init ---
-def _init_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    ffn_init = mlp_init if cfg.norm == "layernorm" else swiglu_ffn_init
-    return {
-        "norm": _norm_init(cfg),
-        "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias),
-        "ffn_norm": _norm_init(cfg),
-        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff),
-    }
+def _init_layer(cfg: ArchConfig, spec: dict, gen: torch.Generator,
+                **place) -> dict:
+    p = {"norm": _norm_init(cfg, **place),
+         "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                                **place),
+         "ffn_norm": _norm_init(cfg, **place)}
+    if spec["ffn"] == "dense":
+        ffn_init = mlp_init if cfg.norm == "layernorm" else swiglu_ffn_init
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, **place)
+        return p
+    m = cfg.moe
+    p["moe"] = moe_init(gen, cfg.d_model, m.expert_d_ff, m.n_experts, **place)
+    if m.dense_residual_ff:
+        p["dense_res"] = swiglu_ffn_init(gen, cfg.d_model, m.dense_residual_ff,
+                                         **place)
+    if m.shared_expert_ff:
+        p["shared"] = swiglu_ffn_init(gen, cfg.d_model, m.shared_expert_ff,
+                                      **place)
+    return p
 
 
-def _init_encoder_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
+def _init_encoder_layer(cfg: ArchConfig, gen: torch.Generator, **place) -> dict:
     return {
-        "norm": _norm_init(cfg),
+        "norm": _norm_init(cfg, **place),
         "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_heads,
-                               cfg.resolved_head_dim),
-        "ffn_norm": _norm_init(cfg),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff),
+                               cfg.resolved_head_dim, **place),
+        "ffn_norm": _norm_init(cfg, **place),
+        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, **place),
     }
 
 
-def _init_decoder_layer_encdec(cfg: ArchConfig, gen: torch.Generator) -> dict:
+def _init_decoder_layer_encdec(cfg: ArchConfig, gen: torch.Generator,
+                               **place) -> dict:
     return {
-        "norm": _norm_init(cfg),
+        "norm": _norm_init(cfg, **place),
         "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.resolved_head_dim),
-        "cross_norm": _norm_init(cfg),
+                               cfg.resolved_head_dim, **place),
+        "cross_norm": _norm_init(cfg, **place),
         "cross": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_heads,
-                                cfg.resolved_head_dim),
-        "ffn_norm": _norm_init(cfg),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff),
+                                cfg.resolved_head_dim, **place),
+        "ffn_norm": _norm_init(cfg, **place),
+        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, **place),
     }
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
-    """Fresh float32 parameters from ``seed``, drawn on the CPU and moved
-    to ``device`` (CUDA by default; raises when CUDA is absent and no
-    device was named).  The draws differ from the JAX package's for the
-    same seed: bridge JAX weights with
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                gen_device="cpu") -> dict:
+    """Fresh parameters from ``seed`` in ``cfg.dtype`` on ``device`` (CUDA
+    by default; raises when CUDA is absent and no device was named).
+
+    Each tensor is drawn in float32 by a generator on ``gen_device``,
+    cast to ``cfg.dtype`` and moved to ``device`` before the next is drawn.
+    The CPU generator (the default) gives the same weights on any device;
+    ``gen_device="cuda"`` draws on the card, other numbers for the same
+    seed, without the minutes the CPU takes over a full-size MoE (28.9 B
+    values for moonshot-v1-16b-a3b).  The draws differ from the JAX
+    package's for the same seed: bridge JAX weights with
     ``repro_torch.bridge.backbone_params_from_numpy`` to compare."""
-    sublayer_specs(cfg)
+    specs = sublayer_specs(cfg)
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=gen_device).manual_seed(seed)
+    place = {"dtype": cfg.dtype, "device": device}
     params: dict[str, Any] = {
-        "embed": embedding_init(gen, cfg.vocab, cfg.d_model),
-        "final_norm": _norm_init(cfg),
+        "embed": embedding_init(gen, cfg.vocab, cfg.d_model, **place),
+        "final_norm": _norm_init(cfg, **place),
     }
     if cfg.encdec is not None:
-        params["encoder"] = [_init_encoder_layer(cfg, gen)
+        params["encoder"] = [_init_encoder_layer(cfg, gen, **place)
                              for _ in range(cfg.encdec.n_encoder_layers)]
-        params["enc_final_norm"] = _norm_init(cfg)
-        params["blocks"] = [_init_decoder_layer_encdec(cfg, gen)
+        params["enc_final_norm"] = _norm_init(cfg, **place)
+        params["blocks"] = [_init_decoder_layer_encdec(cfg, gen, **place)
                             for _ in range(cfg.n_layers)]
     else:
-        params["blocks"] = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
+        params["blocks"] = [_init_layer(cfg, specs[0], gen, **place)
+                            for _ in range(cfg.n_layers)]
     if cfg.vlm is not None:
-        params["vision_proj"] = dense_init(gen, cfg.vlm.vision_dim, cfg.d_model)
+        params["vision_proj"] = dense_init(gen, cfg.vlm.vision_dim, cfg.d_model,
+                                           **place)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab,
-                                       use_bias=False)
-    return tree_to(params, device)
+                                       use_bias=False, **place)
+    return params
 
 
 # --------------------------------------------------------------- forward ---
-def _apply_sublayer(cfg: ArchConfig, p, x, *, window: int, kv_valid_len=None):
-    """Full-sequence (prefill) layer.  Returns (x, (k, v))."""
+def _apply_ffn(cfg: ArchConfig, spec: dict, p, x, *, dropless: bool = False):
+    """The post-attention FFN sublayer with its residual.  Returns (x, aux):
+    aux is {} for a dense FFN, else the MoE layer's aux.  ``dropless``
+    (inference) sizes the MoE capacity as the JAX package does: E / k
+    (provably dropless) when E <= 8, else min(4, E / k); training keeps
+    the configured capacity factor."""
+    h = _norm(cfg, p["ffn_norm"], x)
+    if spec["ffn"] == "dense":
+        return x + _ffn(cfg, p["ffn"], h), {}
+    m = cfg.moe
+    if dropless:
+        e_over_k = m.n_experts / m.top_k
+        cap = e_over_k if m.n_experts <= 8 else min(4.0, e_over_k)
+    else:
+        cap = m.capacity_factor
+    y, aux = moe_apply(p["moe"], h, top_k=m.top_k, capacity_factor=cap)
+    if "dense_res" in p:
+        y = y + swiglu_ffn(p["dense_res"], h)
+    if "shared" in p:
+        y = y + swiglu_ffn(p["shared"], h)
+    return x + y, aux
+
+
+def _apply_sublayer(cfg: ArchConfig, spec: dict, p, x, *, window: int,
+                    dropless: bool = False, kv_valid_len=None):
+    """Full-sequence (training / prefill) layer.  Returns (x, (k, v),
+    aux)."""
     h = _norm(cfg, p["norm"], x)
     y, k, v = attention_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, causal=True, window=window,
         rope_theta=cfg.rope_theta, return_kv=True, kv_valid_len=kv_valid_len)
-    x = x + y
-    x = x + _ffn(cfg, p["ffn"], _norm(cfg, p["ffn_norm"], x))
-    return x, (k, v)
+    x, aux = _apply_ffn(cfg, spec, p, x + y, dropless=dropless)
+    return x, (k, v), aux
+
+
+def _zero_aux(device) -> dict:
+    return {"load_balance_loss": torch.zeros((), device=device),
+            "dropped_fraction": torch.zeros((), device=device)}
+
+
+def _acc_aux(acc: dict, aux: dict, n: int) -> dict:
+    """acc plus a layer's MoE aux over n, the MoE layer count (a dense
+    layer's empty aux adds nothing)."""
+    if not aux:
+        return acc
+    return {k: acc[k] + aux[k] / n for k in acc}
+
+
+def _moe_layer_count(cfg: ArchConfig) -> int:
+    return sum(1 for s in sublayer_specs(cfg) if s["ffn"] == "moe") * cfg.n_superblocks or 1
 
 
 def _layer_loop(layers, x, body, remat: bool, *args):
@@ -255,9 +333,23 @@ def _layer_loop(layers, x, body, remat: bool, *args):
 
 
 def _run_layers(cfg: ArchConfig, params, x, *, window: int, remat: bool = True):
-    """Every layer over x (B, T, d)."""
-    return _layer_loop(params["blocks"], x, lambda p, h: _apply_sublayer(
-        cfg, p, h, window=window)[0], remat)
+    """Every layer over x (B, T, d).  Returns (x, aux), aux the MoE aux
+    losses averaged over the MoE layers (zeros for a dense arch)."""
+    spec = sublayer_specs(cfg)[0]
+    n_moe = _moe_layer_count(cfg)
+
+    def body(p, h):
+        h, _, aux = _apply_sublayer(cfg, spec, p, h, window=window)
+        return h, aux
+
+    acc = _zero_aux(x.device)
+    for p in params["blocks"]:
+        if remat and torch.is_grad_enabled():
+            x, aux = checkpoint(body, p, x, use_reentrant=False)
+        else:
+            x, aux = body(p, x)
+        acc = _acc_aux(acc, aux, n_moe)
+    return x, acc
 
 
 def _encoder_layer(cfg: ArchConfig, p, h):
@@ -303,16 +395,16 @@ def _run_decoder_encdec(cfg: ArchConfig, params, x, enc_out, *,
 
 
 def _hidden(cfg: ArchConfig, params, batch, *, window: int, remat: bool):
-    """Final hidden states before the final norm, and the labels (VLM:
-    padded with -100 over the patches)."""
+    """Final hidden states before the final norm, the labels (VLM: padded
+    with -100 over the patches) and the MoE aux losses."""
     x, labels = _embed_inputs(cfg, params, batch)
     if cfg.encdec is not None:
         enc_out = _run_encoder(cfg, params, _batch_tensor(params, batch, "frames"),
                                remat=remat)
         x = _run_decoder_encdec(cfg, params, x, enc_out, remat=remat)
-    else:
-        x = _run_layers(cfg, params, x, window=window, remat=remat)
-    return x, labels
+        return x, labels, _zero_aux(x.device)
+    x, aux = _run_layers(cfg, params, x, window=window, remat=remat)
+    return x, labels, aux
 
 
 def _readout_weight(cfg: ArchConfig, params):
@@ -406,27 +498,29 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
 
 def forward_loss(cfg: ArchConfig, params, batch, *, window: int = 0,
                  loss_chunk: int = 512, remat: bool = True):
-    """Training forward: mean next-token CE.  Returns (loss, metrics) with
-    JAX's metric keys; these archs have no MoE aux losses (zeros).
+    """Training forward: mean next-token CE, plus 0.01 x the MoE
+    load-balance loss for an MoE arch (at the config's capacity factor).
+    Returns (loss, metrics) with JAX's metric keys (ce and the MoE aux
+    losses, zeros for a dense arch).
 
     batch: {"tokens": (B, T), "labels": (B, T)} [+ "patches" (VLM) /
     "frames" (enc-dec)]."""
     sublayer_specs(cfg)
-    x, labels = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
-                        remat=remat)
+    x, labels, aux = _hidden(cfg, params, batch,
+                             window=window or cfg.sliding_window, remat=remat)
     x = _norm(cfg, params["final_norm"], x)
     ce = chunked_cross_entropy(x, _readout_weight(cfg, params), labels,
                                chunk=loss_chunk)
-    zero = torch.zeros((), device=x.device)
-    return ce, {"ce": ce, "load_balance_loss": zero, "dropped_fraction": zero}
+    loss = ce + 0.01 * aux["load_balance_loss"] if cfg.moe is not None else ce
+    return loss, {"ce": ce, **aux}
 
 
 def forward_hidden(cfg: ArchConfig, params, batch, *, window: int = 0,
                    remat: bool = True):
     """Final hidden states (B, T, d): AgileNN's remote path."""
     sublayer_specs(cfg)
-    x, _ = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
-                   remat=remat)
+    x, _, _ = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
+                      remat=remat)
     return _norm(cfg, params["final_norm"], x)
 
 
@@ -475,7 +569,7 @@ def _ring_compact(kv, S: int, T: int):
 
 
 def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
-            max_len: int = 0, lengths=None):
+            max_len: int = 0, lengths=None, aux: dict | None = None):
     """Prefill: run the context, return (last-token logits, decode cache,
     context length).
 
@@ -490,8 +584,14 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     lengths: optional (B,) valid prompt lengths of a right-padded token
     batch (no patches, not enc-dec): pad keys are masked out of attention
     for every row, and the logits are gathered at each row's last real
-    token.  The padded width must fit the cache window."""
-    sublayer_specs(cfg)
+    token.  The padded width must fit the cache window.  An MoE arch runs
+    at the inference capacity (``_apply_ffn(dropless=True)``); pad tokens
+    route like any other, as in the JAX package.
+
+    aux: an optional dict, filled with the MoE aux losses of this forward
+    (``load_balance_loss``, ``dropped_fraction``: () float32 tensors on the
+    device, averaged over the MoE layers; zeros for a dense arch)."""
+    spec = sublayer_specs(cfg)[0]
     if lengths is not None and (cfg.encdec is not None or "patches" in batch):
         raise ValueError("bucketed (right-padded) prefill takes token batches "
                          "of a decoder-only arch")
@@ -518,11 +618,18 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     else:
         window = cfg.sliding_window or (
             cache_window(cfg, total_T, long_context=True) if long_context else 0)
+        n_moe = _moe_layer_count(cfg)
+        acc = None if aux is None else _zero_aux(x.device)
         for i, p in enumerate(params["blocks"]):
-            x, (k, v) = _apply_sublayer(cfg, p, x, window=window,
-                                        kv_valid_len=lengths)
+            x, (k, v), layer_aux = _apply_sublayer(
+                cfg, spec, p, x, window=window, dropless=True,
+                kv_valid_len=lengths)
             cache["k"][i] = _ring_compact(k, S, total_T)
             cache["v"][i] = _ring_compact(v, S, total_T)
+            if aux is not None:
+                acc = _acc_aux(acc, layer_aux, n_moe)
+        if aux is not None:
+            aux.update(acc)
     x = _norm(cfg, params["final_norm"], x)
     if lengths is None:
         last = x[:, -1]
@@ -531,13 +638,17 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     return _logits(cfg, params, last), cache, total_T
 
 
-def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
+def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len, *,
+                aux: dict | None = None):
     """One decoding step.  tokens: (B, 1) integer tensor; cache from
     init_cache/prefill; cache_len: an int (every row at one depth) or a
     (B,) tensor (each row at its own depth; RoPE archs only, since
     sinusoidal positions take one offset).  Returns (logits (B, vocab)
-    float32, cache), the cache updated IN PLACE."""
-    sublayer_specs(cfg)
+    float32, cache), the cache updated IN PLACE.  An MoE arch routes the
+    step's B tokens as one group at the inference capacity (at moonshot's
+    E = 64, k = 6 and B = 8: 4 slots an expert, so slots can drop, as in
+    the JAX package); ``aux`` as in ``prefill``."""
+    spec = sublayer_specs(cfg)[0]
     per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0
     if per_row and cfg.rope_theta <= 0:
         raise ValueError(f"{cfg.name}: a per-row cache_len needs RoPE positions "
@@ -547,6 +658,8 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
     if cfg.rope_theta == 0:
         x = x + sinusoidal_positions(1, cfg.d_model, offset=int(cache_len),
                                      device=x.device).to(x.dtype)
+    n_moe = _moe_layer_count(cfg)
+    acc = None if aux is None else _zero_aux(x.device)
     for i, p in enumerate(params["blocks"]):
         h = _norm(cfg, p["norm"], x)
         y, _, _ = attention_decode_apply(
@@ -559,7 +672,11 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len):
             x = x + cross_attention_decode(p["cross"], c, cache["ck"][i],
                                            cache["cv"][i], n_heads=cfg.n_heads,
                                            head_dim=hd)
-        x = x + _ffn(cfg, p["ffn"], _norm(cfg, p["ffn_norm"], x))
+        x, layer_aux = _apply_ffn(cfg, spec, p, x, dropless=True)
+        if aux is not None:
+            acc = _acc_aux(acc, layer_aux, n_moe)
+    if aux is not None:
+        aux.update(acc)
     x = _norm(cfg, params["final_norm"], x)
     return _logits(cfg, params, x[:, 0]), cache
 
@@ -583,15 +700,15 @@ def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
     last_index: an int, or a (B,) sequence / integer tensor, of the
     segment row whose logits are returned.  Returns (logits (B, vocab)
     float32, cache).  Chunked prefill needs a pure-attention dense-FFN
-    RoPE decoder with no sliding window, no patches and no encoder
+    RoPE decoder with no sliding window, no patches, no encoder and no MoE
     (ValueError otherwise)."""
     sublayer_specs(cfg)
     if (cfg.rope_theta <= 0 or cfg.sliding_window or cfg.vlm is not None
-            or cfg.encdec is not None):
+            or cfg.encdec is not None or cfg.moe is not None):
         raise ValueError(
             f"{cfg.name}: chunked prefill needs a pure-attention dense-FFN "
-            "RoPE decoder with no sliding window (a ring cache breaks "
-            "slot == position)")
+            "RoPE decoder (no MoE, patches or encoder) with no sliding "
+            "window (a ring cache breaks slot == position)")
     B, C = tokens.shape
     S = cache["k"].shape[2]
     if not (0 <= depth and depth + C <= S and attend_width <= S):

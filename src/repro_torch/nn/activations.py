@@ -18,11 +18,13 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def swiglu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+def swiglu_ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
+                    **place) -> dict:
+    """``place``: the ``dtype`` / ``device`` keywords of ``dense_init``."""
     return {
-        "gate": dense_init(gen, d_model, d_ff, use_bias=False),
-        "up": dense_init(gen, d_model, d_ff, use_bias=False),
-        "down": dense_init(gen, d_ff, d_model, use_bias=False),
+        "gate": dense_init(gen, d_model, d_ff, use_bias=False, **place),
+        "up": dense_init(gen, d_model, d_ff, use_bias=False, **place),
+        "down": dense_init(gen, d_ff, d_model, use_bias=False, **place),
     }
 
 
@@ -32,10 +34,10 @@ def swiglu_ffn(params, x):
     return dense(params["down"], g * u)
 
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, **place) -> dict:
     return {
-        "fc1": dense_init(gen, d_model, d_ff, use_bias=True),
-        "fc2": dense_init(gen, d_ff, d_model, use_bias=True),
+        "fc1": dense_init(gen, d_model, d_ff, use_bias=True, **place),
+        "fc2": dense_init(gen, d_ff, d_model, use_bias=True, **place),
     }
 
 

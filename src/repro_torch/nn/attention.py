@@ -31,13 +31,18 @@ NEG_INF = -1e30
 # ------------------------------------------------------------ projections --
 def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int | None = None, *,
-                   qkv_bias: bool = False) -> dict:
+                   qkv_bias: bool = False, **place) -> dict:
+    """``place``: the ``dtype`` / ``device`` keywords of ``dense_init``."""
     head_dim = head_dim or d_model // n_heads
     return {
-        "wq": dense_init(gen, d_model, n_heads * head_dim, use_bias=qkv_bias),
-        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, use_bias=qkv_bias),
-        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, use_bias=qkv_bias),
-        "wo": dense_init(gen, n_heads * head_dim, d_model, use_bias=False),
+        "wq": dense_init(gen, d_model, n_heads * head_dim, use_bias=qkv_bias,
+                         **place),
+        "wk": dense_init(gen, d_model, n_kv_heads * head_dim,
+                         use_bias=qkv_bias, **place),
+        "wv": dense_init(gen, d_model, n_kv_heads * head_dim,
+                         use_bias=qkv_bias, **place),
+        "wo": dense_init(gen, n_heads * head_dim, d_model, use_bias=False,
+                         **place),
     }
 
 

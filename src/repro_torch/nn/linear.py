@@ -14,10 +14,14 @@ from repro_torch.nn.init import he_normal, lecun_normal, normal
 
 # ---------------------------------------------------------------- dense ----
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
-               use_bias: bool = True) -> dict:
-    p = {"w": lecun_normal(gen, (in_dim, out_dim), fan_in=in_dim)}
+               use_bias: bool = True, dtype=torch.float32, device=None) -> dict:
+    """``w`` (in, out) lecun-normal and ``b`` zeros, in ``dtype`` on
+    ``device`` (the generator's when None)."""
+    w = lecun_normal(gen, (in_dim, out_dim), fan_in=in_dim, dtype=dtype,
+                     device=device)
+    p = {"w": w}
     if use_bias:
-        p["b"] = torch.zeros(out_dim)
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=w.device)
     return p
 
 
@@ -113,8 +117,10 @@ class _Conv2d(torch.autograd.Function):
 
 
 # ------------------------------------------------------------ embedding ----
-def embedding_init(gen: torch.Generator, vocab: int, dim: int) -> dict:
-    return {"table": normal(gen, (vocab, dim), std=0.02)}
+def embedding_init(gen: torch.Generator, vocab: int, dim: int, *,
+                   dtype=torch.float32, device=None) -> dict:
+    return {"table": normal(gen, (vocab, dim), std=0.02, dtype=dtype,
+                            device=device)}
 
 
 def embedding(params, ids):

@@ -10,20 +10,23 @@ def groupnorm_init(dim: int) -> dict:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
-def rmsnorm_init(dim: int) -> dict:
-    return {"scale": torch.ones(dim)}
+def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
 
 
 def rmsnorm(params, x, *, eps: float = 1e-6):
     """The RMSNorm kernel (``kernels/rmsnorm``) on CUDA tensors, its plain
-    version on CPU tensors.  Where a gradient is taken on CUDA it runs in
+    version on CPU tensors; fp32 inside, x's dtype out (a bf16 x takes a
+    bf16 scale, widened as the JAX package's ``rmsnorm_apply`` does).
+    Where a gradient is taken on CUDA it runs in
     ``kernels.rmsnorm.ops.RMSNorm``, whose backward is the backward
     kernel."""
     return rmsnorm_op(x, params["scale"], eps=eps)
 
 
-def layernorm_init(dim: int) -> dict:
-    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+def layernorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
 
 
 def layernorm(params, x, *, eps: float = 1e-5):

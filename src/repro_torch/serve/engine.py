@@ -18,8 +18,13 @@ The port of ``repro.serve.engine``.  Two execution paths share one
   * continuous batching — mixed lengths and deadlines route through
     ``repro_torch.serve.scheduler.ContinuousScheduler`` (built lazily,
     seeded with ``seed + 1``).  Architectures the scheduler rules out
-    fall back to one equal-length call per prompt length (so do requests
-    with extras); deadlines on those raise ValueError.
+    (MoE among them) fall back to one equal-length call per prompt length
+    (so do requests with extras); deadlines on those raise ValueError.
+
+An MoE arch's equal-length call keeps each forward's aux losses in
+``ServeEngine.moe_aux``: {"prefill": {...}, "decode": [{...} a step]},
+each {"load_balance_loss", "dropped_fraction"} as () float32 tensors on
+the device (read them after the call; nothing waits on them).
 
 A mesh (sharded serving) waits for ROADMAP Queue 1 item 7.
 """
@@ -107,6 +112,7 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._sched_cfg = scheduler or SchedulerConfig()
         self._sched: Optional[ContinuousScheduler] = None
+        self.moe_aux: Optional[dict] = None
 
     @property
     def scheduler(self) -> ContinuousScheduler:
@@ -173,8 +179,12 @@ class ServeEngine:
                 f"context {total_T} + max_new_tokens {max_new} exceeds "
                 f"engine max_len {self.max_len}: decode would ring-wrap over "
                 "live context")
-        logits, cache, total_T = bb.prefill(self.cfg, self.params, batch,
-                                            max_len=self.max_len)
+        aux = None
+        if self.cfg.moe is not None:
+            aux = self.moe_aux = {"prefill": {}, "decode": []}
+        logits, cache, total_T = bb.prefill(
+            self.cfg, self.params, batch, max_len=self.max_len,
+            aux=None if aux is None else aux["prefill"])
         temps = torch.tensor([r.temperature for r in requests],
                              dtype=torch.float32, device=dev)
         greedy = all(r.temperature <= 0.0 for r in requests)
@@ -194,8 +204,12 @@ class ServeEngine:
         done = (tok == eos_ids) | (lengths >= max_lens)
         step, cache_len = 0, total_T
         while step < max_new - 1 and not bool(done.all()):
+            step_aux = None
+            if aux is not None:
+                step_aux = {}
+                aux["decode"].append(step_aux)
             logits, cache = bb.decode_step(self.cfg, self.params, tok[:, None],
-                                           cache, cache_len)
+                                           cache, cache_len, aux=step_aux)
             t = sample(logits)
             active = ~done
             # finished rows rewrite their own last token: nothing moves

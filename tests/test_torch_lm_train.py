@@ -570,7 +570,7 @@ def test_backbone_refuses_extras_and_other_families():
         tbb.forward_loss(cfg, params, {"tokens": np.zeros((1, 4), np.int32),
                                        "labels": np.zeros((1, 4), np.int32),
                                        "patches": np.zeros((1, 2, 8), np.float32)})
-    from repro_torch.configs.base import MoESpec
-    moe = dataclasses.replace(cfg, moe=MoESpec(n_experts=4, top_k=2, expert_d_ff=64))
+    from repro_torch.configs.base import HybridSpec
+    hybrid = dataclasses.replace(cfg, hybrid=HybridSpec(period=2))
     with pytest.raises(NotImplementedError, match="dense archs only"):
-        tbb.forward_hidden(moe, params, {"tokens": np.zeros((1, 4), np.int32)})
+        tbb.forward_hidden(hybrid, params, {"tokens": np.zeros((1, 4), np.int32)})

@@ -16,6 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNEL_NAMES = ["decode_attention", "flash_attention", "flash_attention_backward",
                 "offload_fused", "quantize", "rmsnorm", "rmsnorm_backward",
                 "topk_split"]
+# the bf16 halves: entry points of their fp32 kernels' libraries
+BF16_NAMES = ["decode_attention_bf16", "flash_attention_bf16", "rmsnorm_bf16"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -132,7 +134,8 @@ rmsnorm_op(torch.randn(5, 64), torch.ones(64))
 q, kv = torch.randn(2, 9, 4, 64), torch.randn(2, 9, 2, 64)
 flash_attention_op(q, kv, kv, window=4, kv_valid_len=torch.tensor([9, 3]))
 decode_attention_op(q[:, :1], kv, kv, torch.tensor([9, 3]))
-assert sorted(b.KERNELS) == KERNEL_NAMES, sorted(b.KERNELS)
+assert sorted(b.KERNELS) == sorted(KERNEL_NAMES + BF16_NAMES), sorted(b.KERNELS)
+assert b.sources() == KERNEL_NAMES, b.sources()
 assert all(k._lib is None and k.launches == 0 for k in b.KERNELS.values())
 print("ok")
 """
@@ -140,7 +143,7 @@ print("ok")
     env["PATH"] = os.path.dirname(sys.executable)
     env["CUDA_HOME"] = str(ROOT / "no-cuda-here")
     env["PYTHONPATH"] = str(ROOT / "src")
-    code = f"KERNEL_NAMES = {KERNEL_NAMES!r}\n" + code
+    code = f"KERNEL_NAMES = {KERNEL_NAMES!r}\nBF16_NAMES = {BF16_NAMES!r}\n" + code
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
