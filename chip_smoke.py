@@ -8,8 +8,9 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
      sources at once; print registers and spills, and check that flash
      attention's SASS and its backward's hold tensor-core products (HMMA)
-     and asynchronous copies (LDGSTS), and that the permute, the fused
-     offload pass and
+     and asynchronous copies (LDGSTS), flash's bf16 half warpgroup
+     products (HGMMA), that RMSNorm loads and stores 16 bytes at a time,
+     and that the permute, the fused offload pass and
      decode attention copy in by LDGSTS and write by 16-byte stores;
   AgileNN offload inference (slice 1):
   3. each offload kernel against its plain PyTorch version on the card,
@@ -193,23 +194,32 @@ Phases, each of which raises on failure:
      their inputs; a 512-token prompt decoding the same greedy tokens with
      and without ``long_context``.
 
-  moonshot-v1-16b-a3b in bf16 and the MoE archs (slice 12), in a fresh
-  child process (``--moe-alone JSON``):
- 16. (a) the bf16 halves of flash attention (q = k/v (8, 256, 16, 128),
-     causal), decode attention (the 288-slot cache at attend 257 and 287)
-     and RMSNorm ((2048, 2048) and (8, 2048)), each bitwise the fp32
-     kernel on the widened inputs, rounded to bf16, and within the JAX
-     package's bf16 bars of its plain version (3e-2, 3e-2, 2e-2), timed
-     beside the fp32 kernel, the plain version, the library call (SDPA,
-     ``F.rms_norm``, bf16) and the bound (bytes at 2 B an element, or the
-     bf16 tensor-core rate); (b) moonshot-v1-16b-a3b at full width and
+  moonshot-v1-16b-a3b in bf16 and the MoE archs (slices 12-13), in a
+  fresh child process (``--moe-alone JSON``):
+ 16. (a) the bf16 halves of flash attention (q = k/v (8, 256, 16, 128)
+     and, a 4,096-token prompt, (1, 4096, 16, 128), causal), decode
+     attention (the 288-slot cache at attend 257 and 287) and RMSNorm
+     ((2048, 2048) and (8, 2048)), each within the JAX package's bf16 bars
+     of its plain version (3e-2, 3e-2, 2e-2); decode attention bitwise the
+     fp32 kernel on the widened inputs, rounded to bf16; flash (on the
+     bf16 tensor cores by wgmma since slice 13) and RMSNorm (16-byte rows
+     held in registers) at most 2x the library call's error against
+     float64 and two calls bitwise equal; each timed beside the fp32
+     kernel on the widened inputs, the plain version, the library call
+     (SDPA, ``F.rms_norm``, bf16) and the bound (bytes at 2 B an element,
+     or the bf16 tensor-core rate); flash's contract swept on the card (D
+     64 / 128, G 1 / 7, window, q_offset with T != S, kv_valid_len with a
+     row at 0, ragged T and S, not causal; the log-sum-exp within 1e-4 and
+     -inf on rows with no live key) and RMSNorm's at N in {1, 8, 2048,
+     4097} x d in {896, 2048, 8192}, a d off 8 and a view off 16 bytes;
+     (b) moonshot-v1-16b-a3b at full width and
      depth in bf16 (28.89 B params, 53.8 GiB, drawn on the card from seed
      0) through ``ServeEngine(max_len=288).generate``: 8 prompts of 256
      tokens, 32 greedy tokens, launches from 0 and exact (48 flash a
      prefill, 48 decode attention a step, 97 RMSNorm a forward); weights,
      peak, tokens/s, the dropped fraction of the prefill and of each
      decode step; a second generate's picked kernel calls replayed against
-     the plain versions and bitwise against the fp32 kernels; the prefill
+     the plain versions and to the bars of (a); the prefill
      alone, each decode step's host time and its kernels' device time by
      torch.profiler; (c) reduced moonshot, mixtral (its window cut to 32)
      and arctic in fp32, the card against the port's CPU: prefill and 4
@@ -547,9 +557,20 @@ MOE_ALONE_TIMEOUT_S = 600
 # decode steps traced by torch.profiler (their kernels' device time)
 MOE_PROFILE_STEPS = 4
 # the bf16 kernels against their plain versions: the JAX package's bf16
-# bars (tests/test_kernels.py, tests/test_decode_attention.py); against
-# the fp32 kernel on the widened inputs, rounded to bf16: bitwise
+# bars (tests/test_kernels.py, tests/test_decode_attention.py); decode
+# attention's against its fp32 kernel on the widened inputs, rounded to
+# bf16: bitwise
 BF16_TOL = {"flash_attention": 3e-2, "decode_attention": 3e-2, "rmsnorm": 2e-2}
+# the bf16 flash and RMSNorm (their own kernels since slice 13) against
+# float64 on the widened inputs: at most this many times the library
+# call's error in bf16 on the same inputs (both round their outputs to
+# bf16; the flash kernel also rounds P to bf16, as SDPA does); the
+# log-sum-exp within BF16_LSE_TOL of the plain version's (fp32 sums of
+# exact bf16 products, in another order)
+BF16_LIB_FACTOR = 2.0
+BF16_LSE_TOL = 1e-4
+# a 4,096-token moonshot prompt, timed in phase 16a: q = k/v (1, 4096, 16, 128)
+MOE_LONG_PROMPT = (1, 4096)
 # bf16 on the tensor cores, dense (NVIDIA data sheet, 700 W): the least
 # time of a bf16 kernel's operations
 BF16_OPS_PER_S = 989e12
@@ -670,10 +691,13 @@ def profiled_share(fn, match: str, bound_ms: float,
 
 # what the redesigned kernels must issue: tensor-core products (HMMA) and
 # asynchronous copies (LDGSTS) in flash attention and its backward,
-# asynchronous 16-byte
-# copies and 16-byte stores in the permute, the fused offload pass and
-# decode attention (its partials and its output)
+# warpgroup products (HGMMA) in flash's bf16 half, 16-byte loads and
+# stores in RMSNorm's bf16 half, asynchronous 16-byte copies and 16-byte
+# stores in the permute, the fused offload pass and decode attention (its
+# partials and its output)
 SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
+               "flash_attention_bf16": ("HGMMA", "LDGSTS", "STG.E.128"),
+               "rmsnorm": ("LDG.E.128", "STG.E.128"),
                "flash_attention_backward": ("HMMA", "LDGSTS"),
                "topk_split": ("LDGSTS", "STG.E.128"),
                "offload_fused": ("LDGSTS", "STG.E.128"),
@@ -946,15 +970,27 @@ def close_err(out, ref, tol: float, what: str) -> float:
     return err
 
 
-def exact_attention(q, k, v):
-    """Causal attention in float64, dense: the yardstick of fp32's error."""
-    T, G = q.shape[1], q.shape[2] // k.shape[2]
-    q = q.double()
-    k, v = (t.double().repeat_interleave(G, 2) for t in (k, v))
-    s = torch.einsum("bthd,bshd->bhts", q, k) / q.shape[-1] ** 0.5
-    causal = torch.ones(T, k.shape[1], dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(s.masked_fill(~causal, -float("inf")), dim=-1)
-    return torch.einsum("bhts,bshd->bthd", p, v)
+def attention64(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                kv_valid_len=None):
+    """Dense attention in float64 on the widened inputs under flash's whole
+    contract (keys at or past S masked); returns the output (B, T, Hq, D),
+    0 on a row with no live key, and the live mask (B, T, S)."""
+    T, S, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    q64 = q.double()
+    k64, v64 = (t.double().repeat_interleave(G, 2) for t in (k, v))
+    qp = torch.arange(T, device=q.device)[:, None] + q_offset
+    kp = torch.arange(S, device=q.device)[None, :]
+    live = torch.ones(T, S, dtype=torch.bool, device=q.device)
+    if causal:
+        live = live & (kp <= qp)
+    if window > 0:
+        live = live & (kp > qp - window)
+    live = live.expand(q.shape[0], T, S)
+    if kv_valid_len is not None:
+        live = live & (kp[None] < kv_valid_len.to(q.device).view(-1, 1, 1))
+    s = torch.einsum("bthd,bshd->bhts", q64, k64) / q.shape[-1] ** 0.5
+    p = torch.softmax(s.masked_fill(~live[:, None], -float("inf")), dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p.nan_to_num(0.0), v64), live
 
 
 def phase_llm_kernels():
@@ -1014,7 +1050,7 @@ def phase_llm_kernels():
     for B, T, Hq, Hkv, D in ((LLM_BATCH, LLM_PROMPT, 14, 2, 64),
                              (2, LLM_PROMPT, 12, 2, 128)):
         q, k, v = (8 * randn(B, T, H, D) for H in (Hq, Hkv, Hkv))
-        exact = exact_attention(q, k, v)
+        exact, _ = attention64(q, k, v)
         out, plain = flash_attention_cuda(q, k, v), flash_attention_ref(q, k, v)
         err = (out.double() - exact).abs().max().item()
         plain_err = (plain.double() - exact).abs().max().item()
@@ -4061,15 +4097,118 @@ def bf16_bitwise(kernel, args, kw, what: str):
     return got
 
 
+def sdpa_bf16(q, k, v, live, plain_causal: bool):
+    """SDPA in q's dtype on the same inputs (heads first, kv heads
+    expanded): ``is_causal`` where the mask is plain causal, else the live
+    mask; (B, T, Hq, D).  A row with no live key comes back NaN."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = (sdpa(qt, kt, vt, is_causal=True) if plain_causal
+           else sdpa(qt, kt, vt, attn_mask=live[:, None]))
+    return out.transpose(1, 2)
+
+
+def rmsnorm64(x, scale, eps: float = 1e-6):
+    x64 = x.double()
+    return x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + eps) * scale.double()
+
+
+def bf16_bars(name: str, kernel, args, kw, what: str) -> dict:
+    """The bars of the bf16 flash attention and RMSNorm (slice 13: their own
+    kernels, not the fp32 arithmetic): within BF16_TOL of the plain
+    version; a max |error| against float64 on the widened inputs at most
+    BF16_LIB_FACTOR x the library call's in bf16 on the same inputs (SDPA,
+    ``F.rms_norm``; rows with a live key); two calls bitwise equal; a row
+    with no live key exactly 0.  Returns the errors."""
+    got = kernel(*args, **kw)
+    check(torch.equal(got, kernel(*args, **kw)), f"{what}: two calls differ")
+    check(got.dtype == torch.bfloat16, f"{what}: {got.dtype} out")
+    if name == "flash_attention":
+        q, k, v = args
+        opts = {"causal": kw.get("causal", True), "window": kw.get("window", 0),
+                "q_offset": kw.get("q_offset", 0), "kv_valid_len": kw.get("kv_valid_len")}
+        plain = flash_attention_ref(q, k, v, **opts)
+        exact, live = attention64(q, k, v, **opts)
+        plain_causal = (opts["causal"] and not opts["window"] and not opts["q_offset"]
+                        and opts["kv_valid_len"] is None and q.shape[1] == k.shape[1])
+        lib = sdpa_bf16(q, k, v, live, plain_causal)
+        rows = live.any(-1)                              # (B, T)
+        check(not got[~rows].any(), f"{what}: a row with no live key is not 0")
+        got_e, lib_e, exact_e = got[rows], lib[rows], exact[rows]
+    else:
+        x, scale = args
+        eps = kw.get("eps", 1e-6)
+        plain = rmsnorm_ref(x, scale, eps=eps)
+        exact_e = rmsnorm64(x, scale, eps)
+        got_e, lib_e = got, torch.nn.functional.rms_norm(x, x.shape[-1:], scale, eps)
+    err = close_err(got, plain, BF16_TOL[name], what)
+    e64 = (got_e.double() - exact_e).abs().max().item() if got_e.numel() else 0.0
+    lib64 = (lib_e.double() - exact_e).abs().max().item() if lib_e.numel() else 0.0
+    check(e64 <= BF16_LIB_FACTOR * lib64,
+          f"{what}: {e64} from float64, the library call in bf16 {lib64}")
+    return {"max_abs_err": err, "err_float64": e64, "library_err_float64": lib64}
+
+
+def flash_sweep(gen) -> list:
+    """Phase 16a: the bf16 flash kernel's contract on the card against the
+    plain version (bf16_bars), with its log-sum-exp within
+    BF16_LSE_TOL of the plain version's and -inf on every row with no
+    live key: D 64 and 128, G 1 and 7, a window, q_offset with T != S,
+    kv_valid_len with a row at 0, T and S off the 64-row tile, not
+    causal."""
+    cases = [  # (B, T, S, Hq, Hkv, D, causal, window, q_offset, kv_valid_len)
+        (2, 100, 100, 14, 2, 64, True, 0, 0, None),
+        (2, 100, 100, 14, 2, 128, True, 32, 0, None),
+        (2, 100, 100, 16, 16, 128, True, 32, 0, None),
+        (2, 37, 137, 14, 2, 128, True, 0, 100, None),
+        (2, 200, 264, 16, 16, 128, True, 0, 64, None),
+        (3, 77, 77, 8, 8, 128, True, 0, 0, [77, 0, 40]),
+        (3, 130, 190, 14, 2, 64, False, 32, 60, [190, 100, 0]),
+        (2, 50, 200, 4, 1, 64, False, 0, 0, None),
+        (3, 40, 40, 16, 16, 128, False, 0, 0, [0, 40, 9]),
+        (2, 1, 300, 14, 2, 128, True, 0, 299, None),
+        (1, 10, 20, 4, 2, 64, True, 4, 50, None),       # no live key: 0
+    ]
+    out = []
+    for B, T, S, Hq, Hkv, D, causal, window, q_off, valid in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, T, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+        kw = {"causal": causal, "window": window, "q_offset": q_off,
+              "kv_valid_len": None if valid is None else torch.tensor(valid, device="cuda")}
+        what = f"phase 16a: flash_attention bf16 at {(B, T, S, Hq, Hkv, D)} {kw}"
+        bars = bf16_bars("flash_attention", flash_attention_cuda, (q, k, v), kw, what)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        _, plain_lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        check(torch.equal(o, flash_attention_cuda(q, k, v, **kw)),
+              f"{what}: the output changes with return_lse")
+        dead = torch.isinf(plain_lse)
+        check(torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all()),
+              f"{what}: lse is not -inf exactly on the rows with no live key")
+        lse_err = (lse[~dead] - plain_lse[~dead]).abs().max().item() if (~dead).any() else 0.0
+        check(lse_err <= BF16_LSE_TOL, f"{what}: lse {lse_err} from the plain version's")
+        out.append({"case": [B, T, S, Hq, Hkv, D, causal, window, q_off, valid],
+                    "lse_err": lse_err, **bars})
+    return out
+
+
 def moe_kernels(cfg, card) -> dict:
     """Phase 16a: the three bf16 kernels at moonshot-v1-16b-a3b's serving
-    shapes (flash at the prefill's q = k/v (8, 256, 16, 128), causal;
-    decode attention on the 288-slot cache at the first and last step's
-    depth; RMSNorm on the prefill's 2,048 rows and a decode step's 8, d =
-    2,048), each bitwise the fp32 kernel on the widened inputs (rounded)
-    and within BF16_TOL of its plain version; their times by CUDA events
-    beside the fp32 kernel's on the widened inputs, the plain version's,
-    the library call's (SDPA, ``F.rms_norm``, in bf16) and the bound."""
+    shapes (flash at the prefill's q = k/v (8, 256, 16, 128), causal, and
+    a 4,096-token prompt's (1, 4096, 16, 128); decode attention on the
+    288-slot cache at the first and last step's depth; RMSNorm on the
+    prefill's 2,048 rows and a decode step's 8, d = 2,048).  Decode
+    attention is bitwise the fp32 kernel on the widened inputs (rounded);
+    flash and RMSNorm, kernels of their own since slice 13, are held to
+    ``bf16_bars``; each within BF16_TOL of its plain version.  Their
+    times by CUDA events beside the fp32 kernel's on the widened inputs,
+    the plain version's, the library call's (SDPA, ``F.rms_norm``, in
+    bf16) and the bound; flash also beside ``torch.addcmul(q, k, v)``, one
+    call that moves the same bytes (q, k and v read, o's size written).
+    Then flash's contract sweep (``flash_sweep``) and RMSNorm at N in
+    {1, 8, 2048, 4097} x d in {896, 2048, 8192}, a d off 8 and a view off
+    16 bytes, each held to ``bf16_bars``."""
     B, T, S = MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN
     H, Hkv, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
     G = H // Hkv
@@ -4083,28 +4222,34 @@ def moe_kernels(cfg, card) -> dict:
         return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
 
     def row(name, kern, args, plain, library, nbytes, ops, what, extra=None):
-        got = bf16_bitwise(kern, args, {}, f"phase 16a: {what}")
-        err = close_err(got, plain(), BF16_TOL[name], f"phase 16a: {what}")
+        if name == "decode_attention":
+            got = bf16_bitwise(kern, args, {}, f"phase 16a: {what}")
+            bars = {"bitwise_fp32": True,
+                    "max_abs_err": close_err(got, plain(), BF16_TOL[name],
+                                             f"phase 16a: {what}")}
+        else:
+            bars = bf16_bars(name, kern, args, {}, f"phase 16a: {what}")
         bound_ms, bound_by = bf16_bound(nbytes, ops)
         wide = widened(args)
-        return {"shape": what, "max_abs_err": err, "bitwise_fp32": True,
+        return {"shape": what, **bars,
                 "ms": time_ms(lambda: kern(*args)), "fp32_ms": time_ms(lambda: kern(*wide)),
                 "plain_ms": time_ms(plain, reps=10), "library_ms": time_ms(library),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
                 **(extra or {})}
 
     out = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
-    q, k, v = randn(B, T, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
-    qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
-    pairs = B * H * T * (T + 1) // 2
-    out["flash_attention"].append(row(
-        "flash_attention", flash_attention_cuda, (q, k, v),
-        lambda: flash_attention_ref(q, k, v), lambda: sdpa(qt, kt, vt, is_causal=True),
-        (2 * B * T * H * D + 2 * B * T * Hkv * D) * 2, 4 * D * pairs,
-        f"q = k/v {(B, T, H, D)}, causal",
-        {"tc_3xtf32_bound_ms": 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3,
-         "fp32_simt_bound_ms": 4 * D * pairs / FP32_OPS_PER_S * 1e3}))
-    del q, k, v, qt, kt, vt
+    for Bf, Tf in ((B, T), MOE_LONG_PROMPT):
+        q, k, v = randn(Bf, Tf, H, D), randn(Bf, Tf, Hkv, D), randn(Bf, Tf, Hkv, D)
+        qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
+        pairs = Bf * H * Tf * (Tf + 1) // 2
+        out["flash_attention"].append(row(
+            "flash_attention", flash_attention_cuda, (q, k, v),
+            lambda: flash_attention_ref(q, k, v), lambda: sdpa(qt, kt, vt, is_causal=True),
+            (2 * Bf * Tf * H * D + 2 * Bf * Tf * Hkv * D) * 2, 4 * D * pairs,
+            f"q = k/v {(Bf, Tf, H, D)}, causal",
+            {"tc_3xtf32_bound_ms": 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3,
+             "bytes_ms": time_ms(lambda: torch.addcmul(q, k, v)) if G == 1 else None}))
+        del q, k, v, qt, kt, vt
     for n in (T + 1, S - 1):
         q, kc, vc = randn(B, 1, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         qt, kt, vt = heads_first(q), heads_first(kc, G), heads_first(vc, G)
@@ -4126,13 +4271,46 @@ def moe_kernels(cfg, card) -> dict:
     torch.cuda.synchronize()
     for name, cases in out.items():
         for c in cases:
-            print(f"phase 16a: {name} bf16 at {c['shape']}: bitwise the fp32 kernel on "
-                  f"the widened inputs; |err| vs plain {c['max_abs_err']:.3e} (bar "
-                  f"{BF16_TOL[name]}); {c['ms']:.4f} ms (fp32 kernel {c['fp32_ms']:.4f}), "
-                  f"plain {c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
-                  f"{c['bound_ms']:.4f} ({c['bound_by']})"
-                  + (f", 3xTF32 bound {c['tc_3xtf32_bound_ms']:.4f}"
-                     if "tc_3xtf32_bound_ms" in c else "") + f"  [{card}]")
+            held = ("bitwise the fp32 kernel on the widened inputs" if c.get("bitwise_fp32")
+                    else f"|err| vs float64 {c['err_float64']:.3e} (library "
+                         f"{c['library_err_float64']:.3e}, bar x{BF16_LIB_FACTOR}), "
+                         f"two calls bitwise")
+            extra = ""
+            if "tc_3xtf32_bound_ms" in c:
+                extra = (f", 3xTF32 bound {c['tc_3xtf32_bound_ms']:.4f}; "
+                         f"{c['bound_ms'] / c['ms']:.0%} of the bound, "
+                         f"{c['fp32_ms'] / c['ms']:.2f}x faster than the fp32 kernel, "
+                         f"{c['library_ms'] / c['ms']:.2f}x SDPA's speed"
+                         + (f"; torch.addcmul(q, k, v) {c['bytes_ms']:.4f}"
+                            if c["bytes_ms"] is not None else ""))
+            print(f"phase 16a: {name} bf16 at {c['shape']}: {held}; |err| vs plain "
+                  f"{c['max_abs_err']:.3e} (bar {BF16_TOL[name]}); {c['ms']:.4f} ms "
+                  f"(fp32 kernel {c['fp32_ms']:.4f}), plain {c['plain_ms']:.4f}, library "
+                  f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f} ({c['bound_by']})"
+                  + extra + f"  [{card}]")
+    out["flash_sweep"] = flash_sweep(gen)
+    print(f"phase 16a: flash_attention bf16 contract sweep, {len(out['flash_sweep'])} cases: "
+          f"max |err| vs plain {max(c['max_abs_err'] for c in out['flash_sweep']):.3e}, "
+          f"lse {max(c['lse_err'] for c in out['flash_sweep']):.2e} (bar {BF16_LSE_TOL}); "
+          f"float64 error / SDPA's at most "
+          f"{max(c['err_float64'] / max(c['library_err_float64'], 1e-30) for c in out['flash_sweep']):.2f}")
+    sweep = []
+    for N, dd in [(N, dd) for N in (1, 8, 2048, 4097) for dd in (896, 2048, 8192)] + [
+            (37, 900), (9, "view")]:
+        if dd == "view":   # a view 2 bytes off 16: the element-by-element walk
+            dd = 896
+            x = randn(N * dd + 1)[1:].view(N, dd)
+        else:
+            x = randn(N, dd) * 2
+        scale = (1 + 0.1 * torch.randn(dd, generator=gen, device="cuda")).to(torch.bfloat16)
+        sweep.append({"shape": [N, dd], **bf16_bars(
+            "rmsnorm", rmsnorm_cuda, (x, scale), {},
+            f"phase 16a: rmsnorm bf16 at ({N}, {dd})")})
+    out["rmsnorm_sweep"] = sweep
+    print(f"phase 16a: rmsnorm bf16 at {len(sweep)} shapes: max |err| vs plain "
+          f"{max(c['max_abs_err'] for c in sweep):.3e} (bar {BF16_TOL['rmsnorm']}); "
+          f"float64 error / F.rms_norm's at most "
+          f"{max(c['err_float64'] / max(c['library_err_float64'], 1e-30) for c in sweep):.2f}")
     return out
 
 
@@ -4149,8 +4327,9 @@ def moe_serve(card) -> dict:
     """Phase 16b: moonshot-v1-16b-a3b at full width and depth in bf16,
     drawn on the card, through ``ServeEngine.generate`` (launch counts from
     0, exact); its weights, peak, tokens/s and dropped fractions; a second
-    generate's picked kernel calls replayed against the plain versions and
-    bitwise against the fp32 kernels; the prefill alone, each decode step's
+    generate's picked kernel calls replayed against the plain versions,
+    decode attention's also bitwise against its fp32 kernel, flash's and
+    RMSNorm's also to ``bf16_bars``; the prefill alone, each decode step's
     host time and, by torch.profiler, its kernels' device time."""
     cfg = get_config(MOE_ARCH)
     L = cfg.n_layers
@@ -4206,7 +4385,10 @@ def moe_serve(card) -> dict:
     for name, calls in kept.items():
         mod, attr, _ = PATH_KERNELS[name]
         for a, kw in calls:
-            bf16_bitwise(getattr(mod, attr), a, kw, f"phase 16b: {name} replayed")
+            if name == "decode_attention":
+                bf16_bitwise(getattr(mod, attr), a, kw, f"phase 16b: {name} replayed")
+            else:
+                bf16_bars(name, getattr(mod, attr), a, kw, f"phase 16b: {name} replayed")
     n_kept = {n: len(c) for n, c in kept.items()}
     del kept
 
@@ -4353,7 +4535,7 @@ def phase_moe(card) -> tuple:
         with open(path) as f:
             moe = json.load(f)
     moe["phase_s"] = time.perf_counter() - t0
-    sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention_bf16.cu",
                                    "src/repro/kernels/attention/kernel.py:78"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:79"),
@@ -4363,7 +4545,8 @@ def phase_moe(card) -> tuple:
     for name, (src, replaces) in sources.items():
         cases = moe["kernels"][name]
         main = cases[-1] if name == "decode_attention" else cases[0]
-        err = max([c["max_abs_err"] for c in cases]
+        sweep = moe["kernels"].get(f"{name.split('_')[0]}_sweep", [])
+        err = max([c["max_abs_err"] for c in cases + sweep]
                   + [moe["serve"]["kernel_errs"].get(name, 0.0)])
         rows.append({"name": f"{name}_bf16", "route": "cuda", "source": src,
                      "replaces": replaces,

@@ -1,6 +1,7 @@
-// Flash attention for Hopper (sm_90a), fp32 or bf16 in and out: causal /
+// Flash attention for Hopper (sm_90a), fp32 in and out: causal /
 // sliding-window GQA prefill attention, both products on the tensor cores
-// in 3xTF32.
+// in 3xTF32.  Its bf16 half is a kernel of its own, on the bf16 tensor
+// cores (flash_attention_bf16.cu).
 //
 // Replaces the Pallas TPU kernel repro/kernels/attention/kernel.py
 // `flash_attention_tpu` (body `_attn_kernel`).  The JAX model calls the
@@ -13,7 +14,6 @@
 // row with no live key writes 0, as the jnp function does.
 // Layout: q (B, T, Hq, D), k/v (B, S, Hkv, D), o (B, T, Hq, D); query head
 // hq reads kv head hq / (Hq / Hkv).  q, k, v and o are 16-byte aligned.
-// q, k, v and o are all fp32 or all bf16 (the TPU kernel's two types).
 //
 // Bound: operations.  4 * D flops per live (query, key) pair (a
 // multiply-add each for q.k and p.v); at the prefill shape of the LLM path
@@ -62,22 +62,8 @@
 // - Shared memory: D = 64, 64-key tiles: Q 17.4 KB + K/V ring 69.6 KB =
 //   87 KB, two blocks per SM.  D = 128 takes 32-key tiles (Q 33.8 KB + ring
 //   67.6 KB = 101 KB), so two blocks still fit an SM.
-// - bf16 (the TPU kernel widens bf16 operands to fp32 and narrows its
-//   output): the same kernel with bf16 tiles.  Q, K and V land in shared
-//   memory as bf16 by the same 16-byte cp.async (half the bytes; rows
-//   padded by 8 elements, 16 bytes, so every copy stays aligned), each
-//   fragment element is widened as it is read, the fp32 / 3xTF32
-//   arithmetic is unchanged, and the epilogue rounds each output to bf16
-//   (__float2bfloat16_rn).  The output is bitwise the fp32 kernel's on the
-//   widened inputs, rounded to bf16.  A bf16 value is exact in tf32, so the
-//   lo half of a widened Q, K or V element is 0 and one or two of the three
-//   products add exact zeros; they are kept, so that the bitwise identity
-//   with the fp32 kernel needs no argument about the tensor core's sums.
-//   Bound at moonshot-v1-16b-a3b's prefill (q = k/v (8, 256, 16, 128),
-//   causal): 4 * D flops a live pair, 2.16 GFLOP, 0.0322 ms of fp32 SIMT,
-//   0.0131 ms in 3xTF32, 0.0022 ms on the bf16 tensor cores; q, k, v and o
-//   in bf16 are 33.6 MB, 0.0100 ms at 3.35 TB/s, the least time.
-//   Shared memory: D = 128, Q 17.4 KB + ring 34.8 KB = 52 KB.
+// - Registers (-Xptxas -v, sm_90a): 211 at D = 64, 184 at
+//   D = 128, no spill.
 #include <climits>
 #include <cstdint>
 
@@ -92,41 +78,36 @@ constexpr int kFlashThreads = 32 * kWarps;
 template <int D>
 __host__ __device__ constexpr int kv_tile() { return D == 64 ? 64 : 32; }
 
-// elements of Elt (float or bf16) in a 16-byte copy; a tile row is padded
-// by one copy
-template <typename Elt>
-__host__ __device__ constexpr int per16() { return 16 / (int)sizeof(Elt); }
+// floats in a 16-byte copy; a tile row is padded by one copy
+constexpr int kPer16 = 4;
 
-template <typename Elt, int D>
+template <int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return (kBQ + 4 * kv_tile<D>()) * (D + per16<Elt>()) * (int)sizeof(Elt);
+  return (kBQ + 4 * kv_tile<D>()) * (D + kPer16) * (int)sizeof(float);
 }
 
-// two neighbouring outputs of a row, rounded to the element type
+// two neighbouring outputs of a row
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
-template <typename Elt, int D>
+template <int D>
 __global__ void __launch_bounds__(kFlashThreads, 2)
-flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
-                       const Elt* __restrict__ v,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const int* __restrict__ kv_valid, int T, int S,
                        int Hq, int Hkv, int causal, int window, int q_offset,
-                       float scale, Elt* __restrict__ o,
+                       float scale, float* __restrict__ o,
                        float* __restrict__ lse) {
   constexpr int BK = kv_tile<D>();
-  constexpr int EL = per16<Elt>();       // elements per 16-byte copy
+  constexpr int EL = kPer16;             // elements per 16-byte copy
   constexpr int LD = D + EL;             // row stride of every tile, elements
   constexpr int CH = D / EL;             // 16-byte chunks per row
   constexpr int NS = BK / 8;             // score n-tiles = P.V k-steps
   constexpr int NO = D / 8;              // output n-tiles = Q.K^T k-steps
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Elt* sQ = reinterpret_cast<Elt*>(smem_raw);   // kBQ x LD
-  Elt* sKV = sQ + kBQ * LD;              // 2 stages x (K, V) x BK x LD
+  float* sQ = reinterpret_cast<float*>(smem_raw);   // kBQ x LD
+  float* sKV = sQ + kBQ * LD;              // 2 stages x (K, V) x BK x LD
 
   // blockIdx.x = (q tiles from the last) x (batch row, q head)
   const int n_qt = (T + kBQ - 1) / kBQ;
@@ -147,7 +128,7 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   const int kb0 = (k_begin / BK) * BK;
   const int n_tiles = k_end > kb0 ? (k_end - kb0 + BK - 1) / BK : 0;
 
-  const Elt* qsrc = q + (((long long)b * T + q0) * Hq + hq) * D;
+  const float* qsrc = q + (((long long)b * T + q0) * Hq + hq) * D;
   for (int e = tid; e < kBQ * CH; e += kFlashThreads) {
     const int i = e / CH, c = e % CH;
     const bool live = i < n_q;
@@ -156,11 +137,11 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
                live ? 16 : 0);
   }
   const long long kv_step = (long long)Hkv * D;   // elements between keys
-  const Elt* ksrc = k + ((long long)b * S * Hkv + hk) * D;
-  const Elt* vsrc = v + ((long long)b * S * Hkv + hk) * D;
+  const float* ksrc = k + ((long long)b * S * Hkv + hk) * D;
+  const float* vsrc = v + ((long long)b * S * Hkv + hk) * D;
   auto load_tile = [&](int kb, int stage) {
-    Elt* sK = sKV + stage * 2 * BK * LD;
-    Elt* sV = sK + BK * LD;
+    float* sK = sKV + stage * 2 * BK * LD;
+    float* sV = sK + BK * LD;
     for (int e = tid; e < BK * CH; e += kFlashThreads) {
       const int j = e / CH, c = e % CH;
       const bool in = kb + j < S;
@@ -172,7 +153,7 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   if (n_tiles > 0) load_tile(kb0, 0);
   cp_async_commit();                     // group 0: Q and the first tile
 
-  const Elt* sQw = sQ + warp * 16 * LD;
+  const float* sQw = sQ + warp * 16 * LD;
   const int qpos0 = q_offset + q0 + warp * 16 + g;   // row of c[0], c[1]
   const int qpos1 = qpos0 + 8;                       // row of c[2], c[3]
   // at D = 64 the Q fragments live in registers (32 hi + 32 lo)
@@ -198,8 +179,8 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
           a_fragment(sQw, LD, ks, g, t, qh[ks], ql[ks]);
       }
     }
-    const Elt* sK = sKV + stage * 2 * BK * LD;
-    const Elt* sV = sK + BK * LD;
+    const float* sK = sKV + stage * 2 * BK * LD;
+    const float* sV = sK + BK * LD;
 
     // scores of the warp's 16 rows against the tile's BK keys
     float s[NS][4];
@@ -219,10 +200,10 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
       }
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        const Elt* kr = sK + (n * 8 + g) * LD + ks * 8 + t;
+        const float* kr = sK + (n * 8 + g) * LD + ks * 8 + t;
         uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(to_f32(kr[0]), bh0, bl0);
-        split_tf32(to_f32(kr[4]), bh1, bl1);
+        split_tf32(kr[0], bh0, bl0);
+        split_tf32(kr[4], bh1, bl1);
         mma_3xtf32(s[n], ah, al, bh0, bh1, bl0, bl1);
       }
     }
@@ -289,12 +270,12 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
       split_tf32(s[ks][2], ah[1], al[1]);
       split_tf32(s[ks][1], ah[2], al[2]);
       split_tf32(s[ks][3], ah[3], al[3]);
-      const Elt* v0 = sV + (ks * 8 + 2 * t) * LD + g;
+      const float* v0 = sV + (ks * 8 + 2 * t) * LD + g;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(to_f32(v0[n * 8]), bh0, bl0);
-        split_tf32(to_f32(v0[LD + n * 8]), bh1, bl1);
+        split_tf32(v0[n * 8], bh0, bl0);
+        split_tf32(v0[LD + n * 8], bh1, bl1);
         mma_3xtf32(acc[n], ah, al, bh0, bh1, bl0, bl1);
       }
     }
@@ -313,7 +294,7 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
 
   // each warp stages its 16 rows in its own rows of the Q tile
   const float d0 = fmaxf(l[0], 1e-20f), d1 = fmaxf(l[1], 1e-20f);
-  Elt* sO = sQ + warp * 16 * LD;
+  float* sO = sQ + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     store2(sO + g * LD + n * 8 + 2 * t, acc[n][0] / d0, acc[n][1] / d0);
@@ -330,19 +311,19 @@ flash_attention_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
   }
 }
 
-template <typename Elt, int D>
-int launch(const Elt* q, const Elt* k, const Elt* v, const int* kv_valid,
+template <int D>
+int launch(const float* q, const float* k, const float* v, const int* kv_valid,
            int B, int T, int S, int Hq, int Hkv, int causal, int window,
-           int q_offset, float scale, Elt* o, float* lse,
+           int q_offset, float scale, float* o, float* lse,
            cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<Elt, D>();
-  static bool configured = false;   // the attributes are set once per type and D
+  constexpr int bytes = smem_bytes<D>();
+  static bool configured = false;   // the attributes are set once per D
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<Elt, D>,
+        flash_attention_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_attention_kernel<Elt, D>,
+      err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
@@ -350,31 +331,10 @@ int launch(const Elt* q, const Elt* k, const Elt* v, const int* kv_valid,
   }
   const long long blocks = (long long)((T + kBQ - 1) / kBQ) * Hq * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<Elt, D><<<(unsigned)blocks, kFlashThreads, bytes,
-                                 stream>>>(
+  flash_attention_kernel<D><<<(unsigned)blocks, kFlashThreads, bytes, stream>>>(
       q, k, v, kv_valid, T, S, Hq, Hkv, causal, window, q_offset, scale,
       o, lse);
   return (int)cudaGetLastError();
-}
-
-template <typename Elt>
-int dispatch(const Elt* q, const Elt* k, const Elt* v, const int* kv_valid, int B,
-             int T, int S, int Hq, int Hkv, int D, int causal, int window,
-             int q_offset, float scale, Elt* o, float* lse, void* stream) {
-  if (B < 0 || T < 0 || S < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || T == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<Elt, 64>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal,
-                           window, q_offset, scale, o, lse, st);
-    case 128:
-      return launch<Elt, 128>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal,
-                            window, q_offset, scale, o, lse, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -385,15 +345,18 @@ extern "C" int flash_attention_launch(const float* q, const float* k,
                                       int D, int causal, int window,
                                       int q_offset, float scale, float* o,
                                       float* lse, void* stream) {
-  return dispatch(q, k, v, kv_valid, B, T, S, Hq, Hkv, D, causal, window,
-                  q_offset, scale, o, lse, stream);
-}
-
-extern "C" int flash_attention_bf16_launch(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const int* kv_valid, int B, int T, int S, int Hq, int Hkv, int D,
-    int causal, int window, int q_offset, float scale, __nv_bfloat16* o,
-    float* lse, void* stream) {
-  return dispatch(q, k, v, kv_valid, B, T, S, Hq, Hkv, D, causal, window,
-                  q_offset, scale, o, lse, stream);
+  if (B < 0 || T < 0 || S < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal, window,
+                        q_offset, scale, o, lse, st);
+    case 128:
+      return launch<128>(q, k, v, kv_valid, B, T, S, Hq, Hkv, causal, window,
+                         q_offset, scale, o, lse, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -69,16 +69,16 @@ __device__ __forceinline__ void split_as(float x, uint32_t& hi, uint32_t& lo) {
 
 // The A fragment of a row-major tile for k-step ks, split: rows g and
 // g + 8 of the warp's 16 (sw points at its first), columns 8 ks + t and
-// 8 ks + t + 4; a bf16 tile's elements are widened to fp32 first.
-template <bool FAST = false, typename Elt>
-__device__ __forceinline__ void a_fragment(const Elt* sw, int ld, int ks,
+// 8 ks + t + 4.
+template <bool FAST = false>
+__device__ __forceinline__ void a_fragment(const float* sw, int ld, int ks,
                                            int g, int t, uint32_t (&h)[4],
                                            uint32_t (&l)[4]) {
-  const Elt* p = sw + g * ld + ks * 8 + t;
-  split_as<FAST>(to_f32(p[0]), h[0], l[0]);
-  split_as<FAST>(to_f32(p[8 * ld]), h[1], l[1]);
-  split_as<FAST>(to_f32(p[4]), h[2], l[2]);
-  split_as<FAST>(to_f32(p[8 * ld + 4]), h[3], l[3]);
+  const float* p = sw + g * ld + ks * 8 + t;
+  split_as<FAST>(p[0], h[0], l[0]);
+  split_as<FAST>(p[8 * ld], h[1], l[1]);
+  split_as<FAST>(p[4], h[2], l[2]);
+  split_as<FAST>(p[8 * ld + 4], h[3], l[3]);
 }
 
 // 4-byte asynchronous copy (cp.async.ca): reads src_bytes (0 or 4) and

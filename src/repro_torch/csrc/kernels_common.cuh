@@ -1,5 +1,4 @@
-// Shared by the port's CUDA kernels: the widening of an element to fp32
-// and the rounding back, the launch shape, the static channel
+// Shared by the port's CUDA kernels: the launch shape, the static channel
 // permutation passed by value, the SM count, the nearest-center scan, the
 // 16-byte asynchronous copy, and the error string the Python wrappers
 // report.
@@ -10,23 +9,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-
-// The bf16 halves of the kernels load bf16, widen to fp32, run the fp32
-// arithmetic and round only their outputs (round to nearest even, as
-// torch's .to(torch.bfloat16)).
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 constexpr int kMaxChannels = 64;   // C of the fused pass and the permute
 constexpr int kMaxCenters = 16;    // L of the codebook

@@ -3,9 +3,10 @@
 Each ``repro_torch/csrc/<name>.cu`` is compiled by nvcc for ``sm_90a`` into
 its own shared library with a plain C interface, at first use, and loaded
 with ``ctypes``.  A library may export more than one entry point: the
-bf16 halves of RMSNorm, flash attention and decode attention
-(``<name>_bf16_launch``) live in their fp32 kernel's source, each a
-``CudaKernel`` of its own with its own launch count.  A library is named by a hash of the sources and flags,
+bf16 halves of RMSNorm and decode attention (``<name>_bf16_launch``) live
+in their fp32 kernel's source, each a ``CudaKernel`` of its own with its
+own launch count; flash attention's bf16 half, a kernel of another
+design, has a source of its own (``flash_attention_bf16.cu``).  A library is named by a hash of the sources and flags,
 under ``build/kernels/`` at the repository root, so an edited source is
 rebuilt and an unchanged one is not.  Nothing here runs when a module is
 imported: the first CUDA tensor handed to a kernel wrapper builds it.

@@ -1,14 +1,14 @@
 """Launch wrappers of the flash-attention CUDA kernels
-(csrc/flash_attention.cu and its gradient,
-csrc/flash_attention_backward.cu).
+(csrc/flash_attention.cu, its bf16 half csrc/flash_attention_bf16.cu, and
+its gradient, csrc/flash_attention_backward.cu).
 
 The forward replaces ``repro.kernels.attention.kernel.flash_attention_tpu``
 with the contract of the jnp ``repro.nn.attention.flash_attention`` that
-the JAX model calls, in float32 (``flash_attention_launch``) and in bf16
-(``flash_attention_bf16_launch``, a launch count of its own); the
-backward has no TPU counterpart (the JAX model differentiates that jnp
-function) and takes float32 only.  The source notes in the .cu give
-bounds and designs.
+the JAX model calls, in float32 (``flash_attention_launch``, 3xTF32) and
+in bf16 (``flash_attention_bf16_launch``, the bf16 tensor cores, a library
+and a launch count of its own); the backward has no TPU counterpart (the
+JAX model differentiates that jnp function) and takes float32 only.  The
+source notes in the .cu give bounds and designs.
 """
 from __future__ import annotations
 
@@ -28,8 +28,7 @@ from repro_torch.kernels._build import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FORWARD_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P]
 KERNEL = CudaKernel("flash_attention", _FORWARD_ARGS)
-KERNEL_BF16 = CudaKernel("flash_attention_bf16", _FORWARD_ARGS,
-                         library="flash_attention")
+KERNEL_BF16 = CudaKernel("flash_attention_bf16", _FORWARD_ARGS)
 BACKWARD = CudaKernel("flash_attention_backward", [_P] * 8 + [_I] * 9
                       + [ctypes.c_float, _P, _P, _P])
 HEAD_DIMS = (64, 128)
@@ -70,12 +69,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); contiguous, 16-byte aligned,
     all float32 or all bfloat16, on one CUDA device, D in (64, 128), Hq a
     multiple of Hkv.  kv_valid_len: optional (B,) integer count of live
-    keys per row.  Returns (B, T, Hq, D) in q's dtype (bf16: the float32
-    kernel's arithmetic on the widened inputs, bitwise, rounded at the
-    end), and with ``return_lse`` also each row's log-sum-exp of its
+    keys per row.  Returns (B, T, Hq, D) in q's dtype (float32: 3xTF32
+    products, within 2e-5 of the plain version; bf16: bf16 products summed
+    in fp32, P rounded to bf16 before P.V, within 3e-2 of the plain
+    version), and with ``return_lse`` also each row's log-sum-exp of its
     scaled live scores, (B, Hq, T) float32 (-inf for a row with no live
-    key); the output is bitwise the same either way.  Raises ValueError on
-    any other input; a misaligned view is refused, not copied."""
+    key); the output is bitwise the same either way, and from call to
+    call.  Raises ValueError on any other input; a misaligned view is
+    refused, not copied."""
     _check_qkv(q, k, v)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]

@@ -3,7 +3,7 @@ gradient, csrc/rmsnorm_backward.cu).
 
 The forward replaces ``repro.kernels.rmsnorm.kernel.rmsnorm_tpu``, in
 float32 (``rmsnorm_launch``) and in bf16 (``rmsnorm_bf16_launch``, a
-launch count of its own); the backward has no TPU counterpart (the JAX
+kernel and a launch count of its own in the same library); the backward has no TPU counterpart (the JAX
 model differentiates its jnp ``rmsnorm_apply``) and takes float32 only.
 The source notes in the .cu give bounds and designs.
 """
@@ -44,9 +44,10 @@ def _check(x, scale, dtypes=FORWARD_DTYPES):
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: (N, d) contiguous float32 or bfloat16 CUDA rows, any N, d <= 8192;
     scale: (d,) of x's dtype on the same device.  Returns (N, d) in x's
-    dtype: bf16 is widened to fp32, normalised in fp32 and rounded at the
-    end (bitwise the float32 kernel on the widened inputs, rounded).
-    Raises ValueError on any other input."""
+    dtype: bf16 is widened to fp32, normalised in fp32 and rounded once at
+    the end (its own kernel, within 2e-2 of the plain version; the sum of
+    squares in another order than the float32 kernel's).  Bitwise the same
+    from call to call.  Raises ValueError on any other input."""
     _check(x, scale)
     y = torch.empty_like(x)
     kernel = KERNEL if x.dtype == torch.float32 else KERNEL_BF16

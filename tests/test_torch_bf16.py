@@ -2,7 +2,9 @@
 decode attention (what the kernels' bf16 halves are held against on the
 card) against the JAX package's Pallas kernels in interpret mode (flash,
 RMSNorm) and its dense decode oracle (the Pallas decode kernel does not
-run under this JAX); parameters drawn in a config's dtype; the backward
+run under this JAX); the bf16 flash kernel's arithmetic (P rounded to
+bf16 per 64-key tile) emulated against the same Pallas flash kernel;
+parameters drawn in a config's dtype; the backward
 kernels refusing bf16; and a reduced moonshot-v1-16b-a3b in bfloat16 on
 both sides.
 
@@ -21,6 +23,7 @@ Tolerances, each with its reason:
 - init: bitwise (the same float32 draws, cast).
 """
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -75,6 +78,55 @@ def test_plain_bf16_flash_matches_jax_pallas(B, T, Hq, Hkv, D, window):
     ref = jax_flash_op(qj, kj, vj, causal=True, window=window, interpret=True)
     assert ref.dtype == jnp.bfloat16
     _close(flash_attention_op(qt, kt, vt, causal=True, window=window), ref, ATTN_TOL)
+
+
+def _flash_p_bf16(q, k, v, *, causal=True, window=0, tile=64):
+    """The bf16 flash kernel's numerics (csrc/flash_attention_bf16.cu) in
+    plain torch: scores of the widened bf16 inputs in float32 (each product
+    exact), an online softmax in the log2 domain over 64-key tiles, P
+    rounded to bf16 before P.V and the row sum l taken over the unrounded
+    P, the output divided by max(l, 1e-20) and rounded to bf16."""
+    B, T, Hq, D = q.shape
+    S, G = k.shape[1], Hq // k.shape[2]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(G, 2) for t in (k, v))
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    qp = torch.arange(T)[:, None]
+    m = torch.full((B, Hq, T), -math.inf)
+    l = torch.zeros(B, Hq, T)
+    acc = torch.zeros(B, Hq, T, D)
+    for kb in range(0, S, tile):
+        kp = torch.arange(kb, min(kb + tile, S))[None, :]
+        live = torch.ones(T, kp.shape[1], dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window > 0:
+            live &= kp > qp - window
+        s = torch.einsum("bthd,bshd->bhts", qf, kf[:, kb:kb + tile])
+        s = torch.where(live, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1) * sl2)
+        nm = torch.where(torch.isinf(m_new), 0.0, -m_new)
+        corr = torch.exp2(m + nm)
+        p = torch.exp2(s * sl2 + nm[..., None])
+        l = corr * l + p.sum(-1)
+        pv = torch.einsum("bhts,bshd->bhtd", p.to(BF16).float(), vf[:, kb:kb + tile])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l.clamp(min=1e-20)[..., None]).transpose(1, 2).to(BF16)
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv,D,window", [(1, 128, 4, 2, 64, 0), (2, 100, 4, 1, 64, 32),
+                                                 (1, 64, 4, 4, 128, 0)])
+def test_bf16_flash_p_rounding_matches_jax_pallas(B, T, Hq, Hkv, D, window):
+    """The bf16 kernel rounds P to bf16 before P.V, where the TPU kernel
+    keeps it in fp32: on the inputs of the test above, that arithmetic
+    (``_flash_p_bf16``) stays within the JAX package's bf16 bar of its
+    Pallas kernel in interpret mode.  Only the card runs the kernel."""
+    qj, qt = _both(_normal((B, T, Hq, D), 1))
+    kj, kt = _both(_normal((B, T, Hkv, D), 2))
+    vj, vt = _both(_normal((B, T, Hkv, D), 3))
+    ref = jax_flash_op(qj, kj, vj, causal=True, window=window, interpret=True)
+    _close(_flash_p_bf16(qt, kt, vt, causal=True, window=window), ref, ATTN_TOL)
 
 
 @pytest.mark.parametrize("shape", [(3, 5, 256), (2, 128), (1, 9, 384), (4, 2048)])

@@ -14,10 +14,11 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 # every kernel of the port, by the name of its csrc/<name>.cu
 KERNEL_NAMES = ["decode_attention", "flash_attention", "flash_attention_backward",
-                "offload_fused", "quantize", "rmsnorm", "rmsnorm_backward",
-                "topk_split"]
-# the bf16 halves: entry points of their fp32 kernels' libraries
-BF16_NAMES = ["decode_attention_bf16", "flash_attention_bf16", "rmsnorm_bf16"]
+                "flash_attention_bf16", "offload_fused", "quantize", "rmsnorm",
+                "rmsnorm_backward", "topk_split"]
+# the bf16 halves that are entry points of their fp32 kernels' libraries
+# (flash attention's has a source of its own, in KERNEL_NAMES)
+BF16_NAMES = ["decode_attention_bf16", "rmsnorm_bf16"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -136,6 +137,8 @@ flash_attention_op(q, kv, kv, window=4, kv_valid_len=torch.tensor([9, 3]))
 decode_attention_op(q[:, :1], kv, kv, torch.tensor([9, 3]))
 assert sorted(b.KERNELS) == sorted(KERNEL_NAMES + BF16_NAMES), sorted(b.KERNELS)
 assert b.sources() == KERNEL_NAMES, b.sources()
+assert all(b.KERNELS[n].library == n for n in KERNEL_NAMES)
+assert all(b.KERNELS[n].library == n[:-len("_bf16")] for n in BF16_NAMES)
 assert all(k._lib is None and k.launches == 0 for k in b.KERNELS.values())
 print("ok")
 """

@@ -238,8 +238,15 @@ def test_conv_function_gradcheck_and_gradgradcheck(stride, groups, H, bias):
     def f(x, w, *b):
         return torch.tanh(_Conv2d.apply(x, w, b[0] if b else None, stride, groups))
 
-    assert torch.autograd.gradcheck(f, args)
-    assert torch.autograd.gradgradcheck(f, args)
+    # one thread: these tiny float64 convs gain nothing from torch's pool,
+    # and under several test workers each pool oversubscribes the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(f, args)
+        assert torch.autograd.gradgradcheck(f, args)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_conv_second_derivative_is_one_grouped_call():
