@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
      sources at once; print registers and spills, and check that flash
      attention's SASS and its backward's hold tensor-core products (HMMA)
      and asynchronous copies (LDGSTS), flash's bf16 half warpgroup
-     products (HGMMA), that RMSNorm loads and stores 16 bytes at a time,
+     products (HGMMA), its bf16 backward HMMA, LDGSTS and ldmatrix
+     (LDSM), that RMSNorm loads and stores 16 bytes at a time,
      and that the permute, the fused offload pass and
      decode attention copy in by LDGSTS and write by 16-byte stores;
   AgileNN offload inference (slice 1):
@@ -224,6 +225,35 @@ Phases, each of which raises on failure:
      torch.profiler; (c) reduced moonshot, mixtral (its window cut to 32)
      and arctic in fp32, the card against the port's CPU: prefill and 4
      decode steps, logits within 1e-4.
+  MoE training in bf16 (slice 14), in a fresh child process
+  (``--moe-train-alone JSON``), started after phase 16's has ended:
+ 17. (a) the bf16 backward kernels: flash at moonshot's training
+     microbatch (q = k/v (2, 4096, 16, 128), causal) and over its contract
+     (D 64 with G = 7, a window, q_offset with T != S, ragged kv_valid_len
+     with a row at 0, not causal with T != S, T and S off the tile): dq,
+     dk and dv each within 3e-2 of the plain version's scale, at most 2x
+     SDPA's bf16 backward's error against float64 (heads expanded), two
+     calls bitwise, a row with no live key and a key no row sees exactly
+     0; RMSNorm at (8192, 2048) and N in {1, 8, 4097} x d in {896, 2048,
+     8192}, bitwise the fp32 kernel on the widened inputs, rounded, two
+     calls bitwise; each timed beside the fp32 kernel on the widened
+     inputs, the plain version, the library call's bf16 backward and the
+     bound, the flash backward's three kernels by torch.profiler; phase 2
+     checks the new SASS holds HMMA, LDGSTS and LDSM; (b) moonshot at full
+     width, its depth cut to MOE_TRAIN_LAYERS of 48, bf16, seed-0 weights
+     drawn on the card, through ``make_train_step`` at T = 4,096, the
+     global batch cut from 256 to 4 (two microbatches of 2): 3 steps, step
+     1 again from the same state bitwise, launches from 0 and exact (remat
+     runs each layer's flash and RMSNorm forwards twice), every gradient
+     leaf finite, the router's and every expert's that took a slot
+     nonzero, the dropped fraction at the training capacity (480 slots an
+     expert), step s, tokens/s, peak, and a profiled step's busy share and
+     device ms by kernel; (c) one value-and-grad of reduced moonshot,
+     mixtral and arctic in fp32 on the card against the port's CPU (loss
+     1e-4 relative, gradients 1e-3 of scale), reduced moonshot in bf16
+     (loss within 3e-2; its top-2 routes can flip on an ulp, so its leaves
+     are reported) and the same model routing to all 4 experts (every leaf
+     within 3e-2 of scale).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -321,11 +351,11 @@ from repro_torch.kernels.quantize.ops import quantize_op  # noqa: E402
 from repro_torch.kernels.quantize.ref import quantize_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda  # noqa: E402
 from repro_torch.kernels.topk_split.ops import channel_permute_op  # noqa: E402
 from repro_torch.kernels.topk_split.ref import channel_permute_ref  # noqa: E402
-from repro_torch.launch.steps import make_train_step, opt_init  # noqa: E402
+from repro_torch.launch.steps import make_train_step, n_microbatches, opt_init  # noqa: E402
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     extractor_apply,
@@ -338,7 +368,7 @@ from repro_torch.nn.activations import swiglu_ffn  # noqa: E402
 from repro_torch.nn.attention import project_qkv  # noqa: E402
 from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.module import param_count  # noqa: E402
-from repro_torch.nn.moe import _pick_group_size  # noqa: E402
+from repro_torch.nn.moe import _pick_group_size, moe_routing  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
 from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
@@ -581,6 +611,33 @@ BF16_OPS_PER_S = 989e12
 # cut to MOE_CPU_WINDOW so that the prompt and its ring cross it
 MOE_REDUCED = ("moonshot-v1-16b-a3b", "mixtral-8x7b", "arctic-480b")
 MOE_CPU_B, MOE_CPU_T, MOE_CPU_DECODE, MOE_CPU_WINDOW, MOE_CPU_TOL = 2, 64, 4, 32, 1e-4
+# slice 14: moonshot-v1-16b-a3b trained in bf16 at full width through
+# make_train_step at train_4k's T = 4,096, the global batch cut from 256 to
+# 4 (two microbatches of 2 x 4,096) and the depth from 48 layers to
+# MOE_TRAIN_LAYERS (its optimizer state at 48 layers does not fit one
+# card: a step holds about 12 B a parameter; at 4 layers step 1 peaked at
+# 36.97 GiB of 79.2 on an H100, more than half free, so 6); MOE_TRAIN_STEPS
+# steps on uniform tokens, in a fresh child process (python3
+# chip_smoke.py --moe-train-alone JSON)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 6, 4096, 4, 3
+MOE_TRAIN_ALONE_TIMEOUT_S = 600
+# the bf16 backward kernels at the training microbatch: flash at q = k/v
+# (2, 4096, 16, 128), causal; RMSNorm at its (8192, 2048) rows
+MOE_TRAIN_FLASH = (2, 4096, 16, 16, 128)
+MOE_TRAIN_RMS = (8192, 2048)
+# the flash backward bf16's contract on the card: (B, T, S, Hq, Hkv, D,
+# causal, window, q_offset, kv_valid_len)
+MOE_TRAIN_FLASH_SWEEP = (
+    (2, 1000, 1000, 14, 2, 64, True, 0, 0, None),      # D 64, G 7, T off the tile
+    (2, 1000, 1000, 16, 16, 128, True, 256, 0, None),  # a window
+    (2, 300, 1000, 16, 16, 128, True, 0, 700, None),   # q_offset, T != S
+    (3, 777, 777, 8, 8, 128, True, 0, 0, (777, 0, 300)),   # ragged rows, one at 0
+    (2, 500, 777, 14, 2, 64, False, 0, 0, None),       # not causal, T != S
+    (2, 130, 190, 14, 2, 64, False, 32, 60, (190, 0)),     # all four, D 64
+)
+MOE_TRAIN_RMS_SWEEP = tuple((N, d) for N in (1, 8, 4097) for d in (896, 2048, 8192))
+# reduced moonshot in bf16, the card against the port's CPU: the bf16 bar
+MOE_TRAIN_BF16_CPU_TOL = 3e-2
 
 
 def check(cond, msg: str) -> None:
@@ -699,6 +756,7 @@ SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
                "flash_attention_bf16": ("HGMMA", "LDGSTS", "STG.E.128"),
                "rmsnorm": ("LDG.E.128", "STG.E.128"),
                "flash_attention_backward": ("HMMA", "LDGSTS"),
+               "flash_attention_backward_bf16": ("HMMA", "LDGSTS", "LDSM"),
                "topk_split": ("LDGSTS", "STG.E.128"),
                "offload_fused": ("LDGSTS", "STG.E.128"),
                "decode_attention": ("LDGSTS", "STG.E.128")}
@@ -970,6 +1028,22 @@ def close_err(out, ref, tol: float, what: str) -> float:
     return err
 
 
+def live_mask(B: int, T: int, S: int, *, causal: bool, window: int, q_offset: int,
+              kv_valid_len=None, device="cuda"):
+    """The flash kernels' live (query, key) pairs, (B, T, S)."""
+    qp = torch.arange(T, device=device)[:, None] + q_offset
+    kp = torch.arange(S, device=device)[None, :]
+    live = torch.ones(T, S, dtype=torch.bool, device=device)
+    if causal:
+        live = live & (kp <= qp)
+    if window > 0:
+        live = live & (kp > qp - window)
+    live = live.expand(B, T, S)
+    if kv_valid_len is not None:
+        live = live & (kp[None] < kv_valid_len.to(device).view(-1, 1, 1))
+    return live
+
+
 def attention64(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
                 kv_valid_len=None):
     """Dense attention in float64 on the widened inputs under flash's whole
@@ -978,16 +1052,8 @@ def attention64(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int 
     T, S, G = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
     q64 = q.double()
     k64, v64 = (t.double().repeat_interleave(G, 2) for t in (k, v))
-    qp = torch.arange(T, device=q.device)[:, None] + q_offset
-    kp = torch.arange(S, device=q.device)[None, :]
-    live = torch.ones(T, S, dtype=torch.bool, device=q.device)
-    if causal:
-        live = live & (kp <= qp)
-    if window > 0:
-        live = live & (kp > qp - window)
-    live = live.expand(q.shape[0], T, S)
-    if kv_valid_len is not None:
-        live = live & (kp[None] < kv_valid_len.to(q.device).view(-1, 1, 1))
+    live = live_mask(q.shape[0], T, S, causal=causal, window=window, q_offset=q_offset,
+                     kv_valid_len=kv_valid_len, device=q.device)
     s = torch.einsum("bthd,bshd->bhts", q64, k64) / q.shape[-1] ** 0.5
     p = torch.softmax(s.masked_fill(~live[:, None], -float("inf")), dim=-1)
     return torch.einsum("bhts,bshd->bthd", p.nan_to_num(0.0), v64), live
@@ -3197,10 +3263,13 @@ def lm_train(cfg, params, card) -> dict:
     return out
 
 
-def lm_vs_cpu(cfg, params, batch=None, what: str = "phase 14c") -> dict:
+def lm_vs_cpu(cfg, params, batch=None, what: str = "phase 14c", *,
+              loss_tol: float = LM_CPU_LOSS_TOL, grad_tol: float | None = LM_CPU_GRAD_TOL) -> dict:
     """forward_loss and every gradient leaf on the card against the port's
     CPU run of the same weights, on ``batch`` (numpy; by default a 2 x 128
-    token batch)."""
+    token batch): the loss within ``loss_tol`` relative, each leaf finite
+    and within ``grad_tol`` of the CPU leaf's largest |value| (None: the
+    distance is reported, not held)."""
     if batch is None:
         rng = np.random.RandomState(14)
         batch = {k: rng.randint(0, cfg.vocab, (2, 128)) for k in ("tokens", "labels")}
@@ -3209,17 +3278,18 @@ def lm_vs_cpu(cfg, params, batch=None, what: str = "phase 14c") -> dict:
         (loss, _), grads = value_and_grad(lambda pp: bb.forward_loss(cfg, pp, batch), p)
         res[where] = (loss.cpu(), [t.cpu() for t in tree_leaves(grads)])
     loss_err = abs(float(res["card"][0]) - float(res["cpu"][0])) / abs(float(res["cpu"][0]))
-    check(loss_err <= LM_CPU_LOSS_TOL,
+    check(loss_err <= loss_tol,
           f"{what}: forward_loss card vs CPU: {loss_err:.3e} relative")
     worst = 0.0
     for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
-        e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        check(e <= LM_CPU_GRAD_TOL, f"{what}: gradient leaf {i} card vs CPU: {e:.3e} of scale")
+        e = (a.double() - b.double()).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        check(bool(torch.isfinite(a).all()) and (grad_tol is None or e <= grad_tol),
+              f"{what}: gradient leaf {i} card vs CPU: {e:.3e} of scale")
         worst = max(worst, e)
     shapes = {k: tuple(v.shape) for k, v in batch.items()}
     print(f"{what}: forward_loss on {shapes} card vs CPU {loss_err:.3e} relative (bar "
-          f"{LM_CPU_LOSS_TOL}); every one of {len(res['cpu'][1])} gradient leaves within "
-          f"{worst:.3e} of its scale (bar {LM_CPU_GRAD_TOL})")
+          f"{loss_tol}); every one of {len(res['cpu'][1])} gradient leaves within "
+          f"{worst:.3e} of its scale (bar {grad_tol or 'none: reported'})")
     return {"loss_rel_err": loss_err, "grad_err": worst}
 
 
@@ -4559,6 +4629,471 @@ def phase_moe(card) -> tuple:
     return rows, moe
 
 
+# ------------------------------------------------------------ slice 14 ---
+def sdpa_graph_bf16(q, k, v, live, plain_causal: bool):
+    """SDPA on bf16 q, k, v (heads first, kv heads expanded) under a
+    gradient: ``is_causal`` where the mask is plain causal, else the live
+    mask, a row with no live key given key 0 (its dO is zeroed, so it adds
+    nothing to any gradient).  Returns the output, the inputs that take
+    the gradient and a function of dO (B, T, Hq, D) that returns (dq, dk,
+    dv) in the kernels' layout, the expanded heads' dk / dv summed in
+    float32 and rounded to bf16 once."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dead = ~live.any(-1)
+    ins = (q.transpose(1, 2).contiguous().requires_grad_(),
+           k.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_(),
+           v.repeat_interleave(G, 2).transpose(1, 2).contiguous().requires_grad_())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if plain_causal:
+        out = sdpa(*ins, is_causal=True)
+    else:
+        mask = live.clone()
+        mask[..., 0] |= dead
+        out = sdpa(*ins, attn_mask=mask[:, None])
+
+    def grads(do):
+        dot = do.masked_fill(dead[..., None, None], 0).transpose(1, 2).contiguous()
+        dq, dk, dv = torch.autograd.grad(out, ins, dot, retain_graph=True)
+
+        def kv(t):
+            return t.transpose(1, 2).float().reshape(B, S, Hkv, G, D).sum(3).to(t.dtype)
+
+        return dq.transpose(1, 2), kv(dk), kv(dv)
+
+    return out, ins, grads
+
+
+def flash_backward_bf16_bars(q, k, v, do, kw, what: str) -> dict:
+    """The bf16 flash backward's bars (phase 17a): dq, dk and dv each
+    within BF16_TOL of the plain version's largest |value| (autograd of
+    the fp32-inside forward on the bf16 inputs); against float64 autograd
+    of dense attention, each at most BF16_LIB_FACTOR x SDPA's bf16
+    backward's error on the same inputs; two calls bitwise; a row with no
+    live key dq = 0 and a key no row sees dk = dv = 0, exactly."""
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_backward_cuda(q, k, v, o, do, lse, **kw)
+    again = flash_attention_backward_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ")
+    check(all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: gradients not finite bf16")
+    B, T, Hq, D = q.shape
+    S = k.shape[1]
+    valid = kw.get("kv_valid_len")
+    live = live_mask(B, T, S, causal=kw["causal"], window=kw["window"],
+                     q_offset=kw["q_offset"], kv_valid_len=valid)
+    rows, seen = live.any(-1), live.any(1)                  # (B, T), (B, S)
+    check(not got[0][~rows].any() and not got[1][~seen].any() and not got[2][~seen].any(),
+          f"{what}: a row with no live key or a key no row sees has a nonzero gradient")
+    plain = flash_attention_backward_ref(q, k, v, o, do, lse, **kw)
+    exact, _ = exact_attention_grads(q, k, v, do, causal=kw["causal"], window=kw["window"],
+                                     q_offset=kw["q_offset"],
+                                     kv_valid_len=None if valid is None else valid.tolist())
+    plain_causal = (kw["causal"] and not kw["window"] and not kw["q_offset"]
+                    and valid is None and T == S)
+    _, _, sdpa_grads = sdpa_graph_bf16(q, k, v, live, plain_causal)
+    lib = sdpa_grads(do)
+    out = {}
+    for name, g, pl, ex, lb in zip(("dq", "dk", "dv"), got, plain, exact, lib):
+        scale = pl.float().abs().max().item()
+        err = (g.double() - pl.double()).abs().max().item()
+        check(err <= BF16_TOL["flash_attention"] * scale,
+              f"{what}: {name} {err:.3e} from the plain version, over "
+              f"{BF16_TOL['flash_attention']} of its scale {scale:.3e}")
+        e64 = (g.double() - ex).abs().max().item()
+        lib64 = (lb.double() - ex).abs().max().item()
+        check(e64 <= BF16_LIB_FACTOR * lib64, f"{what}: {name} {e64:.3e} from float64, "
+              f"SDPA's bf16 backward {lib64:.3e}")
+        out[name] = {"max_abs_err": err, "scale": scale, "err_float64": e64,
+                     "library_err_float64": lib64}
+    del o, lse, got, again, plain, exact, lib
+    return out
+
+
+def flash_backward_bf16_work(B: int, T: int, S: int, Hq: int, Hkv: int, D: int,
+                             pairs: int) -> tuple:
+    """(bytes, operations) of the bf16 flash backward: q, o, dO, k, v read
+    and dq, dk, dv written once at 2 bytes, the log-sum-exp read at 4;
+    10 * D flops a live pair."""
+    return ((4 * B * T * Hq * D + 4 * B * S * Hkv * D) * 2 + B * Hq * T * 4,
+            10 * D * pairs)
+
+
+def moe_train_kernels(card) -> dict:
+    """Phase 17a: the two bf16 backward kernels against their plain
+    versions at moonshot-v1-16b-a3b's training microbatch (flash q = k/v
+    (2, 4096, 16, 128), causal; RMSNorm (8192, 2048)) and over their
+    contracts: flash by ``flash_backward_bf16_bars`` (MOE_TRAIN_FLASH_SWEEP
+    too), RMSNorm bitwise the fp32 kernel on the widened inputs, rounded,
+    two calls bitwise and within BF16_TOL of the plain version (N in {1, 8,
+    4097} x d in {896, 2048, 8192} too).  Each timed by CUDA events beside
+    the fp32 kernel on the widened inputs, the plain version, the library
+    call's bf16 backward (SDPA ``is_causal``; ``F.rms_norm``) and the bound;
+    the flash backward's three kernels by torch.profiler."""
+    gen = torch.Generator(device="cuda").manual_seed(170)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    B, T, Hq, Hkv, D = MOE_TRAIN_FLASH
+    q, k, v, do = randn(B, T, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D), randn(B, T, Hq, D)
+    kw = {"causal": True, "window": 0, "q_offset": 0, "kv_valid_len": None}
+    what = f"phase 17a: flash_attention_backward bf16 at q = k/v {(B, T, Hq, D)}, causal"
+    bars = flash_backward_bf16_bars(q, k, v, do, kw, what)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    wide = widened((q, k, v, o, do))
+    o32, lse32 = flash_attention_cuda(*wide[:3], return_lse=True)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = flash_attention_ref(ql, kl, vl)
+    live = live_mask(B, T, T, causal=True, window=0, q_offset=0)
+    ot, ins_t, _ = sdpa_graph_bf16(q, k, v, live, True)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = B * Hq * T * (T + 1) // 2
+    nbytes, ops = flash_backward_bf16_work(B, T, T, Hq, Hkv, D, pairs)
+    bound_ms, bound_by = bf16_bound(nbytes, ops)
+    flash = {"shape": [B, T, T, Hq, Hkv, D], "bars": bars,
+             "max_abs_err": max(b["max_abs_err"] for b in bars.values()),
+             "ms": time_ms(lambda: flash_attention_backward_cuda(q, k, v, o, do, lse)),
+             "fp32_ms": time_ms(lambda: flash_attention_backward_cuda(
+                 wide[0], wide[1], wide[2], o32, wide[4], lse32), reps=10),
+             "plain_ms": time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                                             retain_graph=True), reps=3),
+             "library_ms": time_ms(lambda: torch.autograd.grad(ot, ins_t, dot,
+                                                               retain_graph=True)),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+             "tc_bound_14d_ms": 14 * D * pairs / BF16_OPS_PER_S * 1e3}
+    split = device_kernels(lambda: flash_attention_backward_cuda(q, k, v, o, do, lse), reps=5,
+                           match="flash_bwd_", flush=True)
+    flash["kernels_us"] = {key.split("flash_bwd_")[1].split("_kernel")[0]: us
+                           for key, (us, n) in split.items()}
+    del q, k, v, do, o, lse, wide, o32, lse32, ql, kl, vl, ol, ot, ins_t, dot
+    torch.cuda.empty_cache()
+
+    sweep = []
+    for Bs, Ts, Ss, Hqs, Hkvs, Ds, causal, window, q_off, valid in MOE_TRAIN_FLASH_SWEEP:
+        q, k, v = randn(Bs, Ts, Hqs, Ds), randn(Bs, Ss, Hkvs, Ds), randn(Bs, Ss, Hkvs, Ds)
+        do = randn(Bs, Ts, Hqs, Ds)
+        skw = {"causal": causal, "window": window, "q_offset": q_off,
+               "kv_valid_len": None if valid is None else torch.tensor(valid, device="cuda")}
+        sbars = flash_backward_bf16_bars(
+            q, k, v, do, skw, f"phase 17a: flash_attention_backward bf16 at "
+            f"{(Bs, Ts, Ss, Hqs, Hkvs, Ds)} causal={causal} window={window} "
+            f"q_offset={q_off} kv_valid_len={valid}")
+        sweep.append({"case": [Bs, Ts, Ss, Hqs, Hkvs, Ds, causal, window, q_off, valid],
+                      **sbars})
+        del q, k, v, do
+    flash["sweep"] = sweep
+    flash["max_abs_err"] = max([flash["max_abs_err"]] + [
+        c[n]["max_abs_err"] for c in sweep for n in ("dq", "dk", "dv")])
+
+    def rms_case(N, d):
+        x, g = randn(N, d) * 2, randn(N, d)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+        got = rmsnorm_backward_cuda(x, scale, g)
+        again = rmsnorm_backward_cuda(x, scale, g)
+        wide = rmsnorm_backward_cuda(x.float(), scale.float(), g.float())
+        torch.cuda.synchronize()
+        what = f"phase 17a: rmsnorm_backward bf16 at ({N}, {d})"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ")
+        check(all(a.dtype == torch.bfloat16 and torch.equal(a, w.to(torch.bfloat16))
+                  for a, w in zip(got, wide)),
+              f"{what}: not bitwise the fp32 kernel on the widened inputs, rounded")
+        err = 0.0
+        for a, pl in zip(got, rmsnorm_backward_ref(x, scale, g)):
+            scl = pl.float().abs().max().item()
+            e = (a.double() - pl.double()).abs().max().item()
+            check(e <= BF16_TOL["rmsnorm"] * scl, f"{what}: {e:.3e} from the plain "
+                  f"version, over {BF16_TOL['rmsnorm']} of its scale {scl:.3e}")
+            err = max(err, e)
+        return (x, scale, g), err
+
+    N, d = MOE_TRAIN_RMS
+    (x, scale, g), err = rms_case(N, d)
+    xr, sr = x.detach().requires_grad_(), scale.detach().requires_grad_()
+    y_ref = rmsnorm_ref(xr, sr)
+    y_lib = torch.nn.functional.rms_norm(xr, (d,), sr, 1e-6)
+    wide = widened((x, scale, g))
+    nbytes, ops = (3 * N * d + 2 * d) * 2, 6 * N * d
+    bound_ms, bound_by = bf16_bound(nbytes, ops)
+    rms = {"shape": [N, d], "bitwise_fp32": True, "max_abs_err": err,
+           "ms": time_ms(lambda: rmsnorm_backward_cuda(x, scale, g)),
+           "fp32_ms": time_ms(lambda: rmsnorm_backward_cuda(*wide)),
+           "plain_ms": time_ms(lambda: torch.autograd.grad(y_ref, (xr, sr), g,
+                                                           retain_graph=True), reps=10),
+           "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, (xr, sr), g,
+                                                             retain_graph=True)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    del x, scale, g, xr, sr, y_ref, y_lib, wide
+    rms_errs = [rms_case(Ns, ds)[1] for Ns, ds in MOE_TRAIN_RMS_SWEEP]
+    rms["sweep_shapes"] = [list(c) for c in MOE_TRAIN_RMS_SWEEP]
+    rms["max_abs_err"] = max([err] + rms_errs)
+    torch.cuda.synchronize()
+    ratios = {n: bars[n]["err_float64"] / max(bars[n]["library_err_float64"], 1e-30)
+              for n in bars}
+    worst_sweep = max(c[n]["err_float64"] / max(c[n]["library_err_float64"], 1e-30)
+                      for c in sweep for n in ("dq", "dk", "dv"))
+    rel = max(c[n]["max_abs_err"] / c[n]["scale"] for c in [bars] + sweep
+              for n in ("dq", "dk", "dv"))
+    print(f"phase 17a: flash_attention_backward bf16 at q = k/v {(B, T, Hq, D)}, causal: "
+          f"|err| vs plain {flash['max_abs_err']:.3e}, at most {rel:.3e} of a gradient's "
+          f"scale (bar {BF16_TOL['flash_attention']}); vs float64 / SDPA bf16 backward's "
+          f"{ {n: round(r, 3) for n, r in ratios.items()} } (bar x{BF16_LIB_FACTOR}), "
+          f"{len(sweep)} sweep cases at most {worst_sweep:.3f}; two calls bitwise; "
+          f"{flash['ms']:.4f} ms (fp32 kernel on the widened inputs {flash['fp32_ms']:.4f}), "
+          f"plain {flash['plain_ms']:.4f}, SDPA bf16 backward {flash['library_ms']:.4f}, "
+          f"bound {flash['bound_ms']:.4f} ({flash['bound_by']}; 14 * D as issued "
+          f"{flash['tc_bound_14d_ms']:.4f}); by torch.profiler (us a call) "
+          f"{ {n: round(u, 1) for n, u in flash['kernels_us'].items()} }  [{card}]")
+    print(f"phase 17a: rmsnorm_backward bf16 at ({N}, {d}) and {len(MOE_TRAIN_RMS_SWEEP)} "
+          f"more shapes: bitwise the fp32 kernel on the widened inputs, rounded; two calls "
+          f"bitwise; |err| vs plain {rms['max_abs_err']:.3e}; {rms['ms']:.4f} ms (fp32 "
+          f"kernel {rms['fp32_ms']:.4f}), plain {rms['plain_ms']:.4f}, F.rms_norm bf16 "
+          f"backward {rms['library_ms']:.4f}, bound {rms['bound_ms']:.4f} "
+          f"({rms['bound_by']})  [{card}]")
+    return {"flash_attention_backward": flash, "rmsnorm_backward": rms}
+
+
+def moe_train_expected(L: int, steps: int) -> dict:
+    """Launches of ``steps`` bf16 train steps of an L-layer model in two
+    microbatches each, by ``lm_expected_launches`` with the bf16 kernels'
+    names."""
+    per = lm_expected_launches(L, 2 * steps)
+    return {f"{n}_bf16": c for n, c in per.items()}
+
+
+def moe_train(card) -> dict:
+    """Phase 17b: moonshot-v1-16b-a3b at full width, its depth cut to
+    MOE_TRAIN_LAYERS, bf16 weights drawn on the card from seed 0, through
+    ``make_train_step`` at train_4k's T: MOE_TRAIN_STEPS steps on uniform
+    tokens, step 1 run twice from the same state (bitwise the same loss,
+    gradient and params), with every launch count set to 0 just before
+    step 1 and read just after the last (exact); every gradient leaf
+    finite (the first step's momentum is its gradient), the router's
+    nonzero in every layer and every expert that took a slot nonzero; the
+    dropped fraction at the training capacity; step s, tokens/s, the first
+    step's peak (its inputs included), and one profiled step's busy share
+    and device ms by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    L, m = cfg.n_layers, cfg.moe
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bb.init_params(cfg, seed=0, gen_device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    check(all(t.dtype == torch.bfloat16 and t.device.type == "cuda" for t in leaves),
+          "phase 17b: a parameter is not bf16 on the card")
+    n_params = param_count(params)
+    shape = InputShape("train_4k", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, "train")
+    n_micro = n_microbatches(cfg, shape)
+    check(n_micro == 2, f"phase 17b: {n_micro} microbatches at d = {cfg.d_model}")
+    step = make_train_step(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    batches = [{k: torch.randint(0, cfg.vocab, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ),
+                                 generator=gen, device="cuda") for k in ("tokens", "labels")}
+               for _ in range(MOE_TRAIN_STEPS + 1)]
+    opt0 = opt_init(params)
+    capacity = min(max(4, int(m.capacity_factor * MOE_TRAIN_SEQ * m.top_k / m.n_experts)),
+                   MOE_TRAIN_SEQ)
+
+    # each MoE call of the first step: its dropped fraction, and the
+    # experts that took a slot, by layer (the router weight's storage)
+    routed, dropped = {}, []
+    moe_apply = bb.moe_apply
+
+    def traced(p, x, **kw):
+        y, aux = moe_apply(p, x, **kw)
+        with torch.no_grad():
+            r = moe_routing(p, x, top_k=kw["top_k"], capacity_factor=kw["capacity_factor"])
+            took = torch.bincount(r["expert"][r["keep"]], minlength=m.n_experts) > 0
+            key = p["router"]["w"].data_ptr()
+            routed[key] = routed.get(key, took) | took
+            dropped.append(float(aux["dropped_fraction"]))
+        return y, aux
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bb.moe_apply = traced
+    try:
+        t0 = time.perf_counter()
+        p, opt, m1 = step(params, opt0, batches[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    finally:
+        bb.moe_apply = moe_apply
+    peak = torch.cuda.max_memory_allocated()       # the step's, its inputs included
+    grads = opt["momentum"]    # zero momentum, no decay: the step's gradient in bf16
+    bad = [i for i, t in enumerate(tree_leaves(grads)) if not bool(torch.isfinite(t).all())]
+    check(not bad, f"phase 17b: gradient leaves {bad} not finite")
+    check(len(routed) == L and len(dropped) == 2 * L * n_micro,
+          f"phase 17b: {len(routed)} MoE layers routed, {len(dropped)} MoE calls")
+    for i, (blk, pb) in enumerate(zip(grads["blocks"], params["blocks"])):
+        took = routed[pb["moe"]["router"]["w"].data_ptr()]
+        moved = torch.stack([blk["moe"][w].flatten(1).abs().amax(1) > 0
+                             for w in ("gate", "up", "down")]).all(0)
+        check(float(blk["moe"]["router"]["w"].abs().max()) > 0,
+              f"phase 17b: layer {i}'s router gradient is 0")
+        check(bool((moved | ~took).all()), f"phase 17b: layer {i}: experts "
+              f"{torch.nonzero(took & ~moved).flatten().tolist()} took slots and got no gradient")
+    n_took = [int(routed[pb["moe"]["router"]["w"].data_ptr()].sum()) for pb in params["blocks"]]
+    del grads
+
+    # step 1 again from the same state, its first outputs kept on the host
+    # meanwhile: bitwise the same loss, gradient (momentum) and params
+    kept = [t.cpu() for t in tree_leaves(p) + tree_leaves(opt)]
+    del p, opt
+    p, opt, m1b = step(params, opt0, batches[0])
+    check(torch.equal(m1b["loss"], m1["loss"])
+          and all(torch.equal(a, b.to(a.device))
+                  for a, b in zip(tree_leaves(p) + tree_leaves(opt), kept)),
+          "phase 17b: step 1 again from the same state is not bitwise the same")
+    del kept, params, opt0
+    losses, host = [float(m1["loss"])], []
+    for i in range(1, MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, mi = step(p, opt, batches[i])
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(mi["loss"]))
+    launches = slice11_counts()
+    check_launches(launches, moe_train_expected(L, MOE_TRAIN_STEPS + 1), "phase 17b")
+    check(all(math.isfinite(x) for x in losses), f"phase 17b: losses {losses}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, opt, mi = step(p, opt, batches[MOE_TRAIN_STEPS])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = profiled_kernels(prof)
+    busy_us = sum(us for us, _ in kernels.values())
+    ours = {"flash_attention_backward_bf16": "flash_bwd_",
+            "flash_attention_bf16": "flash_attention_bf16_kernel",
+            "rmsnorm_backward_bf16": "rmsnorm_backward_kernel<__nv_bfloat16>",
+            "rmsnorm_dscale_bf16": "rmsnorm_dscale_kernel<__nv_bfloat16>",
+            "rmsnorm_bf16": "rmsnorm_bf16_kernel"}
+    by = {}
+    for key, (us, n) in kernels.items():
+        name = next((nm for nm, pat in ours.items() if pat in key), key[:60])
+        cur = by.setdefault(name, [0.0, 0])
+        cur[0] += us / 1e3
+        cur[1] += n
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1][0])[:10])
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    step_s = statistics.median(host)
+    out = {"arch": MOE_ARCH, "layers": L, "params": n_params, "init_s": init_s,
+           "seq_len": MOE_TRAIN_SEQ, "global_batch": MOE_TRAIN_BATCH, "n_micro": n_micro,
+           "capacity": capacity, "dropped_fraction": dropped,
+           "experts_that_took_slots": n_took, "first_step_s": first_s, "step_s": host,
+           "step_s_median": step_s, "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+           "losses": losses, "launches": launches, "profiled_step_s": prof_s,
+           "busy_share": busy_us / 1e3 / (prof_s * 1e3),
+           "ours_ms": {n: by[n] for n in ours if n in by}, "top_kernels_ms": top,
+           "n_kernels": sum(n for _, n in kernels.values())}
+    print(f"phase 17b: {MOE_ARCH} at full width, {L} of 48 layers ({n_params / 1e9:.3f} B "
+          f"params, bf16, drawn on the card in {init_s:.1f} s), make_train_step at T = "
+          f"{MOE_TRAIN_SEQ}, global batch {MOE_TRAIN_BATCH} (cut from 256) in {n_micro} "
+          f"microbatches: step {step_s:.3f} s (median of {len(host)}; first {first_s:.3f} s "
+          f"with the routing traced), {out['tokens_per_s']:.0f} tokens/s, step 1's peak "
+          f"{peak / 2**30:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}; "
+          f"losses {losses}; launches of the {MOE_TRAIN_STEPS + 1} steps "
+          f"{({n: c for n, c in launches.items() if c})} (exact); "
+          f"every gradient leaf finite, the router's nonzero in every layer, every expert "
+          f"that took a slot nonzero (experts that took slots by layer {n_took}); step 1 "
+          f"again from the same state bitwise  [{card}]")
+    print(f"phase 17b: dropped_fraction at the training capacity ({capacity} slots an "
+          f"expert in a {MOE_TRAIN_SEQ}-token group): {min(dropped):.4f}-{max(dropped):.4f} "
+          f"over the first step's {len(dropped)} MoE calls; busy {out['busy_share']:.1%} of a "
+          f"profiled step ({prof_s:.3f} s, {out['n_kernels']} kernels); device ms (launches) "
+          f"of the port's kernels {out['ours_ms']}; top kernels "
+          f"{ {k: [round(v[0], 2), v[1]] for k, v in top.items()} }  [{card}]")
+    del p, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_vs_cpu(card) -> dict:
+    """Phase 17c: one value-and-grad of forward_loss for reduced moonshot,
+    mixtral (its window cut to MOE_CPU_WINDOW) and arctic in fp32 (TF32
+    off) on the card against the port's CPU, as phase 14c; reduced
+    moonshot in bf16: its loss within MOE_TRAIN_BF16_CPU_TOL relative and
+    every gradient leaf finite, the leaves' distance reported (top-2 of 4
+    experts: a token whose 2nd and 3rd router probabilities nearly tie
+    takes another expert when its bf16 activations differ by an ulp, and
+    such flips move whole leaves by up to 19 % of their scale on the CPU
+    alone, kernels emulated against plain); and the same model routing
+    every token to all 4 experts (top_k = n_experts, capacity S: no route
+    can flip) with every leaf within MOE_TRAIN_BF16_CPU_TOL of its scale."""
+    out = {}
+    for name in MOE_REDUCED:
+        cfg = get_config(name).reduced()
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=MOE_CPU_WINDOW)
+        params = tree_to(bb.init_params(cfg, seed=0, device="cpu"), "cuda")
+        with fp32_math():
+            out[name] = lm_vs_cpu(cfg, params, what=f"phase 17c: {cfg.name} fp32")
+    cfg = dataclasses.replace(get_config(MOE_ARCH).reduced(), param_dtype="bfloat16")
+    every = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, top_k=cfg.moe.n_experts))
+    for key, c, tol in ((f"{MOE_ARCH} bf16", cfg, None),
+                        (f"{MOE_ARCH} bf16 top_k = n_experts", every, MOE_TRAIN_BF16_CPU_TOL)):
+        params = tree_to(bb.init_params(c, seed=0, device="cpu"), "cuda")
+        out[key] = lm_vs_cpu(c, params, what=f"phase 17c: {c.name} bf16, top-{c.moe.top_k} "
+                             f"of {c.moe.n_experts}", loss_tol=MOE_TRAIN_BF16_CPU_TOL,
+                             grad_tol=tol)
+    return out
+
+
+def moe_train_alone(card) -> dict:
+    """Phase 17 (a)-(c) in a fresh child process of this script, which
+    prints its lines and writes its numbers to a JSON file
+    (``phase_moe_train``)."""
+    t0 = time.perf_counter()
+    kernels = moe_train_kernels(card)
+    t_a = time.perf_counter() - t0
+    train = moe_train(card)
+    t_b = time.perf_counter() - t0 - t_a
+    vs_cpu = moe_train_vs_cpu(card)
+    return {"kernels": kernels, "train": train, "vs_cpu": vs_cpu,
+            "part_s": {"a": t_a, "b": t_b, "c": time.perf_counter() - t0 - t_a - t_b}}
+
+
+def phase_moe_train(card) -> tuple:
+    """Phase 17: ``moe_train_alone`` in a fresh child process, started
+    after phase 16's child has freed its memory; returns the two bf16
+    backward kernels' rows of the kernels line, the launches of the bf16
+    forwards on its path, and the numbers."""
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_train_alone.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--moe-train-alone", path],
+                       check=True, timeout=MOE_TRAIN_ALONE_TIMEOUT_S)
+        with open(path) as f:
+            mt = json.load(f)
+    mt["phase_s"] = time.perf_counter() - t0
+    rows = []
+    for name, src in (("flash_attention_backward", "src/repro_torch/csrc/flash_attention_backward_bf16.cu"),
+                      ("rmsnorm_backward", "src/repro_torch/csrc/rmsnorm_backward.cu")):
+        c = mt["kernels"][name]
+        replaces = ("src/repro/kernels/attention/kernel.py:78" if name.startswith("flash")
+                    else "src/repro/kernels/rmsnorm/kernel.py:25")
+        rows.append({"name": f"{name}_bf16", "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": mt["train"]["launches"][f"{name}_bf16"],
+                     "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "library_ms": c["library_ms"]})
+    forwards = {n: mt["train"]["launches"][n] for n in ("flash_attention_bf16", "rmsnorm_bf16")}
+    print(f"phase 17: {mt['phase_s']:.1f} s in a child process, by part "
+          f"{ {k: round(v, 1) for k, v in mt['part_s'].items()} }")
+    return rows, forwards, mt
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -4568,6 +5103,9 @@ def main() -> int:
     ap.add_argument("--moe-alone", metavar="JSON",
                     help="only run phase 16 (moonshot-v1-16b-a3b in bf16; the kernels "
                          "built already) and write the numbers here")
+    ap.add_argument("--moe-train-alone", metavar="JSON",
+                    help="only run phase 17 (moonshot-v1-16b-a3b trained in bf16; the "
+                         "kernels built already) and write the numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4586,6 +5124,10 @@ def main() -> int:
     if args.moe_alone:
         with open(args.moe_alone, "w") as f:
             json.dump(moe_alone(card), f)
+        return 0
+    if args.moe_train_alone:
+        with open(args.moe_train_alone, "w") as f:
+            json.dump(moe_train_alone(card), f)
         return 0
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
@@ -4649,6 +5191,10 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], s11_errs.get(row["name"], 0.0))
     moe_rows, moe = phase_moe(card)
     rows += moe_rows
+    mt_rows, mt_forwards, moe_train_numbers = phase_moe_train(card)
+    for row in rows:               # the bf16 forwards' launches on slice 14's path
+        row["launches"] += mt_forwards.get(row["name"], 0)
+    rows += mt_rows
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -4669,10 +5215,12 @@ def main() -> int:
                                    "requests_per_client": GATEWAY_REQS,
                                    "width": GATEWAY_WIDTH, **gw},
                        "train": train, "scheduler": sched, "prefix": prefix,
-                       "lm": lm, "slice11": s11, "moe": moe},
+                       "lm": lm, "slice11": s11, "moe": moe,
+                       "moe_train": moe_train_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s "
-          f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s)")
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s "
+          f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s, "
+          f"phase 17 {moe_train_numbers['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

@@ -16,6 +16,10 @@ numpy.
   the config's dtype.
 - ``agile_lm_params_from_numpy``: an AgileNN-on-tokens tree
   (``core/agile_lm.py``): its backbone as above, the rest as it is.
+- ``backbone_params_to_numpy``: the way back, for a backbone tree of the
+  port (its params, or a gradient tree of the same structure): numpy
+  float32 leaves in the JAX package's layout, layers stacked again, so a
+  test compares ``jax.value_and_grad``'s tree leaf by leaf.
 """
 from __future__ import annotations
 
@@ -98,4 +102,35 @@ def agile_lm_params_from_numpy(tree, cfg, device=None):
     device = resolve_device(device)
     out = {k: _leaves_to(v, device) for k, v in tree.items() if k != "backbone"}
     out["backbone"] = backbone_params_from_numpy(tree["backbone"], cfg, device)
+    return out
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def backbone_params_to_numpy(tree, cfg) -> dict:
+    """A backbone tree of the port (``backbone_params_from_numpy``'s
+    layout: params or gradients) in the JAX package's layout, every leaf a
+    numpy array, floating point widened to float32 (a bf16 leaf exactly):
+    ``"blocks"`` becomes one dict per sublayer of a superblock with each
+    leaf stacked over superblocks (an enc-dec's ``"encoder"`` and
+    ``"blocks"`` one dict each, stacked over layers)."""
+    specs = sublayer_specs(cfg)
+    stacked = ("encoder", "blocks")
+    out = {k: _numpy(v) for k, v in tree.items() if k not in stacked}
+    layers = {k: [_numpy(p) for p in tree[k]] for k in stacked if k in tree}
+    if cfg.encdec is not None:
+        return {**out, **{k: _stack(v) for k, v in layers.items()}}
+    per = len(specs)
+    out["blocks"] = [_stack(layers["blocks"][j::per]) for j in range(per)]
     return out

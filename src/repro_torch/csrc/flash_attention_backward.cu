@@ -119,23 +119,7 @@ namespace {
 constexpr int kBwdWarps = 4;            // each owns one m16 row group
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kTile = 16 * kBwdWarps;   // keys of a dK/dV block, rows of dQ's
-constexpr int kDotThreads = 256;
 constexpr int kPartial = 8;             // n-tiles of a tile's partial sum
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Mask {   // which keys a query position sees
-  int valid, causal, window;
-  __device__ __forceinline__ bool live(int qp, int kp) const {
-    return kp < valid && (!causal || kp <= qp) &&
-           (window <= 0 || kp > qp - window);
-  }
-};
-
-// a row's log-sum-exp as P = exp(x - lse) reads it: +inf for a row with no
-// live key (-inf) or past T, so P is exactly 0 there
-__device__ __forceinline__ float row_lse(float l, bool in_range) {
-  return in_range && l != -CUDART_INF_F ? l : CUDART_INF_F;
-}
 
 // c = A B over one tile, in 3xTF32 from c = 0: A is the C fragments of
 // NK score n-tiles (P^T, dS^T or dS: row g holds columns 2t, 2t + 1 of
@@ -176,27 +160,6 @@ __device__ __forceinline__ void add_partial(float (&acc)[NO][4],
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n0 + n][e] += c[n][e];
-}
-
-template <int D>
-__global__ void __launch_bounds__(kDotThreads)
-flash_bwd_dot_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                     long long n_rows, int T, int Hq, float* __restrict__ dvec) {
-  const long long row = (long long)blockIdx.x * (kDotThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  float s = 0.0f;
-#pragma unroll
-  for (int d = lane; d < D; d += 32) s = fmaf(o[row * D + d], dout[row * D + d], s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {   // row = (b * T + t) * Hq + h  ->  dvec[(b * Hq + h) * T + t]
-    const long long bt = row / Hq;
-    const int h = (int)(row % Hq);
-    const long long b = bt / T;
-    const int t = (int)(bt % T);
-    dvec[(b * Hq + h) * T + t] = s;
-  }
 }
 
 template <int D, int BQ>
@@ -540,19 +503,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  configured = err == cudaSuccess;
-  return err;
-}
-
 // KQ: q rows of a dK/dV q tile; QK: keys of a dQ KV tile
 template <int D, int KQ, int QK>
 int launch(const float* q, const float* k, const float* v, const float* o,
@@ -574,7 +524,7 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const long long q_blocks = (long long)((T + kTile - 1) / kTile) * Hq * B;
   if (dot_blocks > INT_MAX || kv_blocks > INT_MAX || q_blocks > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  flash_bwd_dot_kernel<D><<<(unsigned)dot_blocks, kDotThreads, 0, st>>>(
+  flash_bwd_dot_kernel<D, float><<<(unsigned)dot_blocks, kDotThreads, 0, st>>>(
       o, dout, rows, T, Hq, dvec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,9 @@
 // Shared by the flash-attention forward (flash_attention.cu) and its
-// backward (flash_attention_backward.cu): fp32 products on the tensor cores
-// in 3xTF32, and the 4-byte asynchronous copy of the backward's row
-// statistics.
+// backward (flash_attention_backward.cu and its bf16 half,
+// flash_attention_backward_bf16.cu): fp32 products on the tensor cores in
+// 3xTF32, the 4-byte asynchronous copy of the backward's row statistics,
+// the backward's mask, its reading of the log-sum-exp, its dvec kernel and
+// the shared-memory attribute its launches set.
 //
 // A plain TF32 product keeps 10 mantissa bits, too few for the fp32 bars
 // the kernels are held to, so each fp32 operand x is split into
@@ -89,4 +91,60 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes)
                : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDotThreads = 256;   // flash_bwd_dot_kernel: a warp a row
+
+struct Mask {   // which keys a query position sees
+  int valid, causal, window;
+  __device__ __forceinline__ bool live(int qp, int kp) const {
+    return kp < valid && (!causal || kp <= qp) &&
+           (window <= 0 || kp > qp - window);
+  }
+};
+
+// a row's log-sum-exp as P = exp(x - lse) reads it: +inf for a row with no
+// live key (-inf) or past T, so P is exactly 0 there
+__device__ __forceinline__ float row_lse(float l, bool in_range) {
+  return in_range && l != -CUDART_INF_F ? l : CUDART_INF_F;
+}
+
+// dvec = rowsum(dO * O) in fp32, one warp per row of o / dO (rows
+// (b * T + t) * Hq + h of D elements), written as dvec (B, Hq, T)
+template <int D, typename T>
+__global__ void __launch_bounds__(kDotThreads)
+flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     long long n_rows, int T_, int Hq, float* __restrict__ dvec) {
+  const long long row = (long long)blockIdx.x * (kDotThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  float s = 0.0f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32)
+    s = fmaf(widen(o[row * D + d]), widen(dout[row * D + d]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {   // row = (b * T + t) * Hq + h  ->  dvec[(b * Hq + h) * T + t]
+    const long long bt = row / Hq;
+    const int h = (int)(row % Hq);
+    const long long b = bt / T_;
+    const int t = (int)(bt % T_);
+    dvec[(b * Hq + h) * T_ + t] = s;
+  }
+}
+
+// the dynamic shared memory a kernel may take (and the largest carveout),
+// set once per instantiation
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  configured = err == cudaSuccess;
+  return err;
 }

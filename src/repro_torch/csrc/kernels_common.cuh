@@ -1,7 +1,7 @@
 // Shared by the port's CUDA kernels: the launch shape, the static channel
 // permutation passed by value, the SM count, the nearest-center scan, the
-// 16-byte asynchronous copy, and the error string the Python wrappers
-// report.
+// 16-byte asynchronous copy, the widening of an element to fp32, and the
+// error string the Python wrappers report.
 // Each .cu that includes this header is built into a shared library of its
 // own (repro_torch/kernels/_build.py).
 #pragma once
@@ -89,6 +89,11 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// an element widened to fp32 as it is loaded: the bf16 halves of the
+// templated kernels run their fp32 arithmetic on the widened values
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -3,10 +3,11 @@
 Each ``repro_torch/csrc/<name>.cu`` is compiled by nvcc for ``sm_90a`` into
 its own shared library with a plain C interface, at first use, and loaded
 with ``ctypes``.  A library may export more than one entry point: the
-bf16 halves of RMSNorm and decode attention (``<name>_bf16_launch``) live
-in their fp32 kernel's source, each a ``CudaKernel`` of its own with its
-own launch count; flash attention's bf16 half, a kernel of another
-design, has a source of its own (``flash_attention_bf16.cu``).  A library is named by a hash of the sources and flags,
+bf16 halves of RMSNorm, its backward and decode attention
+(``<name>_bf16_launch``) live in their fp32 kernel's source, each a
+``CudaKernel`` of its own with its own launch count; flash attention's
+bf16 halves, kernels of another design, have sources of their own
+(``flash_attention_bf16.cu``, ``flash_attention_backward_bf16.cu``).  A library is named by a hash of the sources and flags,
 under ``build/kernels/`` at the repository root, so an edited source is
 rebuilt and an unchanged one is not.  Nothing here runs when a module is
 imported: the first CUDA tensor handed to a kernel wrapper builds it.
@@ -123,21 +124,9 @@ def check_operand(t, what: str, dtype, device=None) -> None:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
 
 
-# the element types of the forward kernels, and where their backward
-# kernels' bf16 halves wait
-FORWARD_DTYPES = (torch.float32, torch.bfloat16)
-BF16_BACKWARD_ITEM = ("ROADMAP Queue 1 item 6(d) (MoE training, with the "
-                      "bf16 backward kernels)")
-
-
-def refuse_bf16_backward(t, what: str) -> None:
-    """Raise NotImplementedError for a bf16 tensor handed to a backward
-    kernel, or to a forward under a gradient: the backward kernels take
-    float32 only."""
-    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: the backward kernels take float32; their bf16 halves "
-            f"wait for {BF16_BACKWARD_ITEM}")
+# the element types of the flash attention, RMSNorm and decode attention
+# kernels (forward and backward): a float32 half and a bf16 half each
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_aligned(t, what: str) -> None:

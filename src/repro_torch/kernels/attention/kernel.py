@@ -1,14 +1,18 @@
 """Launch wrappers of the flash-attention CUDA kernels
 (csrc/flash_attention.cu, its bf16 half csrc/flash_attention_bf16.cu, and
-its gradient, csrc/flash_attention_backward.cu).
+their gradients, csrc/flash_attention_backward.cu and
+csrc/flash_attention_backward_bf16.cu).
 
 The forward replaces ``repro.kernels.attention.kernel.flash_attention_tpu``
 with the contract of the jnp ``repro.nn.attention.flash_attention`` that
 the JAX model calls, in float32 (``flash_attention_launch``, 3xTF32) and
 in bf16 (``flash_attention_bf16_launch``, the bf16 tensor cores, a library
 and a launch count of its own); the backward has no TPU counterpart (the
-JAX model differentiates that jnp function) and takes float32 only.  The
-source notes in the .cu give bounds and designs.
+JAX model differentiates that jnp function) and has the same two halves
+(``flash_attention_backward_launch``, 3xTF32, and
+``flash_attention_backward_bf16_launch``, the bf16 tensor cores), each
+with its own library and launch count.  The source notes in the .cu give
+bounds and designs.
 """
 from __future__ import annotations
 
@@ -18,23 +22,25 @@ import math
 import torch
 
 from repro_torch.kernels._build import (
-    FORWARD_DTYPES,
+    KERNEL_DTYPES,
     CudaKernel,
     check_aligned,
     check_operand,
-    refuse_bf16_backward,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FORWARD_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P]
 KERNEL = CudaKernel("flash_attention", _FORWARD_ARGS)
 KERNEL_BF16 = CudaKernel("flash_attention_bf16", _FORWARD_ARGS)
-BACKWARD = CudaKernel("flash_attention_backward", [_P] * 8 + [_I] * 9
-                      + [ctypes.c_float, _P, _P, _P])
+_BACKWARD_ARGS = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P, _P, _P]
+BACKWARD = CudaKernel("flash_attention_backward", _BACKWARD_ARGS)
+BACKWARD_BF16 = CudaKernel("flash_attention_backward_bf16", _BACKWARD_ARGS)
 HEAD_DIMS = (64, 128)
 
 
-def _check_qkv(q, k, v, dtypes=FORWARD_DTYPES):
+def _check_qkv(q, k, v, more=()):
+    """q, k, v (and ``more``, (name, tensor) pairs of q's shape) as the
+    kernels take them."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, T, Hq, D) and k, v (B, S, Hkv, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -43,10 +49,28 @@ def _check_qkv(q, k, v, dtypes=FORWARD_DTYPES):
     if D not in HEAD_DIMS or k.shape[0] != B or k.shape[3] != D or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"the kernel takes D in {HEAD_DIMS} and Hq a multiple "
                          f"of Hkv, got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    check_operand(q, "q", dtypes, q.device)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(t, name, q.dtype, q.device)
+    for name, t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must be q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
+    _check_operands(q, (("k", k), ("v", v), *more))
+
+
+def _check_operands(q, rest) -> None:
+    """q and the ``rest`` ((name, tensor) pairs) as the kernels take them:
+    the dtypes first (q float32 or bf16, the rest q's), then 16-byte
+    alignment, then device and layout, so each refusal names its first
+    cause; all raise ValueError before any device work."""
+    pairs = (("q", q), *rest)
+    for name, t in pairs:
+        want = KERNEL_DTYPES if t is q else (q.dtype,)
+        if t.dtype not in want:
+            raise ValueError(f"{name}: the CUDA kernel takes "
+                             f"{' or '.join(map(str, want))}, got {t.dtype}")
+    for name, t in pairs:
         check_aligned(t, name)
+    for name, t in pairs:
+        check_operand(t, name, q.dtype, q.device)
 
 
 def _kv_valid_ptr(kv_valid_len, B: int, device):
@@ -99,26 +123,22 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                                   kv_valid_len: torch.Tensor | None = None):
     """The gradient of ``flash_attention_cuda(q, k, v, causal=, window=,
     q_offset=, kv_valid_len=)`` against do = dL/do: (dq, dk, dv) in the
-    shapes of q, k, v, float32, bitwise the same from call to call; a query
-    row with no live key gets dq = 0, a key no row sees dk = dv = 0.  o and
-    lse are that call's output and log-sum-exp; o and do take q's shape
-    and checks, lse is (B, Hq, T) float32, kv_valid_len as the forward
-    takes it.  Raises NotImplementedError on bf16 (its half waits for a
-    ROADMAP item) and ValueError on any other input."""
-    refuse_bf16_backward(q, "flash_attention_backward_cuda")
-    _check_qkv(q, k, v, torch.float32)
+    shapes and dtype of q, k, v (float32: 3xTF32 products; bf16: bf16
+    products summed in fp32, P and dS rounded to bf16 before theirs),
+    bitwise the same from call to call; a query row with no live key gets
+    dq = 0, a key no row sees dk = dv = 0.  o and lse are that call's
+    output and log-sum-exp; o and do take q's shape, dtype and checks, lse
+    is (B, Hq, T) float32, kv_valid_len as the forward takes it.  Raises
+    ValueError on any other input."""
+    if lse.dtype != torch.float32:
+        raise ValueError(f"lse: the CUDA kernel takes torch.float32, got {lse.dtype}")
+    rows = (q.shape[0], q.shape[2], q.shape[1]) if q.dim() == 4 else None
+    if rows is not None and lse.shape != rows:
+        raise ValueError(f"lse must be (B, Hq, T) = {rows}, got {tuple(lse.shape)}")
+    _check_qkv(q, k, v, (("o", o), ("do", do)))
+    check_operand(lse, "lse", torch.float32, q.device)
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} must be q's shape {tuple(q.shape)}, "
-                             f"got {tuple(t.shape)}")
-        check_operand(t, name, torch.float32, q.device)
-        check_aligned(t, name)
-    if lse.shape != (B, Hq, T):
-        raise ValueError(f"lse must be (B, Hq, T) = {(B, Hq, T)}, got "
-                         f"{tuple(lse.shape)}")
-    check_operand(lse, "lse", torch.float32, q.device)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     kv_valid_len, valid_ptr = _kv_valid_ptr(kv_valid_len, B, q.device)
@@ -126,8 +146,9 @@ def flash_attention_backward_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     if q.numel() == 0 or k.numel() == 0:       # no query or no key: zeros
         return dq.zero_(), dk.zero_(), dv.zero_()
     dvec = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    kernel = BACKWARD if q.dtype == torch.float32 else BACKWARD_BF16
     with torch.cuda.device(q.device):
-        BACKWARD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
                         valid_ptr, B, T, S, Hq, Hkv, D, int(causal),
                         int(window), int(q_offset), 1.0 / math.sqrt(D),

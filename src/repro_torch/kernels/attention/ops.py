@@ -3,11 +3,10 @@ plain version for CPU tensors, no fallback between them.
 
 Where a gradient is asked for on CUDA the forward kernel runs inside
 ``FlashAttention``, an autograd Function whose forward also writes the
-log-sum-exp and whose backward is the backward kernel, for the whole
-contract of the forward (causal, window, q_offset, kv_valid_len), in
-float32 only (bf16 under a gradient on CUDA raises NotImplementedError);
-without one the forward kernel is called as it is, in float32 or bf16, so
-inference launches exactly what it launched before the Function
+log-sum-exp and whose backward is the backward kernel of the same dtype
+(float32 or bf16), for the whole contract of the forward (causal, window,
+q_offset, kv_valid_len); without one the forward kernel is called as it
+is, so inference launches exactly what it launched before the Function
 existed."""
 from __future__ import annotations
 
@@ -16,7 +15,6 @@ from functools import partial
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels._build import refuse_bf16_backward
 from repro_torch.kernels.attention.kernel import (
     flash_attention_backward_cuda,
     flash_attention_cuda,
@@ -60,14 +58,13 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0, q_offset: int = 0,
                        kv_valid_len: torch.Tensor | None = None):
     """q: (B, T, Hq, D); k/v: (B, S, Hkv, D) -> (B, T, Hq, D) in q's dtype,
-    differentiable in q, k and v on the CPU and, in float32, on CUDA, with
-    any causal, window, q_offset and kv_valid_len the forward takes."""
+    differentiable in q, k and v on the CPU and on CUDA (float32 or bf16),
+    with any causal, window, q_offset and kv_valid_len the forward takes."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_valid_len=kv_valid_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        refuse_bf16_backward(q, "flash_attention_op under a gradient")
         return FlashAttention.apply(
             q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
             q_offset, kv_valid_len,

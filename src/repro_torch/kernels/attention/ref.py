@@ -3,7 +3,12 @@
 of ``kv_block``), with one change: keys at or past S are masked whatever
 the masking mode.  The jnp function pads keys to a whole block and masks
 the pad only under causal masking, so with ``causal=False`` and S past one
-block and not a multiple of it, its padded zero keys take softmax mass."""
+block and not a multiple of it, its padded zero keys take softmax mass.
+
+Its gradient, ``flash_attention_backward_ref``, is autograd of that
+function (fp32 inside, gradients in the inputs' dtype, as the JAX model's
+autodiff); ``flash_attention_backward_bf16_emulated`` repeats the bf16
+backward kernel's rounding, for the tests."""
 from __future__ import annotations
 
 import math
@@ -78,3 +83,48 @@ def flash_attention_backward_ref(q, k, v, o, do, lse, *, causal: bool = True,
         out = flash_attention_ref(qq, kk, vv, causal=causal, window=window,
                                   q_offset=q_offset, kv_valid_len=kv_valid_len)
         return torch.autograd.grad(out, (qq, kk, vv), do)
+
+
+def flash_attention_backward_bf16_emulated(q, k, v, o, do, lse, *,
+                                           causal: bool = True, window: int = 0,
+                                           q_offset: int = 0, kv_valid_len=None):
+    """The bf16 backward kernel's rounding (csrc/flash_attention_backward_bf16.cu)
+    in plain torch, on bf16 q, k, v, o, do and the forward's float32 lse:
+    S = Q.K^T and dP = dO.V^T of the widened inputs in float32, P =
+    exp(S scale - lse) (0 on masked keys and on rows whose lse is -inf),
+    dvec = rowsum(dO * O), dS = P (dP - dvec), then P and dS rounded to
+    bf16 before dV = P^T dO, dK = scale dS^T Q and dQ = scale dS K, each
+    summed in float32 and rounded to bf16 once.  Dense over (T, S); the
+    kernel sums by tiles, in another order."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf, dof, of = (t.float().transpose(1, 2) for t in (q, do, o))   # (B, Hq, T, D)
+    kf, vf = (t.float().repeat_interleave(G, 2).transpose(1, 2) for t in (k, v))
+    qp = torch.arange(T, device=dev)[:, None] + q_offset
+    kp = torch.arange(S, device=dev)[None, :]
+    live = torch.ones(T, S, dtype=torch.bool, device=dev)
+    if causal:
+        live = live & (kp <= qp)
+    if window > 0:
+        live = live & (kp > qp - window)
+    live = live[None, None]
+    if kv_valid_len is not None:
+        live = live & (kp < kv_valid_len.to(dev)[:, None, None, None])
+    lse = torch.where(torch.isinf(lse), float("inf"), lse.float())[..., None]
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.where(live, torch.exp(s * scale - lse), 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = scale * (dsb @ kf)
+    dk = scale * (dsb.transpose(-1, -2) @ qf)
+    dv = pb.transpose(-1, -2) @ dof
+
+    def kv_sum(t):    # (B, Hq, S, D) -> (B, S, Hkv, D), the GQA sum
+        return t.reshape(B, Hkv, G, S, D).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), kv_sum(dk).to(k.dtype),
+            kv_sum(dv).to(v.dtype))

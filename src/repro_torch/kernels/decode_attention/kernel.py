@@ -17,7 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels._build import (
-    FORWARD_DTYPES,
+    KERNEL_DTYPES,
     CudaKernel,
     check_aligned,
     check_operand,
@@ -81,7 +81,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"cache {tuple(k_cache.shape)}")
     if not 1 <= page_size <= MAX_PAGE:
         raise ValueError(f"page_size must be in [1, {MAX_PAGE}], got {page_size}")
-    check_operand(q, "q", FORWARD_DTYPES, q.device)
+    check_operand(q, "q", KERNEL_DTYPES, q.device)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         check_operand(t, name, q.dtype, q.device)
         check_aligned(t, name)

@@ -15,7 +15,9 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
 def rmsnorm_backward_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                          *, eps: float = 1e-6):
     """(dx, dscale): autograd of ``rmsnorm_ref`` at (x, scale) against the
-    output gradient g (x's shape)."""
+    output gradient g (x's shape).  On bf16 inputs this is the float32
+    gradient of the widened inputs rounded to bf16 once, the bf16 backward
+    kernel's rounding (it sums in another order)."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_()
         ss = scale.detach().requires_grad_()

@@ -4,7 +4,9 @@
 microbatches; ``n_microbatches`` picks their count from the width.  The
 arithmetic is JAX's: the microbatch gradients summed into fp32 zeros in
 order and divided by their count, the loss as the sum of loss / n, then
-``new_m`` / ``new_p`` in fp32.  ``bf16_grads`` casts the gradient to
+``new_m`` / ``new_p`` in fp32 and cast back to each leaf's dtype.  bf16
+params (the MoE archs at full size) give bf16 gradients, as
+``jax.value_and_grad`` does; ``bf16_grads`` casts the gradient to
 bfloat16 as JAX does, on its one-microbatch branch only.
 
 Where JAX scans the microbatches inside one jitted program, the port loops

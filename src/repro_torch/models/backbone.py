@@ -45,7 +45,10 @@ states.  Under a gradient each layer runs in a non-reentrant
 package ``jax.checkpoint``s each superblock: its activations are
 recomputed in the backward, so its flash-attention and RMSNorm forwards
 run twice per training step; ``remat=False`` keeps them, with bitwise the
-same loss and gradients.
+same loss and gradients (an MoE layer's recompute routes its tokens as the
+first pass did: the routing is a function of the layer's input alone).
+On CUDA those forwards and their backward kernels run in the model's
+dtype, float32 or bf16.
 
 ``prefill_chunk`` advances a chunked prefill by one segment of tokens
 (the continuous scheduler's staged admissions), writing the segment's

@@ -17,7 +17,11 @@ tokens copied into their (expert, position) rows, bitwise the one-hot
 dispatch (which adds exact zeros), and the outputs are gathered back,
 each weighted by its gate in float32, and summed over the k slots in
 slot order.  At moonshot-v1-16b-a3b's prefill (S = 2,048, E = 64,
-C = 768) the one-hot tensors would be 403 MB each in float32.
+C = 768) the one-hot tensors would be 403 MB each in float32.  Under a
+gradient the router (through the softmax and the top-k values), the
+gates, the stacked experts and x get the gradients JAX's one-hot einsums
+give them (``tests/test_torch_moe_train.py``), bitwise the same from run
+to run on the card (no float atomics on the way).
 
 The expert SwiGLU is a batched product over (E, G * C, d) in the model's
 dtype (``torch.bmm``), as the JAX package leaves it to XLA.
@@ -116,18 +120,23 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     n_rows = E * G * C
 
     # dispatch: slot j of token (g, s) goes to row g * C + pos of its
-    # expert's block; dropped slots go to a spare last row
-    slot = torch.arange(top_k * S, device=x.device)
+    # expert's block; dropped slots go to a spare last row.  The slots'
+    # copies of the tokens are an expand over k (slot-major, as the slots
+    # are ordered), whose backward sums the k copies of a token in a fixed
+    # order; index_copy_'s backward is a gather of the rows, so the
+    # gradient of x is bitwise the same from run to run on the card
     grp = torch.arange(G, device=x.device)[:, None]
     row = r["expert"] * (G * C) + grp * C + r["pos"]            # (G, k*S)
-    src = (grp * S + slot % S).reshape(-1)
+    slots = x.reshape(G, 1, S, d).expand(G, top_k, S, d).reshape(G * top_k * S, d)
     xe = x.new_zeros((n_rows + 1, d))
-    xe.index_copy_(0, torch.where(keep, row, n_rows).reshape(-1),
-                   x.reshape(B * T, d)[src])
+    xe.index_copy_(0, torch.where(keep, row, n_rows).reshape(-1), slots)
     yout = _expert_ffn({k: params[k] for k in ("gate", "up", "down")},
                        xe[:n_rows].reshape(E, G * C, d)).reshape(n_rows, d)
 
-    # combine in float32, slot by slot; a dropped slot weighs 0
+    # combine in float32, slot by slot; a dropped slot weighs 0.  Kept
+    # slots gather distinct rows; dropped ones all gather row 0 with gate 0,
+    # so in the gather's backward (an accumulating index_put, sorted by row
+    # on the card) row 0 takes exact zeros beside its own slot's gradient
     gates = r["gates"].permute(0, 2, 1).reshape(G, top_k * S) * keep
     picked = yout[torch.where(keep, row, 0)].float() * gates[..., None]
     y = picked.reshape(G, top_k, S, d).sum(dim=1)

@@ -14,11 +14,13 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 # every kernel of the port, by the name of its csrc/<name>.cu
 KERNEL_NAMES = ["decode_attention", "flash_attention", "flash_attention_backward",
-                "flash_attention_bf16", "offload_fused", "quantize", "rmsnorm",
-                "rmsnorm_backward", "topk_split"]
+                "flash_attention_backward_bf16", "flash_attention_bf16",
+                "offload_fused", "quantize", "rmsnorm", "rmsnorm_backward",
+                "topk_split"]
 # the bf16 halves that are entry points of their fp32 kernels' libraries
-# (flash attention's has a source of its own, in KERNEL_NAMES)
-BF16_NAMES = ["decode_attention_bf16", "rmsnorm_bf16"]
+# (flash attention's and its backward's have sources of their own, in
+# KERNEL_NAMES)
+BF16_NAMES = ["decode_attention_bf16", "rmsnorm_backward_bf16", "rmsnorm_bf16"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
