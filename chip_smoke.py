@@ -8,10 +8,10 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, all
      sources at once; print registers and spills, and check that flash
      attention's SASS and its backward's hold tensor-core products (HMMA)
-     and asynchronous copies (LDGSTS), flash's bf16 half warpgroup
-     products (HGMMA), its bf16 backward HMMA, LDGSTS and ldmatrix
-     (LDSM), that RMSNorm loads and stores 16 bytes at a time,
-     and that the permute, the fused offload pass and
+     and asynchronous copies (LDGSTS), flash's bf16 half and its bf16
+     backward warpgroup products (HGMMA) and LDGSTS (the backward no HMMA
+     and no ldmatrix, LDSM), that RMSNorm and its backward load and store
+     16 bytes at a time, and that the permute, the fused offload pass and
      decode attention copy in by LDGSTS and write by 16-byte stores;
   AgileNN offload inference (slice 1):
   3. each offload kernel against its plain PyTorch version on the card,
@@ -238,8 +238,11 @@ Phases, each of which raises on failure:
      8192}, bitwise the fp32 kernel on the widened inputs, rounded, two
      calls bitwise; each timed beside the fp32 kernel on the widened
      inputs, the plain version, the library call's bf16 backward and the
-     bound, the flash backward's three kernels by torch.profiler; phase 2
-     checks the new SASS holds HMMA, LDGSTS and LDSM; (b) moonshot at full
+     bound, the flash backward's three kernels by torch.profiler, each
+     against its own bound, and the RMSNorm backward's two kernels (bf16
+     here, fp32 at phase 14's (16,384, 896)); phase 2 checks the flash
+     backward's SASS holds HGMMA and LDGSTS and no HMMA or LDSM, and the
+     RMSNorm backward's 16-byte loads and stores; (b) moonshot at full
      width, its depth cut to MOE_TRAIN_LAYERS of 48, bf16, seed-0 weights
      drawn on the card, through ``make_train_step`` at T = 4,096, the
      global batch cut from 256 to 4 (two microbatches of 2): 3 steps, step
@@ -748,30 +751,37 @@ def profiled_share(fn, match: str, bound_ms: float,
 
 # what the redesigned kernels must issue: tensor-core products (HMMA) and
 # asynchronous copies (LDGSTS) in flash attention and its backward,
-# warpgroup products (HGMMA) in flash's bf16 half, 16-byte loads and
-# stores in RMSNorm's bf16 half, asynchronous 16-byte copies and 16-byte
-# stores in the permute, the fused offload pass and decode attention (its
-# partials and its output)
+# warpgroup products (HGMMA) in flash's bf16 half and its bf16 backward,
+# 16-byte loads and stores in RMSNorm's bf16 half and in its backward,
+# asynchronous 16-byte copies and 16-byte stores in the permute, the fused
+# offload pass and decode attention (its partials and its output)
 SASS_EXPECT = {"flash_attention": ("HMMA", "LDGSTS"),
                "flash_attention_bf16": ("HGMMA", "LDGSTS", "STG.E.128"),
                "rmsnorm": ("LDG.E.128", "STG.E.128"),
+               "rmsnorm_backward": ("LDG.E.128", "STG.E.128"),
                "flash_attention_backward": ("HMMA", "LDGSTS"),
-               "flash_attention_backward_bf16": ("HMMA", "LDGSTS", "LDSM"),
+               "flash_attention_backward_bf16": ("HGMMA", "LDGSTS"),
                "topk_split": ("LDGSTS", "STG.E.128"),
                "offload_fused": ("LDGSTS", "STG.E.128"),
                "decode_attention": ("LDGSTS", "STG.E.128")}
+# and what they must not: the bf16 backward runs every product by wgmma,
+# with no mma.sync (HMMA) and no ldmatrix (LDSM) left
+SASS_ABSENT = {"flash_attention_backward_bf16": ("HMMA", "LDSM")}
 
 
 def sass_counts(libs) -> dict:
-    """Count the expected instructions in each built library's SASS."""
+    """Count the expected (and the absent) instructions in each built
+    library's SASS."""
     cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_build.find_nvcc())),
                              "cuobjdump")
     counts = {}
     for name, ops in SASS_EXPECT.items():
         sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
                               capture_output=True, text=True, timeout=120).stdout
-        counts[name] = {op: sass.count(op) for op in ops}
-        check(all(counts[name].values()), f"{name}: SASS lacks {counts[name]}")
+        counts[name] = {op: sass.count(op) for op in ops + SASS_ABSENT.get(name, ())}
+        check(all(counts[name][op] for op in ops), f"{name}: SASS lacks {counts[name]}")
+        check(not any(counts[name][op] for op in SASS_ABSENT.get(name, ())),
+              f"{name}: SASS holds {counts[name]}")
     return counts
 
 
@@ -3156,15 +3166,18 @@ def quantize_bitwise(x, centers, what: str) -> float:
     return err
 
 
-def flash_backward_bounds(B: int, T: int, Hq: int, D: int) -> dict:
+def flash_backward_bounds(B: int, T: int, Hq: int, D: int, elem: int = 4,
+                          ops_per_s: float = TF32_OPS_PER_S / 3) -> dict:
     """Each flash backward kernel's least time (ms) at a causal T = S call:
-    the dot kernel's bytes (o and dO read, dvec written); the dK/dV
-    kernel's 8 * D and the dQ kernel's 6 * D flops a live pair, as three
-    TF32 products each on the tensor cores (3xTF32)."""
+    the dot kernel's bytes (o and dO read at ``elem`` bytes, dvec written
+    at 4); the dK/dV kernel's 8 * D and the dQ kernel's 6 * D flops a live
+    pair at ``ops_per_s``: by default as three TF32 products each on the
+    tensor cores (3xTF32), for the bf16 kernels the bf16 rate."""
     pairs = B * Hq * T * (T + 1) // 2
-    return {"flash_bwd_dot": (2 * B * T * Hq * D + B * Hq * T) * 4 / HBM_BYTES_PER_S * 1e3,
-            "flash_bwd_dkdv": 3 * 8 * D * pairs / TF32_OPS_PER_S * 1e3,
-            "flash_bwd_dq": 3 * 6 * D * pairs / TF32_OPS_PER_S * 1e3}
+    return {"flash_bwd_dot": (2 * B * T * Hq * D * elem + B * Hq * T * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "flash_bwd_dkdv": 8 * D * pairs / ops_per_s * 1e3,
+            "flash_bwd_dq": 6 * D * pairs / ops_per_s * 1e3}
 
 
 def lm_train(cfg, params, card) -> dict:
@@ -4721,6 +4734,17 @@ def flash_backward_bf16_work(B: int, T: int, S: int, Hq: int, Hkv: int, D: int,
             10 * D * pairs)
 
 
+def rms_split(fn) -> dict:
+    """The RMSNorm backward's two kernels by torch.profiler: {"rows": us,
+    "dscale": us} a call, L2 flushed before each call."""
+    found = device_kernels(fn, reps=20, match="rmsnorm_", flush=True)
+    out = {}
+    for key, (us, n) in found.items():
+        part = "dscale" if "rmsnorm_dscale_kernel" in key else "rows"
+        out[part] = out.get(part, 0.0) + us
+    return out
+
+
 def moe_train_kernels(card) -> dict:
     """Phase 17a: the two bf16 backward kernels against their plain
     versions at moonshot-v1-16b-a3b's training microbatch (flash q = k/v
@@ -4768,6 +4792,10 @@ def moe_train_kernels(card) -> dict:
                            match="flash_bwd_", flush=True)
     flash["kernels_us"] = {key.split("flash_bwd_")[1].split("_kernel")[0]: us
                            for key, (us, n) in split.items()}
+    own = flash_backward_bounds(B, T, Hq, D, elem=2, ops_per_s=BF16_OPS_PER_S)
+    flash["kernels_bound_ms"] = own
+    flash["kernels_share"] = {n: own["flash_bwd_" + n.split("_")[-1]] * 1e3 / us
+                              for n, us in flash["kernels_us"].items()}
     del q, k, v, do, o, lse, wide, o32, lse32, ql, kl, vl, ol, ot, ins_t, dot
     torch.cuda.empty_cache()
 
@@ -4825,7 +4853,19 @@ def moe_train_kernels(card) -> dict:
            "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, (xr, sr), g,
                                                              retain_graph=True)),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
-    del x, scale, g, xr, sr, y_ref, y_lib, wide
+    rms["kernels_us"] = rms_split(lambda: rmsnorm_backward_cuda(x, scale, g))
+    rms["share"] = bound_ms * 1e3 / sum(rms["kernels_us"].values())
+    # the fp32 half at phase 14's rows, split the same way
+    N32, d32 = LM_RMS_ROWS
+    x32, g32 = torch.randn(N32, d32, generator=gen, device="cuda") * 2, torch.randn(
+        N32, d32, generator=gen, device="cuda")
+    s32 = 1 + 0.1 * torch.randn(d32, generator=gen, device="cuda")
+    bound32 = bound((3 * N32 * d32 + 2 * d32) * 4, 6 * N32 * d32)[0]
+    rms["fp32"] = {"shape": [N32, d32], "bound_ms": bound32,
+                   "ms": time_ms(lambda: rmsnorm_backward_cuda(x32, s32, g32)),
+                   "kernels_us": rms_split(lambda: rmsnorm_backward_cuda(x32, s32, g32))}
+    rms["fp32"]["share"] = bound32 * 1e3 / sum(rms["fp32"]["kernels_us"].values())
+    del x, scale, g, xr, sr, y_ref, y_lib, wide, x32, g32, s32
     rms_errs = [rms_case(Ns, ds)[1] for Ns, ds in MOE_TRAIN_RMS_SWEEP]
     rms["sweep_shapes"] = [list(c) for c in MOE_TRAIN_RMS_SWEEP]
     rms["max_abs_err"] = max([err] + rms_errs)
@@ -4845,13 +4885,17 @@ def moe_train_kernels(card) -> dict:
           f"plain {flash['plain_ms']:.4f}, SDPA bf16 backward {flash['library_ms']:.4f}, "
           f"bound {flash['bound_ms']:.4f} ({flash['bound_by']}; 14 * D as issued "
           f"{flash['tc_bound_14d_ms']:.4f}); by torch.profiler (us a call) "
-          f"{ {n: round(u, 1) for n, u in flash['kernels_us'].items()} }  [{card}]")
+          f"{ {n: round(u, 1) for n, u in flash['kernels_us'].items()} }, each of its own "
+          f"bound { {n: f'{r:.1%}' for n, r in flash['kernels_share'].items()} }  [{card}]")
     print(f"phase 17a: rmsnorm_backward bf16 at ({N}, {d}) and {len(MOE_TRAIN_RMS_SWEEP)} "
           f"more shapes: bitwise the fp32 kernel on the widened inputs, rounded; two calls "
           f"bitwise; |err| vs plain {rms['max_abs_err']:.3e}; {rms['ms']:.4f} ms (fp32 "
           f"kernel {rms['fp32_ms']:.4f}), plain {rms['plain_ms']:.4f}, F.rms_norm bf16 "
           f"backward {rms['library_ms']:.4f}, bound {rms['bound_ms']:.4f} "
-          f"({rms['bound_by']})  [{card}]")
+          f"({rms['bound_by']}); by torch.profiler (us a call) {rms['kernels_us']}, "
+          f"{rms['share']:.1%} of the bound; the fp32 half at {tuple(rms['fp32']['shape'])} "
+          f"{rms['fp32']['ms']:.4f} ms, by torch.profiler {rms['fp32']['kernels_us']}, "
+          f"{rms['fp32']['share']:.1%} of its {rms['fp32']['bound_ms']:.4f} ms bound  [{card}]")
     return {"flash_attention_backward": flash, "rmsnorm_backward": rms}
 
 
@@ -4974,8 +5018,8 @@ def moe_train(card) -> dict:
     busy_us = sum(us for us, _ in kernels.values())
     ours = {"flash_attention_backward_bf16": "flash_bwd_",
             "flash_attention_bf16": "flash_attention_bf16_kernel",
-            "rmsnorm_backward_bf16": "rmsnorm_backward_kernel<__nv_bfloat16>",
-            "rmsnorm_dscale_bf16": "rmsnorm_dscale_kernel<__nv_bfloat16>",
+            "rmsnorm_backward_bf16": "rmsnorm_backward_kernel<__nv_bfloat16",
+            "rmsnorm_dscale_bf16": "rmsnorm_dscale_kernel<__nv_bfloat16",
             "rmsnorm_bf16": "rmsnorm_bf16_kernel"}
     by = {}
     for key, (us, n) in kernels.items():

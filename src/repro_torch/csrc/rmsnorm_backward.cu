@@ -9,19 +9,11 @@
 // which is exactly what autograd of the plain version computes, to
 // rounding.
 //
-// Bound: bytes.  x and g are read once, dx written once, 3 * N * d * 4
-// bytes (scale and dscale are d floats); at the training shape of
-// qwen2-0.5b (N = 4 * 4096 rows, d = 896) that is 176 MB, 0.053 ms at
-// 3.35 TB/s.
-//
-// Design: one block of 128 threads per row, grid-stride over rows with a
-// fixed grid of min(N, 1024) blocks.  Pass 1 sums x^2 and x * scale * g
-// (warp shuffles, one shared-memory step); pass 2 re-reads the row from
-// L1/L2, writes dx and adds g * (x * r) into a per-block dscale row in
-// shared memory, each column owned by one thread.  The blocks' rows of
-// partial sums go to a (grid, d) scratch, and a second kernel sums them
-// per column in block order.  No float atomics: the grid depends on N
-// alone, so two calls give bitwise equal gradients.
+// Bound: bytes.  x and g are read once, dx written once, 3 * N * d * E
+// bytes for elements of E bytes (scale and dscale are d elements): in fp32
+// at the training shape of qwen2-0.5b (N = 4 * 4096 rows, d = 896) 176 MB,
+// 0.053 ms at 3.35 TB/s; in bf16 at moonshot-v1-16b-a3b's training
+// microbatch (N = 2 * 4096 rows, d = 2048) 100.7 MB, 0.030 ms.
 //
 // The bf16 half (x, scale, g, dx and dscale bf16; the partial sums fp32)
 // is the same two kernels instantiated on the element type: each value is
@@ -29,15 +21,55 @@
 // dscale are rounded to bf16 once, as they are stored.  So it is bitwise
 // the fp32 kernels on the widened inputs, rounded (chip_smoke.py phase
 // 17a), as the JAX model's autodiff of `rmsnorm_apply` widens, computes in
-// fp32 and rounds.  Bound: bytes, 3 * N * d * 2: 100.7 MB at
-// moonshot-v1-16b-a3b's training microbatch (N = 2 * 4096 rows,
-// d = 2048), 0.030 ms at 3.35 TB/s.  Its loads are 2 bytes a thread (the
-// fp32 kernel's element walk, kept so that the sums run in its order).
+// fp32 and rounds.  That holds because both halves give a column to the
+// same thread and take every sum in the same order: a thread's columns
+// are 8-column chunks (one 16-byte load of bf16, two of fp32), and the
+// explicit fmaf's leave the compiler nothing to contract differently.
+//
+// Design: one pass over HBM, the rows in registers.
+// - A row goes to TPR threads: 32 (a warp, four rows a block of 128) for
+//   d <= 1024, 64 for d <= 2048, 128 for d <= 4096, 256 (a block of 256)
+//   for d <= 8192, so a thread holds at most 4 chunks (32 columns) of x, g
+//   and scale: the fp32 half, whose chunks are twice the registers, stays
+//   unspilled.  Chunk c of a row goes to thread c % TPR, so a warp's loads
+//   are contiguous runs.
+// - scale is loaded once a block and kept in registers.  A row's x and g
+//   are loaded once; the thread sums x^2 and x * scale * g over its chunks
+//   in order, then shuffles, then (TPR > 32) one shared-memory step behind
+//   a barrier of the row's warps alone; then dx goes out by 16-byte stores
+//   from the same registers.
+// - dscale: each thread keeps g * (x * r) for its columns in registers
+//   across the rows it walks (rows sub, sub + G, ... for the G row groups
+//   of the grid); at the end a block's row groups are added in order
+//   through shared memory and the block writes one partial row.  The grid
+//   is min(ceil(N / rows a block), kBwdBlocks): a function of N and d
+//   alone, never of the card, so two calls give bitwise equal gradients
+//   (no float atomics).  The partial rows are at most kBwdBlocks x d
+//   floats: 4 MB at d = 2048, 4 % of the bf16 kernel's bytes there.
+// - rmsnorm_dscale_kernel sums the partial rows by column: a block of 256
+//   threads takes 16 columns (a thread 4, by 16-byte loads) and splits the
+//   rows among 64 row groups, then folds the 64 sums in a fixed tree.
+// - A d that is not a multiple of 8, or an operand off 16 bytes, takes the
+//   same chunks element by element (VEC false): the same columns to the
+//   same threads and the same sums in the same order.
+// - Registers (-Xptxas -v, sm_90a): 126-128 (bf16) and 156-166 (fp32) on
+//   the 16-byte walks, 153-162 element by element, no spill; shared memory
+//   12 KB (32 threads a row), 8 KB (64) or 16-32 bytes (a block a row) for
+//   the fold.  rmsnorm_dscale_kernel: 32 registers, 4 KB.
+#include <cstdint>
+
 #include "kernels_common.cuh"
 
-constexpr int kRowThreads = 128;
+namespace {
+
 constexpr int kMaxWidth = 8192;
-constexpr long long kBwdBlocks = 1024;   // kernel.py BACKWARD_BLOCKS
+constexpr int kChunks = 4;               // 8-column chunks a thread holds, at most
+constexpr long long kBwdBlocks = 512;    // kernel.py BACKWARD_BLOCKS
+constexpr int kPartialRowsPerBlock = 1;  // kernel.py PARTIAL_ROWS_PER_BLOCK
+constexpr int kSumThreads = 256;         // rmsnorm_dscale_kernel's block
+constexpr int kSumColThreads = 4;        // threads across its 16 columns
+constexpr int kSumGroups = kSumThreads / kSumColThreads;   // row groups
+constexpr int kSumCols = 4 * kSumColThreads;
 
 // an output rounded to the element type as it is stored (widen(), in
 // kernels_common.cuh, is the way in)
@@ -50,65 +82,251 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// 8 consecutive elements of a row as they are loaded: 16 bytes of bf16,
+// 32 of fp32
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
+struct Chunk {
+  uint4 raw[sizeof(T) / 2];
+};
+
+// chunk c of row p (d elements): 16-byte loads when VEC, else element by
+// element with the columns past d read as 0
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_chunk(Chunk<T>& ch, const T* p, int c, int d) {
+  if constexpr (VEC) {
+    const uint4* src = reinterpret_cast<const uint4*>(p + 8 * c);
+#pragma unroll
+    for (int h = 0; h < (int)(sizeof(T) / 2); ++h) ch.raw[h] = src[h];
+  } else {
+    T* e = reinterpret_cast<T*>(ch.raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = 8 * c + i < d ? p[8 * c + i] : narrow<T>(0.0f);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void widen8(const Chunk<T>& ch, float (&f)[8]) {
+  const T* e = reinterpret_cast<const T*>(ch.raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = widen(e[i]);
+}
+
+// f rounded to T into chunk c of row p (columns past d not written)
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_chunk(T* p, int c, int d, const float (&f)[8]) {
+  if constexpr (VEC) {
+    Chunk<T> ch;
+    T* e = reinterpret_cast<T*>(ch.raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = narrow<T>(f[i]);
+    uint4* dst = reinterpret_cast<uint4*>(p + 8 * c);
+#pragma unroll
+    for (int h = 0; h < (int)(sizeof(T) / 2); ++h) dst[h] = ch.raw[h];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (8 * c + i < d) p[8 * c + i] = narrow<T>(f[i]);
+  }
+}
+
+// the sum of v over the TPR threads of a row, in each of them: shuffles,
+// then across the row's warps through s_part behind a barrier of those
+// warps alone (named barrier 1 + the row's slot in the block)
+template <int TPR>
+__device__ __forceinline__ float row_sum(float v, float* s_part, int sub) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if constexpr (TPR > 32) {
+    constexpr int W = TPR / 32;
+    float* part = s_part + sub * W;
+    const int w = (threadIdx.x % TPR) >> 5;
+    if ((threadIdx.x & 31) == 0) part[w] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sub), "n"(TPR) : "memory");
+    v = 0.0f;
+#pragma unroll
+    for (int i = 0; i < W; ++i) v += part[i];
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sub), "n"(TPR) : "memory");
+  }
+  return v;
+}
+
+template <int TPR>
+__host__ __device__ constexpr int block_threads() { return TPR < 128 ? 128 : TPR; }
+
+template <typename T, int TPR, bool VEC>
+__global__ void __launch_bounds__(TPR < 128 ? 128 : TPR)
 rmsnorm_backward_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                         const T* __restrict__ g, long long n_rows, int d,
                         float eps, T* __restrict__ dx,
                         float* __restrict__ partial) {
-  extern __shared__ float s_acc[];           // d floats: this block's dscale
-  __shared__ float s_ss[kRowThreads / 32], s_dot[kRowThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < d; i += kRowThreads) s_acc[i] = 0.0f;
-  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
+  constexpr int BT = block_threads<TPR>();
+  constexpr int RPB = BT / TPR;               // rows a block walks at once
+  constexpr int DMAX = TPR * kChunks * 8;     // widest row at this TPR
+  __shared__ float s_part[BT / 32];
+  __shared__ __align__(16) float s_fold[RPB > 1 ? (RPB - 1) * DMAX : 4];
+  const int tr = threadIdx.x % TPR, sub = threadIdx.x / TPR;
+  const int n_ch = (d + 7) / 8;               // chunks a row
+
+  Chunk<T> sc[kChunks];                       // this thread's scale chunks
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j)
+    if (tr + j * TPR < n_ch) load_chunk<T, VEC>(sc[j], scale, tr + j * TPR, d);
+  float acc[kChunks][8];                      // its columns' g * (x * r)
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+
+  const long long groups = (long long)gridDim.x * RPB;
+  for (long long row = (long long)blockIdx.x * RPB + sub; row < n_rows; row += groups) {
     const T* xr = x + row * d;
     const T* gr = g + row * d;
-    float ss = 0.0f, dot = 0.0f;
-    for (int i = threadIdx.x; i < d; i += kRowThreads) {
-      const float v = widen(xr[i]);
-      ss = fmaf(v, v, ss);
-      dot = fmaf(v * widen(scale[i]), widen(gr[i]), dot);
-    }
+    Chunk<T> xc[kChunks], gc[kChunks];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    for (int j = 0; j < kChunks; ++j) {
+      if (tr + j * TPR < n_ch) {
+        load_chunk<T, VEC>(xc[j], xr, tr + j * TPR, d);
+        load_chunk<T, VEC>(gc[j], gr, tr + j * TPR, d);
+      }
     }
-    if (lane == 0) {
-      s_ss[warp] = ss;
-      s_dot[warp] = dot;
+    float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = tr + j * TPR;
+      if (c < n_ch) {
+        float xf[8], gf[8], sf[8];
+        widen8(xc[j], xf);
+        widen8(gc[j], gf);
+        widen8(sc[j], sf);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (VEC || 8 * c + i < d) {
+            ss = fmaf(xf[i], xf[i], ss);
+            dot = fmaf(xf[i] * sf[i], gf[i], dot);
+          }
+        }
+      }
+    }
+    ss = row_sum<TPR>(ss, s_part, sub);
+    dot = row_sum<TPR>(dot, s_part, sub);
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float cr = r * r * r * (dot / (float)d);
+    T* dxr = dx + row * d;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = tr + j * TPR;
+      if (c < n_ch) {
+        float xf[8], gf[8], sf[8], out[8];
+        widen8(xc[j], xf);
+        widen8(gc[j], gf);
+        widen8(sc[j], sf);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          out[i] = fmaf(-xf[i], cr, r * (sf[i] * gf[i]));
+          acc[j][i] = fmaf(gf[i], xf[i] * r, acc[j][i]);
+        }
+        store_chunk<T, VEC>(dxr, c, d, out);
+      }
+    }
+  }
+
+  // the block's row groups added in order: group 0 + group 1 + ...
+  if constexpr (RPB > 1) {
+    if (sub > 0) {
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          s_fold[(sub - 1) * DMAX + 8 * (tr + j * TPR) + i] = acc[j][i];
     }
     __syncthreads();
-    float tss = 0.0f, tdot = 0.0f;
+    if (sub > 0) return;
 #pragma unroll
-    for (int w = 0; w < kRowThreads / 32; ++w) {
-      tss += s_ss[w];
-      tdot += s_dot[w];
-    }
-    const float r = rsqrtf(tss / (float)d + eps);
-    const float c = r * r * r * (tdot / (float)d);
-    T* dxr = dx + row * d;
-    for (int i = threadIdx.x; i < d; i += kRowThreads) {
-      const float xv = widen(xr[i]), gv = widen(gr[i]);
-      dxr[i] = narrow<T>(r * (widen(scale[i]) * gv) - xv * c);
-      s_acc[i] = fmaf(gv, xv * r, s_acc[i]);
-    }
-    __syncthreads();  // s_ss / s_dot are written again for the next row
+    for (int s = 1; s < RPB; ++s)
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[j][i] += s_fold[(s - 1) * DMAX + 8 * (tr + j * TPR) + i];
   }
-  for (int i = threadIdx.x; i < d; i += kRowThreads)
-    partial[(long long)blockIdx.x * d + i] = s_acc[i];
+  float* prow = partial + (long long)blockIdx.x * kPartialRowsPerBlock * d;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int c = tr + j * TPR;
+    if (c < n_ch) store_chunk<float, VEC>(prow, c, d, acc[j]);
+  }
 }
 
-// dscale[i] = sum over blocks b, in order, of partial[b][i]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// dscale[i] = the sum over the partial rows of partial[.][i]: each thread
+// sums rows grp, grp + kSumGroups, ... of its 4 columns in row order, and
+// the kSumGroups sums are folded in a fixed tree
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSumThreads)
 rmsnorm_dscale_kernel(const float* __restrict__ partial, int n_parts, int d,
                       T* __restrict__ dscale) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= d) return;
-  float s = 0.0f;
-  for (int b = 0; b < n_parts; ++b) s += partial[(long long)b * d + i];
-  dscale[i] = narrow<T>(s);
+  __shared__ __align__(16) float s_sum[kSumGroups][kSumCols];
+  const int cq = threadIdx.x % kSumColThreads, grp = threadIdx.x / kSumColThreads;
+  const int col = blockIdx.x * kSumCols + 4 * cq;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (col < d) {
+    for (int b = grp; b < n_parts; b += kSumGroups) {
+      const float* p = partial + (long long)b * d + col;
+      if constexpr (VEC) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        s[0] += v.x;
+        s[1] += v.y;
+        s[2] += v.z;
+        s[3] += v.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (col + i < d) s[i] += p[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s_sum[grp][4 * cq + i] = s[i];
+  __syncthreads();
+#pragma unroll
+  for (int half = kSumGroups / 2; half > 0; half >>= 1) {
+    if (grp < half) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s_sum[grp][4 * cq + i] += s_sum[grp + half][4 * cq + i];
+    }
+    __syncthreads();
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (col + i < d) dscale[col + i] = narrow<T>(s_sum[0][4 * cq + i]);
+  }
+}
+
+template <typename T, int TPR, bool VEC>
+cudaError_t launch_rows(const T* x, const T* scale, const T* g, long long n_rows,
+                        int d, float eps, T* dx, float* partial, int* grid,
+                        cudaStream_t st) {
+  constexpr int RPB = block_threads<TPR>() / TPR;
+  const long long blocks = (n_rows + RPB - 1) / RPB;
+  *grid = (int)(blocks < kBwdBlocks ? blocks : kBwdBlocks);
+  if (*grid > 0)
+    rmsnorm_backward_kernel<T, TPR, VEC><<<*grid, block_threads<TPR>(), 0, st>>>(
+        x, scale, g, n_rows, d, eps, dx, partial);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_vec(const T* x, const T* scale, const T* g, long long n_rows,
+                       int d, float eps, T* dx, float* partial, int* grid,
+                       cudaStream_t st) {
+  // a thread holds at most kChunks chunks: TPR * kChunks * 8 >= d
+  if (d <= 32 * kChunks * 8)
+    return launch_rows<T, 32, VEC>(x, scale, g, n_rows, d, eps, dx, partial, grid, st);
+  if (d <= 64 * kChunks * 8)
+    return launch_rows<T, 64, VEC>(x, scale, g, n_rows, d, eps, dx, partial, grid, st);
+  if (d <= 128 * kChunks * 8)
+    return launch_rows<T, 128, VEC>(x, scale, g, n_rows, d, eps, dx, partial, grid, st);
+  return launch_rows<T, 256, VEC>(x, scale, g, n_rows, d, eps, dx, partial, grid, st);
 }
 
 template <typename T>
@@ -116,17 +334,28 @@ int launch(const T* x, const T* scale, const T* g, long long n_rows, int d,
            float eps, T* dx, float* partial, T* dscale, void* stream) {
   if (d < 1 || d > kMaxWidth || n_rows < 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int grid = (int)(n_rows < kBwdBlocks ? n_rows : kBwdBlocks);
-  if (grid > 0) {
-    rmsnorm_backward_kernel<T><<<grid, kRowThreads, d * sizeof(float), st>>>(
-        x, scale, g, n_rows, d, eps, dx, partial);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  rmsnorm_dscale_kernel<T><<<(d + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partial, grid, d, dscale);
+  const bool vec = d % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                   reinterpret_cast<uintptr_t>(scale) |
+                                   reinterpret_cast<uintptr_t>(g) |
+                                   reinterpret_cast<uintptr_t>(dx) |
+                                   reinterpret_cast<uintptr_t>(partial)) & 15) == 0;
+  int grid = 0;
+  cudaError_t err =
+      vec ? launch_vec<T, true>(x, scale, g, n_rows, d, eps, dx, partial, &grid, st)
+          : launch_vec<T, false>(x, scale, g, n_rows, d, eps, dx, partial, &grid, st);
+  if (err != cudaSuccess) return (int)err;
+  const int n_parts = grid * kPartialRowsPerBlock;
+  const int sum_blocks = (d + kSumCols - 1) / kSumCols;
+  if (d % 4 == 0 && (reinterpret_cast<uintptr_t>(partial) & 15) == 0)
+    rmsnorm_dscale_kernel<T, true><<<sum_blocks, kSumThreads, 0, st>>>(
+        partial, n_parts, d, dscale);
+  else
+    rmsnorm_dscale_kernel<T, false><<<sum_blocks, kSumThreads, 0, st>>>(
+        partial, n_parts, d, dscale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 extern "C" int rmsnorm_backward_launch(const float* x, const float* scale,
                                        const float* g, long long n_rows,

@@ -5,13 +5,16 @@ csrc/flash_attention_backward_bf16.cu).
 
 The forward replaces ``repro.kernels.attention.kernel.flash_attention_tpu``
 with the contract of the jnp ``repro.nn.attention.flash_attention`` that
-the JAX model calls, in float32 (``flash_attention_launch``, 3xTF32) and
-in bf16 (``flash_attention_bf16_launch``, the bf16 tensor cores, a library
-and a launch count of its own); the backward has no TPU counterpart (the
-JAX model differentiates that jnp function) and has the same two halves
-(``flash_attention_backward_launch``, 3xTF32, and
-``flash_attention_backward_bf16_launch``, the bf16 tensor cores), each
-with its own library and launch count.  The source notes in the .cu give
+the JAX model calls, in float32 (``flash_attention_launch``, 3xTF32
+``mma.sync``) and in bf16 (``flash_attention_bf16_launch``, the bf16
+tensor cores by ``wgmma``, a library and a launch count of its own); the
+backward has no TPU counterpart (the JAX model differentiates that jnp
+function) and has the same two halves (``flash_attention_backward_launch``,
+3xTF32 ``mma.sync``, and ``flash_attention_backward_bf16_launch``, all five
+products by ``wgmma`` on 64-row tiles, P and dS rounded to bf16 before
+their products), each with its own library and launch count.  The two
+bf16 sources share their swizzled tiles, descriptors, ``wgmma`` forms and
+tile copy (csrc/wgmma_common.cuh).  The source notes in the .cu give
 bounds and designs.
 """
 from __future__ import annotations

@@ -27,9 +27,12 @@ BACKWARD = CudaKernel("rmsnorm_backward", _BACKWARD_ARGS)
 BACKWARD_BF16 = CudaKernel("rmsnorm_backward_bf16", _BACKWARD_ARGS,
                            library="rmsnorm_backward")
 MAX_WIDTH = 8192
-# the backward's grid: rows are dealt to at most this many blocks, whose
-# partial dscale rows are summed in block order (kBwdBlocks in the .cu)
-BACKWARD_BLOCKS = 1024
+# the backward's grid: rows are dealt to at most this many blocks, each of
+# which writes PARTIAL_ROWS_PER_BLOCK rows of dscale's partial sums (its row
+# groups added in order), summed by a second kernel in a fixed order
+# (kBwdBlocks and kPartialRowsPerBlock in the .cu)
+BACKWARD_BLOCKS = 512
+PARTIAL_ROWS_PER_BLOCK = 1
 
 
 def _check(x, scale):
@@ -61,10 +64,14 @@ def rmsnorm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
                           g: torch.Tensor, *, eps: float = 1e-6):
     """The gradient of ``rmsnorm_cuda`` at (x, scale) against g = dL/dy:
     x, scale and g all float32 or all bfloat16, as ``rmsnorm_cuda`` takes
-    them (g of x's shape).  Returns (dx (N, d), dscale (d,)) in x's dtype,
-    bitwise the same from call to call; the bf16 half is bitwise the
-    float32 kernel on the widened inputs, rounded to bf16 once.  Raises
-    ValueError on any other input."""
+    them (g of x's shape; any alignment: 16-byte aligned rows with d a
+    multiple of 8 go by 16-byte accesses, others element by element, the
+    same sums in the same order).  One pass over the rows, each held in
+    registers; dscale's partial sums go to a (blocks, d) float32 scratch
+    allocated here, summed by a second kernel in a fixed order.  Returns
+    (dx (N, d), dscale (d,)) in x's dtype, bitwise the same from call to
+    call; the bf16 half is bitwise the float32 kernel on the widened
+    inputs, rounded to bf16 once.  Raises ValueError on any other input."""
     _check(x, scale)
     if g.shape != x.shape:
         raise ValueError(f"g must be x's shape {tuple(x.shape)}, got {tuple(g.shape)}")
@@ -72,7 +79,7 @@ def rmsnorm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
     N, d = x.shape
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partial = torch.empty((max(1, min(N, BACKWARD_BLOCKS)), d),
+    partial = torch.empty((max(1, min(N, BACKWARD_BLOCKS)) * PARTIAL_ROWS_PER_BLOCK, d),
                           dtype=torch.float32, device=x.device)
     kernel = BACKWARD if x.dtype == torch.float32 else BACKWARD_BF16
     with torch.cuda.device(x.device):

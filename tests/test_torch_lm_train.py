@@ -340,24 +340,36 @@ def _flash_backward_emulated(q, k, v, o, do, lse, *, causal, window, q_offset=0,
     return dq, dk, dv
 
 
-def _rmsnorm_backward_emulated(x, scale, g, *, eps, blocks=3):
+def _rmsnorm_backward_emulated(x, scale, g, *, eps, blocks=3, rows_a_block=2,
+                               sum_groups=4):
     """The backward kernel's walk (csrc/rmsnorm_backward.cu): rows dealt
-    to ``blocks`` blocks grid-stride, each block's dscale row summed row by
-    row, then the block rows summed in block order."""
+    grid-stride to the ``blocks`` x ``rows_a_block`` row groups, each
+    group's g * (x * r) summed row by row, a block's groups added in order
+    into its partial row; then each column of the partial rows summed by
+    ``sum_groups`` row groups (rows grp, grp + sum_groups, ...) and their
+    sums folded in a fixed tree."""
     N, d = x.shape
-    grid = min(N, blocks)
-    partial = torch.zeros(grid, d)
+    grid = min(-(-N // rows_a_block), blocks)
+    groups = grid * rows_a_block
+    acc = torch.zeros(groups, d)
     dx = torch.empty_like(x)
     for row in range(N):
         xr, gr = x[row], g[row]
         r = torch.rsqrt(torch.sum(xr * xr) / d + eps)
         c = r * r * r * (torch.sum(xr * scale * gr) / d)
         dx[row] = r * (scale * gr) - xr * c
-        partial[row % grid] += gr * (xr * r)
-    dscale = torch.zeros(d)
+        acc[row % groups] += gr * (xr * r)
+    partial = acc.reshape(grid, rows_a_block, d)[:, 0].clone()
+    for s in range(1, rows_a_block):
+        partial = partial + acc.reshape(grid, rows_a_block, d)[:, s]
+    sums = torch.zeros(sum_groups, d)
     for b in range(grid):
-        dscale = dscale + partial[b]
-    return dx, dscale
+        sums[b % sum_groups] += partial[b]
+    half = sum_groups // 2
+    while half:
+        sums[:half] = sums[:half] + sums[half:2 * half]
+        half //= 2
+    return dx, sums[0]
 
 
 # (T, S, causal, window) with B = 2; then the kernels' wider contract,

@@ -235,3 +235,25 @@ def test_check_aligned_refuses_views_off_16_bytes():
     for off in (1, 2, 3, 5):
         with pytest.raises(ValueError, match="16-byte aligned"):
             check_aligned(base[off:], "x")
+
+
+def _cu_constant(source: str, name: str) -> int:
+    """The integer value of ``constexpr ... name = <int>;`` in a csrc file."""
+    import re
+
+    text = (ROOT / "src" / "repro_torch" / "csrc" / source).read_text()
+    found = re.findall(rf"constexpr\s+(?:long\s+long|int)\s+{name}\s*=\s*(\d+)\s*;", text)
+    assert len(found) == 1, f"{source}: {name} defined {len(found)} times"
+    return int(found[0])
+
+
+@pytest.mark.parametrize("cu_name,py_name", [("kBwdBlocks", "BACKWARD_BLOCKS"),
+                                             ("kPartialRowsPerBlock",
+                                              "PARTIAL_ROWS_PER_BLOCK")])
+def test_rmsnorm_backward_scratch_constants_match_the_kernel(cu_name, py_name):
+    """The wrapper sizes the backward's partial-sum scratch from the same
+    grid and rows a block as the kernel writes: a mismatch would be an
+    out-of-bounds write on the card, which no CPU test can run."""
+    from repro_torch.kernels.rmsnorm import kernel
+
+    assert _cu_constant("rmsnorm_backward.cu", cu_name) == getattr(kernel, py_name)
