@@ -257,6 +257,34 @@ Phases, each of which raises on failure:
      (loss within 3e-2; its top-2 routes can flip on an ulp, so its leaves
      are reported) and the same model routing to all 4 experts (every leaf
      within 3e-2 of scale).
+  xlstm-350m served and trained (slice 16), fp32, TF32 off, seed-0 weights
+  drawn on the card, in a fresh child process (``--xlstm-alone JSON``)
+  after phase 17's:
+ 18. (a) the mLSTM and sLSTM (plain torch: the reference has no kernel for
+     them) at its heads, B 2, T 200 (off the 64-token chunk), H 4, D 256:
+     the chunked mLSTM against the sequential one on a seeded cell's own
+     gates within 2e-4, each cell's full sequence against its one-token
+     decode steps (5e-4 mLSTM, 5e-5 sLSTM), the reference's bars; RMSNorm
+     and its backward at the training rows (8192, 1024) against the plain
+     version and float64, two backward calls bitwise, each timed beside its
+     plain version, ``F.rms_norm`` and its bound; (b) the full-size model
+     (24 layers, 0.217 B params) through ``ServeEngine(max_len=544)
+     .generate``: 8 prompts of 512 tokens, 32 greedy tokens, launches from
+     0 and exact (25 RMSNorm a forward, no attention kernel), a second
+     generate's tokens equal and its layer-0 and final RMSNorm calls
+     replayed against the plain version; weights, peak, tokens/s, the
+     prefill alone, each decode step's host ms and, by torch.profiler, its
+     kernels' device ms and count; (c) 2 prompts of 64 tokens, 8 tokens,
+     against the port's CPU run of the same weights (phase 8's bars); (d)
+     ``make_train_step`` at T = 512 (train_4k's 4,096 cut: the sLSTM's
+     time loop is host-bound, 44.6 s a step at 4,096), the global batch
+     cut from 256 to 2 (one microbatch): 3 steps, step 1 again from the
+     same state bitwise, launches exact (RMSNorm 49 a step: remat runs the
+     24 pre-norms twice and the final norm once; its backward 25), every
+     gradient leaf finite and nonzero, step s, tokens/s, peak, and the
+     third step profiled: its busy share, device ms by kernel and the
+     shares of its launches, host time and device time in the sLSTM time
+     loop and in the mLSTM cells (read from the raw trace, ``raw_profile``).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -278,6 +306,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import record_function  # noqa: E402
 
 from repro_torch import (  # noqa: E402
     fp32_math,
@@ -373,6 +402,7 @@ from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.module import param_count  # noqa: E402
 from repro_torch.nn.moe import _pick_group_size, moe_routing  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
+from repro_torch.nn import xlstm as xlstm_nn  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
 from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
 from repro_torch.optim.sgd import sgd_init  # noqa: E402
@@ -641,6 +671,37 @@ MOE_TRAIN_FLASH_SWEEP = (
 MOE_TRAIN_RMS_SWEEP = tuple((N, d) for N in (1, 8, 4097) for d in (896, 2048, 8192))
 # reduced moonshot in bf16, the card against the port's CPU: the bf16 bar
 MOE_TRAIN_BF16_CPU_TOL = 3e-2
+# slice 16: xlstm-350m at full size (24 layers of d 1,024, 4 heads of 256:
+# 21 mLSTM and 3 sLSTM cells, no FFN, an untied readout; 0.217 B params in
+# fp32, drawn on the card from seed 0), in a fresh child process (python3
+# chip_smoke.py --xlstm-alone JSON) after phase 17's
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_ALONE_TIMEOUT_S = 600
+# (a) the cells at its heads: B 2, T 200 (off the 64-token chunk), H 4, D
+# 256, held to the reference's bars (tests/test_recurrent.py): the chunked
+# mLSTM against the sequential one, each cell's full sequence against its
+# one-token decode steps
+XLSTM_CELL_B, XLSTM_CELL_T = 2, 200
+XLSTM_CHUNK_TOL, XLSTM_MLSTM_DECODE_TOL, XLSTM_SLSTM_DECODE_TOL = 2e-4, 5e-4, 5e-5
+XLSTM_CELLS = {
+    "mlstm": (xlstm_nn.mlstm_init, xlstm_nn.mlstm_apply, xlstm_nn.mlstm_decode_apply,
+              lambda B, d, H: xlstm_nn.mlstm_decode_init_state(B, H, d // H, device="cuda")),
+    "slstm": (xlstm_nn.slstm_init, xlstm_nn.slstm_apply, xlstm_nn.slstm_decode_apply,
+              lambda B, d, H: xlstm_nn.slstm_decode_init_state(B, d, device="cuda")),
+}
+# (b) serving: 8 prompts of 512 tokens, 32 greedy tokens; decode steps
+# traced by torch.profiler
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 32
+XLSTM_MAX_LEN = XLSTM_PROMPT + XLSTM_NEW
+XLSTM_PROFILE_STEPS = 4
+# (c) the card against the port's CPU: 2 prompts of 64 tokens, 8 tokens each
+XLSTM_CPU_B, XLSTM_CPU_T, XLSTM_CPU_NEW = 2, 64, 8
+# (d) training at train_4k's shape, cut: its global batch of 256 to 2 (one
+# microbatch at d 1,024) and T from 4,096 to 512, since the sLSTM's time
+# loop is host-bound (a step at 4,096 took 44.6 s on an H100; at 1,024,
+# 9.0-14.1 s, phase 18 took 159 s and the script 951 s of its 1,200); 3
+# steps, the third profiled
+XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_STEPS = 512, 2, 3
 
 
 def check(cond, msg: str) -> None:
@@ -721,11 +782,14 @@ def device_kernels(fn, reps: int = 20, match: str = "", flush: bool = False,
 
 def profiled_kernels(prof, match: str = "") -> dict:
     """{kernel name: (device us, launches)} of a finished torch.profiler
-    run, for the kernels whose names hold ``match``."""
+    run, for the kernels whose names hold ``match``.  A profiler range
+    (``record_function``: ``value_and_grad.backward``, ``ranged``) also
+    leaves a span on the device's timeline over the kernels it launched;
+    those spans are not kernels and are left out."""
     out = {}
     for evt in prof.key_averages():
         if (getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA
-                or match not in evt.key):
+                or getattr(evt, "is_user_annotation", False) or match not in evt.key):
             continue
         total = getattr(evt, "device_time_total", None)
         total = total if total is not None else evt.cuda_time_total
@@ -2582,8 +2646,11 @@ def kernel_picks(cfg) -> dict:
     dense forward: the first call of each.  An enc-dec forward (whisper):
     the encoder's first flash call and decoder layer 0's self and cross
     flash in the prefill, layer 0's self and cross decode attention in
-    each step; its LayerNorm is plain torch, so it has no RMSNorm."""
+    each step; its LayerNorm is plain torch, so it has no RMSNorm.  An
+    xLSTM forward: layer 0's pre-norm and the final norm."""
     L = cfg.n_layers
+    if cfg.xlstm is not None:       # no attention; a pre-norm a layer, the final norm
+        return {"rmsnorm": (L + 1, {0, L})}
     if cfg.encdec is None:
         return {"flash_attention": (L, {0}), "decode_attention": (L, {0}),
                 "rmsnorm": (2 * L + 1, {0})}
@@ -5138,6 +5205,463 @@ def phase_moe_train(card) -> tuple:
     return rows, forwards, mt
 
 
+# ------------------------------------------------------------ slice 16 ---
+def xlstm_cells(card) -> dict:
+    """Phase 18a: the mLSTM and sLSTM on the card at xlstm-350m's heads
+    (d 1,024, 4 heads of 256), fp32, seed-0 cells, B = XLSTM_CELL_B, T =
+    XLSTM_CELL_T (off the 64-token chunk): the chunked mLSTM against the
+    sequential one on a cell's own gates, each cell's full sequence against
+    its one-token decode steps, at the reference's bars; each path's time."""
+    cfg = get_config(XLSTM_ARCH)
+    d, H = cfg.d_model, cfg.n_heads
+    B, T = XLSTM_CELL_B, XLSTM_CELL_T
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    out = {"shape": (B, T, H, d // H)}
+    for kind, bar in (("mlstm", XLSTM_MLSTM_DECODE_TOL), ("slstm", XLSTM_SLSTM_DECODE_TOL)):
+        init, apply, step, state0 = XLSTM_CELLS[kind]
+        p = init(gen, d, H, device="cuda")
+        x = 0.5 * torch.randn((B, T, d), generator=gen, device="cuda")
+        if kind == "mlstm":
+            gates = xlstm_nn._mlstm_gates(p, x, H)
+            yc, _ = xlstm_nn.mlstm_chunked(*gates)
+            ys = xlstm_nn.mlstm_sequential(*gates)
+            err = close_err(yc, ys, XLSTM_CHUNK_TOL, "phase 18a: mlstm_chunked vs sequential")
+            out["chunked_vs_sequential"] = err
+            out["chunked_ms"] = time_ms(lambda: xlstm_nn.mlstm_chunked(*gates), reps=5)
+            out["sequential_ms"] = time_ms(lambda: xlstm_nn.mlstm_sequential(*gates), reps=3)
+        y = apply(p, x, n_heads=H)
+        state = state0(B, d, H)
+        ys = []
+        for t in range(T):
+            yt, state = step(p, x[:, t:t + 1], state, n_heads=H)
+            ys.append(yt)
+        out[f"{kind}_full_vs_decode"] = close_err(torch.cat(ys, 1), y, bar,
+                                                  f"phase 18a: {kind} full vs decode")
+        out[f"{kind}_apply_ms"] = time_ms(lambda: apply(p, x, n_heads=H), reps=5)
+    print(f"phase 18a: {XLSTM_ARCH}'s cells at (B, T, H, D) = {out['shape']}, fp32: "
+          f"mlstm_chunked vs mlstm_sequential max |err| {out['chunked_vs_sequential']:.3e} "
+          f"(bar {XLSTM_CHUNK_TOL} abs + rel), mLSTM full vs decode "
+          f"{out['mlstm_full_vs_decode']:.3e} (bar {XLSTM_MLSTM_DECODE_TOL}), sLSTM full vs "
+          f"decode {out['slstm_full_vs_decode']:.3e} (bar {XLSTM_SLSTM_DECODE_TOL}); "
+          f"mlstm_chunked {out['chunked_ms']:.3f} ms, mlstm_sequential "
+          f"{out['sequential_ms']:.3f} ms, mlstm_apply {out['mlstm_apply_ms']:.3f} ms, "
+          f"slstm_apply {out['slstm_apply_ms']:.3f} ms (CUDA events)  [{card}]")
+    return out
+
+
+def xlstm_rms_rows(card) -> dict:
+    """RMSNorm and its backward at the xLSTM training rows (B * T, d) =
+    (XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ, 1,024), fp32: the forward within
+    LLM_KERNEL_TOL of its plain version, the backward within LM_RMS_TOL of
+    float64's scale, two calls bitwise; each timed beside its plain
+    version, the library call (``F.rms_norm``, its backward) and its
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(183)
+    N, d = XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ, get_config(XLSTM_ARCH).d_model
+    x = torch.randn((N, d), generator=gen, device="cuda").requires_grad_()
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).requires_grad_()
+    g = torch.randn((N, d), generator=gen, device="cuda")
+    xd, sd = x.detach(), scale.detach()
+    fwd_err = close_err(rmsnorm_cuda(xd, sd), rmsnorm_ref(xd, sd), LLM_KERNEL_TOL,
+                        "phase 18: rmsnorm at the xLSTM rows")
+    dx, ds = rmsnorm_backward_cuda(xd, sd, g)
+    dx2, ds2 = rmsnorm_backward_cuda(xd, sd, g)
+    check(torch.equal(dx, dx2) and torch.equal(ds, ds2),
+          "phase 18: two rmsnorm_backward calls differ")
+    rx, rs = rmsnorm_grads64(xd, sd, g)
+    bwd_err = 0.0
+    for got, ref, what in ((dx, rx, "dx"), (ds, rs, "dscale")):
+        e = (got.double() - ref).abs().max().item()
+        check(e <= LM_RMS_TOL * ref.abs().max().item(),
+              f"phase 18: rmsnorm_backward {what} off float64 by {e}")
+        bwd_err = max(bwd_err, e)
+    y_ref, y_lib = rmsnorm_ref(x, scale), torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)
+    rows = {}
+    for name, kern, plain, library, nbytes, ops, err in (
+            ("rmsnorm", lambda: rmsnorm_cuda(xd, sd), lambda: rmsnorm_ref(xd, sd),
+             lambda: torch.nn.functional.rms_norm(xd, (d,), sd, 1e-6),
+             (2 * N * d + d) * 4, 4 * N * d, fwd_err),
+            ("rmsnorm_backward", lambda: rmsnorm_backward_cuda(xd, sd, g),
+             lambda: torch.autograd.grad(y_ref, (x, scale), g, retain_graph=True),
+             lambda: torch.autograd.grad(y_lib, (x, scale), g, retain_graph=True),
+             (3 * N * d + 2 * d) * 4, 6 * N * d, bwd_err)):
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms, plain_ms, library_ms = (time_ms(fn) for fn in (kern, plain, library))
+        rows[name] = {"shape": (N, d), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"phase 18: {name} at the xLSTM training rows ({N}, {d}): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); max |err| {err:.3e}  [{card}]")
+    return rows
+
+
+def xlstm_serve(cfg, params, card) -> dict:
+    """Phase 18b: xlstm-350m at full size through ``ServeEngine.generate``
+    (launch counts from 0, exact: the pre-norms and the final norm a
+    forward, no attention kernel); weights, peak, tokens/s; a second
+    generate's layer-0 and final RMSNorm calls replayed against the plain
+    version; the prefill alone, each decode step's host time and, by
+    torch.profiler, its kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L = cfg.n_layers
+    leaves = tree_leaves(params)
+    n_params = param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.RandomState(182)
+    reqs = [Request(tokens=rng.randint(0, cfg.vocab, XLSTM_PROMPT),
+                    max_new_tokens=XLSTM_NEW) for _ in range(XLSTM_BATCH)]
+    eng = ServeEngine(cfg, params, max_len=XLSTM_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = slice11_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = outs[0].steps
+    check(steps == XLSTM_NEW, f"phase 18b: {steps} steps for {XLSTM_NEW} tokens")
+    check_launches(launches, {"rmsnorm": (L + 1) * steps}, "phase 18b")
+    for c in outs:
+        check(len(c.tokens) == XLSTM_NEW and c.tokens.min() >= 0
+              and c.tokens.max() < cfg.vocab, f"phase 18b: a completion {c.tokens}")
+    tokens = [c.tokens.tolist() for c in outs]
+    kept, restore = capture_kernel_calls(cfg)
+    try:
+        again = eng.generate(reqs)
+    finally:
+        restore()
+    check([c.tokens.tolist() for c in again] == tokens,
+          "phase 18b: a second greedy generate gave other tokens")
+    kernel_errs = replay_kernel_calls(kept, "phase 18b")
+    del kept
+
+    batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, T = bb.prefill(cfg, params, batch, max_len=XLSTM_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    host = []
+    for i in range(XLSTM_NEW - 1):
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = bb.decode_step(cfg, params, tok, cache, T + i)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    tok = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(XLSTM_PROFILE_STEPS):
+            logits, cache = bb.decode_step(cfg, params, tok, cache, T + XLSTM_NEW + i)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    kernels = profiled_kernels(prof)
+    device_us = sum(us for us, _ in kernels.values()) / XLSTM_PROFILE_STEPS
+    n_kernels = sum(n for _, n in kernels.values()) / XLSTM_PROFILE_STEPS
+    top = sorted(((us / XLSTM_PROFILE_STEPS / 1e3, k[:48]) for k, (us, _) in kernels.items()),
+                 reverse=True)[:6]
+    out = {"arch": XLSTM_ARCH, "params": n_params, "weight_bytes": weight_bytes,
+           "requests": XLSTM_BATCH, "prompt": XLSTM_PROMPT, "new_tokens": XLSTM_NEW,
+           "generate_s": wall, "tokens_per_s": XLSTM_BATCH * XLSTM_NEW / wall,
+           "peak_bytes": peak, "launches": launches, "kernel_errs": kernel_errs,
+           "prefill_s": statistics.median(prefill_s), "prefill_s_all": prefill_s,
+           "decode_step_host_ms": [h * 1e3 for h in host],
+           "decode_step_host_ms_median": statistics.median(host) * 1e3,
+           "decode_step_device_ms": device_us / 1e3, "decode_step_kernels": n_kernels,
+           "profiled_steps_host_ms": prof_s * 1e3 / XLSTM_PROFILE_STEPS,
+           "decode_top_kernels_ms": top, "greedy_tokens_row0": tokens[0]}
+    print(f"phase 18b: {XLSTM_ARCH} at full size ({L} layers, {n_params / 1e9:.4f} B params, "
+          f"{weight_bytes / 2**30:.2f} GiB of fp32 weights): ServeEngine(max_len="
+          f"{XLSTM_MAX_LEN}).generate of {XLSTM_BATCH} x {XLSTM_PROMPT}-token prompts, "
+          f"{XLSTM_NEW} greedy tokens each, in {wall:.3f} s ({out['tokens_per_s']:.1f} "
+          f"tokens/s); peak {peak / 2**30:.2f} GiB; launches "
+          f"{ {n: c for n, c in launches.items() if c} } (exact: {L + 1} RMSNorm a forward, "
+          f"no attention kernel)  [{card}]")
+    print(f"phase 18b: prefill alone {out['prefill_s'] * 1e3:.1f} ms (host, median of 3: "
+          f"{[round(x * 1e3, 1) for x in prefill_s]}); decode steps on the host median "
+          f"{out['decode_step_host_ms_median']:.2f} ms ({[round(h * 1e3, 2) for h in host]}); "
+          f"a decode step's kernels {out['decode_step_device_ms']:.3f} ms of device time in "
+          f"{n_kernels:.0f} launches (torch.profiler over {XLSTM_PROFILE_STEPS} steps, "
+          f"{out['profiled_steps_host_ms']:.2f} ms a step on the host there); top kernels "
+          f"(ms a step) {top}  [{card}]")
+    del eng, logits, cache, outs, again
+    return out
+
+
+def xlstm_vs_cpu(cfg, params, card) -> dict:
+    """Phase 18c: XLSTM_CPU_B prompts of XLSTM_CPU_T tokens on the card and
+    on the port's CPU, the same weights: ``card_vs_cpu`` (prefill logits
+    within LLM_LOGIT_TOL, greedy tokens by the near-tie rule)."""
+    prompts = np.random.RandomState(185).randint(0, cfg.vocab, (XLSTM_CPU_B, XLSTM_CPU_T))
+    return card_vs_cpu(cfg, params, [Request(tokens=p, max_new_tokens=XLSTM_CPU_NEW)
+                                     for p in prompts],
+                       XLSTM_CPU_T + XLSTM_CPU_NEW, "phase 18c")
+
+
+def ranged(fn, name: str):
+    """``fn`` inside a torch.profiler range named ``name``."""
+    def run(*a, **kw):
+        with record_function(name):
+            return fn(*a, **kw)
+    return run
+
+
+def raw_profile(prof, ranges=()) -> dict:
+    """A finished torch.profiler run read from its raw (kineto) events,
+    without the Python event tree that ``key_averages`` builds (minutes
+    for a step of 10^6 launches): {"kernels": {name: [device us,
+    launches]}, "busy_us", "n_kernels", "ranges": {name: ...}} over the
+    device work (kernels, copies, sets: the device events that a host
+    call of the CUDA API, named ``cu...``, launched; not the spans that
+    profiler ranges leave on the device).  For each name of
+    ``ranges`` (torch.profiler ranges, ``ranged``): what the run spent in
+    those ranges and in the backward of the operators run inside them (the
+    autograd nodes that carry those operators' sequence numbers): host us
+    (the union of those intervals on each thread), the kernels launched
+    from them and their device us."""
+    import bisect
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ns = ((lambda e: e.start_ns(), lambda e: e.end_ns(), lambda e: e.duration_ns())
+          if events and hasattr(events[0], "duration_ns") else
+          (lambda e: e.start_us() * 1000, lambda e: (e.start_us() + e.duration_us()) * 1000,
+           lambda e: e.duration_us() * 1000))
+    start, end, dur = ns
+    device, launch, ann, fwd, bwd = [], {}, {n: [] for n in ranges}, [], []
+    for e in events:
+        name = e.name()
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                device.append((name, dur(e), e.correlation_id()))
+        elif name.startswith("cu"):
+            launch[e.correlation_id()] = (e.start_thread_id(), start(e))
+        elif name in ann:
+            ann[name].append((e.start_thread_id(), start(e), end(e)))
+        elif e.sequence_nr() >= 0:
+            if name.startswith("autograd::engine::evaluate_function"):
+                bwd.append(((e.fwd_thread_id(), e.sequence_nr()),
+                            (e.start_thread_id(), start(e), end(e))))
+            elif e.fwd_thread_id() == 0:
+                fwd.append((e.start_thread_id(), start(e), e.sequence_nr()))
+    device = [d for d in device if d[2] in launch]
+    kernels = {}
+    for name, t, _ in device:
+        cur = kernels.setdefault(name, [0.0, 0])
+        cur[0] += t / 1e3
+        cur[1] += 1
+
+    def merged(intervals):
+        """{thread: (sorted starts, ends)} of the union of (thread, start,
+        end) intervals."""
+        by = {}
+        for tid, a, b in sorted(intervals):
+            runs = by.setdefault(tid, [])
+            if runs and a <= runs[-1][1]:
+                runs[-1][1] = max(runs[-1][1], b)
+            else:
+                runs.append([a, b])
+        return {t: ([a for a, _ in r], [b for _, b in r]) for t, r in by.items()}
+
+    def inside(spans, tid, t) -> bool:
+        starts, ends = spans.get(tid, ((), ()))
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= ends[i]
+
+    out = {}
+    for name, intervals in ann.items():
+        spans = merged(intervals)
+        seq = {(tid, n) for tid, t, n in fwd if inside(spans, tid, t)}
+        spans = merged(intervals + [iv for key, iv in bwd if key in seq])
+        corr = {c for c, (tid, t) in launch.items() if inside(spans, tid, t)}
+        mine = [t for _, t, c in device if c in corr]
+        out[name] = {"ranges": len(intervals),
+                     "host_us": sum(b - a for starts, ends in spans.values()
+                                    for a, b in zip(starts, ends)) / 1e3,
+                     "launches": len(mine), "device_us": sum(mine) / 1e3}
+    return {"kernels": kernels, "busy_us": sum(t for _, t, _ in device) / 1e3,
+            "n_kernels": len(device), "ranges": out}
+
+
+def xlstm_train(cfg, params, card) -> dict:
+    """Phase 18d: xlstm-350m at full size, fp32, through ``make_train_step``
+    at T = XLSTM_TRAIN_SEQ, the global batch cut to XLSTM_TRAIN_BATCH (one
+    microbatch): XLSTM_TRAIN_STEPS steps on uniform tokens, step 1 run
+    again from the same state (bitwise the same loss, gradient and
+    params), launches of step 1 from 0 and exact, and of the rest exact;
+    every gradient leaf finite and nonzero; step s (the rerun and step 2),
+    tokens/s, step 1's peak; the last step profiled: its busy share,
+    device ms by kernel, and the share of its launches, host time and
+    device time in the sLSTM cells' time loop and in the mLSTM cells
+    (their forwards, the remat recompute and their backward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L = cfg.n_layers
+    shape = InputShape("train_4k", XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH, "train")
+    n_micro = n_microbatches(cfg, shape)
+    check(n_micro == 1, f"phase 18d: {n_micro} microbatches at d = {cfg.d_model}")
+    step = make_train_step(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(184)
+    batches = [{k: torch.randint(0, cfg.vocab, (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ),
+                                 generator=gen, device="cuda") for k in ("tokens", "labels")}
+               for _ in range(XLSTM_TRAIN_STEPS)]
+    opt0 = opt_init(params)
+    per_step = {"rmsnorm": 2 * L + 1, "rmsnorm_backward": L + 1}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    p, opt, m1 = step(params, opt0, batches[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = slice11_counts()
+    check_launches(launches, per_step, "phase 18d: step 1")
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(opt["momentum"])    # zero momentum, no decay: the gradient
+    bad = [i for i, t in enumerate(leaves)
+           if not bool(torch.isfinite(t).all()) or float(t.abs().max()) == 0.0]
+    check(not bad, f"phase 18d: gradient leaves not finite or all zero: {bad} of {len(leaves)}")
+    kept = [t.cpu() for t in tree_leaves(p) + tree_leaves(opt)]
+    del p, opt, leaves
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, opt, m1b = step(params, opt0, batches[0])
+    torch.cuda.synchronize()
+    host = [time.perf_counter() - t0]
+    check(torch.equal(m1b["loss"], m1["loss"])
+          and all(torch.equal(a, b.to(a.device))
+                  for a, b in zip(tree_leaves(p) + tree_leaves(opt), kept)),
+          "phase 18d: step 1 again from the same state is not bitwise the same")
+    del kept, opt0
+    losses = [float(m1["loss"])]
+    for i in range(1, XLSTM_TRAIN_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt, mi = step(p, opt, batches[i])
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        losses.append(float(mi["loss"]))
+
+    real = {"slstm": bb.slstm_apply, "mlstm": bb.mlstm_apply}
+    bb.slstm_apply = ranged(real["slstm"], "xlstm.slstm")
+    bb.mlstm_apply = ranged(real["mlstm"], "xlstm.mlstm")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p, opt, mi = step(p, opt, batches[-1])
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+    finally:
+        bb.slstm_apply, bb.mlstm_apply = real["slstm"], real["mlstm"]
+    losses.append(float(mi["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"phase 18d: losses {losses}")
+    later = slice11_counts()
+    check_launches(later, {n: c * XLSTM_TRAIN_STEPS for n, c in per_step.items()},
+                   "phase 18d: step 1 again and the later steps")
+    t0 = time.perf_counter()
+    raw = raw_profile(prof, ("xlstm.slstm", "xlstm.mlstm"))
+    parse_s = time.perf_counter() - t0
+    kernels, busy_us, n_kernels = raw["kernels"], raw["busy_us"], raw["n_kernels"]
+    check(n_kernels > 0 and busy_us > 0, "phase 18d: torch.profiler recorded no kernel")
+    cells = {k: raw["ranges"][f"xlstm.{k}"] for k in ("slstm", "mlstm")}
+    ours = {"rmsnorm_backward": "rmsnorm_backward_kernel<float", "rmsnorm_dscale":
+            "rmsnorm_dscale_kernel<float", "rmsnorm": "rmsnorm_kernel"}
+    by = {}
+    for key, (us, n) in kernels.items():
+        name = next((nm for nm, pat in ours.items() if pat in key), key[:60])
+        cur = by.setdefault(name, [0.0, 0])
+        cur[0] += us / 1e3
+        cur[1] += n
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1][0])[:10])
+    shares = {k: {"ranges": c["ranges"], "launches": c["launches"] / n_kernels,
+                  "host": c["host_us"] / 1e6 / prof_s,
+                  "device": c["device_us"] / busy_us} for k, c in cells.items()}
+    tokens = XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ
+    step_s = statistics.median(host)
+    out = {"arch": XLSTM_ARCH, "layers": L, "seq_len": XLSTM_TRAIN_SEQ,
+           "global_batch": XLSTM_TRAIN_BATCH, "n_micro": n_micro, "first_step_s": first_s,
+           "step_s": host, "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+           "peak_bytes": peak, "losses": losses, "launches_per_step": launches,
+           "profiled_step_s": prof_s, "profile_parse_s": parse_s,
+           "busy_share": busy_us / 1e6 / prof_s, "n_kernels": n_kernels,
+           "ours_ms": {n: by[n] for n in ours if n in by}, "top_kernels_ms": top,
+           "cells": cells, "cell_shares": shares}
+    print(f"phase 18d: {XLSTM_ARCH} at full size, fp32, make_train_step at T = "
+          f"{XLSTM_TRAIN_SEQ} (cut from 4,096), global batch {XLSTM_TRAIN_BATCH} (cut from "
+          f"256) in {n_micro} microbatch: step {step_s:.3f} s (median of {len(host)}: step 1 "
+          f"again and step 2; first {first_s:.3f} s), "
+          f"{out['tokens_per_s']:.0f} tokens/s, step 1's peak {peak / 2**30:.2f} GiB; losses "
+          f"{losses}; launches a step { {n: c for n, c in launches.items() if c} } (exact); "
+          f"every gradient leaf finite and nonzero; step 1 again from the same state "
+          f"bitwise  [{card}]")
+    print(f"phase 18d: a profiled step ({prof_s:.3f} s, {n_kernels} kernels; the trace "
+          f"read in {parse_s:.1f} s): busy {out['busy_share']:.1%}; device ms (launches) "
+          f"of the port's kernels {out['ours_ms']}; top kernels "
+          f"{ {k: [round(v[0], 2), v[1]] for k, v in top.items()} }; the sLSTM time loop "
+          f"(3 cells: forward, recompute, backward) {shares['slstm']['launches']:.1%} of the "
+          f"launches, {shares['slstm']['host']:.1%} of the host time, "
+          f"{shares['slstm']['device']:.1%} of the device time; the mLSTM cells "
+          f"{shares['mlstm']['launches']:.1%}, {shares['mlstm']['host']:.1%}, "
+          f"{shares['mlstm']['device']:.1%}  [{card}]")
+    del p, opt, batches
+    return out
+
+
+def xlstm_alone(card) -> dict:
+    """Phase 18 (a)-(d) in a fresh child process of this script, which
+    prints its lines and writes its numbers to a JSON file
+    (``phase_xlstm``): xlstm-350m's seed-0 weights drawn on the card."""
+    t0 = time.perf_counter()
+    cells = xlstm_cells(card)
+    rms = xlstm_rms_rows(card)
+    t_a = time.perf_counter() - t0
+    cfg = get_config(XLSTM_ARCH)
+    params = bb.init_params(cfg, seed=0, gen_device="cuda")
+    check(all(t.dtype == torch.float32 and t.device.type == "cuda"
+              for t in tree_leaves(params)), "phase 18: a parameter is not fp32 on the card")
+    serve = xlstm_serve(cfg, params, card)
+    t_b = time.perf_counter() - t0 - t_a
+    vs_cpu = xlstm_vs_cpu(cfg, params, card)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    train = xlstm_train(cfg, params, card)
+    return {"cells": cells, "rms": rms, "serve": serve, "vs_cpu": vs_cpu, "train": train,
+            "part_s": {"a": t_a, "b": t_b, "c": t_c,
+                       "d": time.perf_counter() - t0 - t_a - t_b - t_c}}
+
+
+def phase_xlstm(card) -> tuple:
+    """Phase 18: ``xlstm_alone`` in a fresh child process, started after
+    phase 17's has ended; returns the launches of the fp32 RMSNorm kernels
+    on its paths, their largest errors, and the numbers."""
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xlstm_alone.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--xlstm-alone", path],
+                       check=True, timeout=XLSTM_ALONE_TIMEOUT_S)
+        with open(path) as f:
+            xl = json.load(f)
+    xl["phase_s"] = time.perf_counter() - t0
+    launches = {n: xl["serve"]["launches"].get(n, 0)
+                + xl["train"]["launches_per_step"].get(n, 0) * (XLSTM_TRAIN_STEPS + 1)
+                for n in ("rmsnorm", "rmsnorm_backward")}
+    errs = {"rmsnorm": max(xl["rms"]["rmsnorm"]["max_abs_err"],
+                           xl["serve"]["kernel_errs"].get("rmsnorm", 0.0)),
+            "rmsnorm_backward": xl["rms"]["rmsnorm_backward"]["max_abs_err"]}
+    print(f"phase 18: {xl['phase_s']:.1f} s in a child process, by part "
+          f"{ {k: round(v, 1) for k, v in xl['part_s'].items()} }")
+    return launches, errs, xl
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -5150,6 +5674,9 @@ def main() -> int:
     ap.add_argument("--moe-train-alone", metavar="JSON",
                     help="only run phase 17 (moonshot-v1-16b-a3b trained in bf16; the "
                          "kernels built already) and write the numbers here")
+    ap.add_argument("--xlstm-alone", metavar="JSON",
+                    help="only run phase 18 (xlstm-350m served and trained; the kernels "
+                         "built already) and write the numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5172,6 +5699,10 @@ def main() -> int:
     if args.moe_train_alone:
         with open(args.moe_train_alone, "w") as f:
             json.dump(moe_train_alone(card), f)
+        return 0
+    if args.xlstm_alone:
+        with open(args.xlstm_alone, "w") as f:
+            json.dump(xlstm_alone(card), f)
         return 0
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
@@ -5239,6 +5770,10 @@ def main() -> int:
     for row in rows:               # the bf16 forwards' launches on slice 14's path
         row["launches"] += mt_forwards.get(row["name"], 0)
     rows += mt_rows
+    xl_launches, xl_errs, xlstm_numbers = phase_xlstm(card)
+    for row in rows:               # the fp32 RMSNorm kernels on slice 16's paths
+        row["launches"] += xl_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], xl_errs.get(row["name"], 0.0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -5260,11 +5795,12 @@ def main() -> int:
                                    "width": GATEWAY_WIDTH, **gw},
                        "train": train, "scheduler": sched, "prefix": prefix,
                        "lm": lm, "slice11": s11, "moe": moe,
-                       "moe_train": moe_train_numbers},
+                       "moe_train": moe_train_numbers, "xlstm": xlstm_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s "
           f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s, "
-          f"phase 17 {moe_train_numbers['phase_s']:.1f} s)")
+          f"phase 17 {moe_train_numbers['phase_s']:.1f} s, phase 18 "
+          f"{xlstm_numbers['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

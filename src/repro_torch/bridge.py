@@ -65,13 +65,14 @@ def backbone_params_from_numpy(tree, cfg, device=None):
 
     ``tree["blocks"]`` holds one dict per sublayer of a superblock, each
     leaf stacked over superblocks; layer ``s * superblock + j`` of the
-    port is leaf ``[s]`` of sublayer ``j``.  An MoE sublayer's ``moe``
+    port is leaf ``[s]`` of sublayer ``j`` (an xLSTM's sublayers hold their
+    cell's weights under ``cell``).  An MoE sublayer's ``moe``
     (``router``, stacked ``gate`` / ``up`` / ``down`` of shape (E, a, b)),
     ``shared`` and ``dense_res`` come over with it.  An enc-dec tree's
     ``"encoder"`` and ``"blocks"`` are each one dict whose leaves are
     stacked over layers; layer ``i`` is leaf ``[i]``.  Every other entry
     (``vision_proj``, the norms, the embedding) keeps its layout."""
-    sublayer_specs(cfg)                 # no hybrid or xLSTM, for now
+    sublayer_specs(cfg)                 # refuses a config the port cannot run
     device = resolve_device(device)
     dtype = cfg.dtype
     stacked = ("encoder", "blocks")

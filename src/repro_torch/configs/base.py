@@ -4,9 +4,9 @@ The fields and defaults are those of ``repro.configs.base``, so a config
 means the same model in both packages.  ``dtype`` gives a torch dtype
 (``param_dtype``: the MoE archs are bfloat16 at full size, and
 ``reduced()`` forces float32 as the JAX package's does).  The port
-registers the dense archs, internvl2-1b (VLM), whisper-tiny (enc-dec) and
-the MoE archs; the spec dataclasses of the others (hybrid, xLSTM) are
-kept so that a config carrying them can be named and refused.
+registers the dense archs, internvl2-1b (VLM), whisper-tiny (enc-dec),
+the MoE archs and xlstm-350m; the hybrid spec dataclass is kept so that a
+config carrying it can be named and refused.
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@ decode.
 
 The port of ``repro.models.backbone`` for the dense archs (qwen2,
 llama3.2), the MoE archs (moonshot-v1-16b-a3b, mixtral-8x7b,
-arctic-480b), the VLM (internvl2-1b) and the enc-dec (whisper-tiny):
+arctic-480b), the VLM (internvl2-1b), the enc-dec (whisper-tiny) and the
+xLSTM (xlstm-350m):
 
 - dense: every layer is RMSNorm -> causal GQA self-attention with RoPE ->
   residual, RMSNorm -> SwiGLU FFN -> residual, and a final RMSNorm before
@@ -24,19 +25,32 @@ arctic-480b), the VLM (internvl2-1b) and the enc-dec (whisper-tiny):
   LayerNorm -> GELU MLP), and a decoder whose layers add cross-attention
   to the encoder's output between the causal self-attention and the MLP;
   the decoder's token embeddings carry sinusoidal positions too.
+- xLSTM: superblocks of ``cfg.xlstm.period`` layers, each RMSNorm -> an
+  mLSTM cell (``nn/xlstm.py``) -> residual, except the sLSTM cell at
+  ``slstm_index``; no FFN sublayer (``ffn == "none"``), an untied readout.
 
-Where the JAX package stacks the layers on a leading axis and scans them,
-the port keeps ``params["blocks"]`` (and the enc-dec ``params["encoder"]``)
-as a Python list of per-layer dicts and loops over it.
+A superblock is ``sublayer_specs(cfg)``: one spec {"kind", "ffn"} per
+layer of it (one layer for every arch but the xLSTM); layer i takes spec
+``i % cfg.superblock``.  Where the JAX package stacks the superblocks on a
+leading axis and scans them, the port keeps ``params["blocks"]`` (and the
+enc-dec ``params["encoder"]``) as a Python list of per-layer dicts, layer
+``s * superblock + j`` being sublayer j of superblock s, and loops over it.
 
-The decode cache is ``{"k", "v"}``, each one (L, B, S, Hkv, D) tensor
-whose ``[i]`` slice is layer i's contiguous ring of S slots; an enc-dec
-cache adds ``{"ck", "cv"}``, each (L, B, F, H, D), the cross-attention
-K/V of the encoder's output.  ``decode_step`` writes into it IN PLACE and
-returns the same dict (the JAX package returns new arrays).
+The decode cache of an attention arch is ``{"k", "v"}``, each one (L, B,
+S, Hkv, D) tensor whose ``[i]`` slice is attention layer i's contiguous
+ring of S slots; an enc-dec cache adds ``{"ck", "cv"}``, each (L, B, F,
+H, D), the cross-attention K/V of the encoder's output.  An xLSTM's cache
+holds the cells' recurrent states in the JAX package's per-kind tensors,
+(n_superblocks, cells of the kind in a superblock, B, ...): ``mlstm_C``
+(.., H, D, D), ``mlstm_n`` (.., H, D) and ``mlstm_m`` (.., H) in float32,
+``slstm_h`` (.., d) in the model's dtype and ``slstm_c`` / ``_n`` / ``_m``
+(.., d) in float32, the m's filled with -1e30 before the first token.
+``decode_step`` writes into the cache IN PLACE and returns the same dict
+(the JAX package returns new arrays).
 ``prefill(long_context=True)`` runs a full-attention arch as a sliding
 window of ``cfg.long_context_window`` tokens, in prefill and in a ring
-cache of that many slots.
+cache of that many slots (an xLSTM has no attention to window, and
+ignores it).
 
 ``forward_loss`` is the training forward (mean next-token cross-entropy
 by ``chunked_cross_entropy``) and ``forward_hidden`` the final hidden
@@ -47,6 +61,8 @@ recomputed in the backward, so its flash-attention and RMSNorm forwards
 run twice per training step; ``remat=False`` keeps them, with bitwise the
 same loss and gradients (an MoE layer's recompute routes its tokens as the
 first pass did: the routing is a function of the layer's input alone).
+The JAX package checkpoints whole superblocks; per layer, the arithmetic
+is the same.
 On CUDA those forwards and their backward kernels run in the model's
 dtype, float32 or bf16.
 
@@ -59,8 +75,8 @@ size), each on its way to the device before the next is drawn.  A bf16
 model follows the JAX package's casts: norms, the router and the MoE
 combine in float32, K/V kept in a bf16 cache, logits in float32.
 
-Configs with hybrid (Mamba) or xLSTM parts raise NotImplementedError:
-those branches are not ported yet.
+Configs with hybrid (Mamba) parts raise NotImplementedError: that branch
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -88,29 +104,63 @@ from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.xlstm import (
+    NEG,
+    mlstm_apply,
+    mlstm_decode_apply,
+    mlstm_init,
+    slstm_apply,
+    slstm_decode_apply,
+    slstm_init,
+)
 
 # parts of a config the port's backbone cannot run yet, and where they wait
 _UNPORTED = (
     ("hybrid", "ROADMAP Queue 1 item 6(e) (arch zoo: Mamba hybrid)"),
-    ("xlstm", "ROADMAP Queue 1 item 6(c) (arch zoo: xLSTM)"),
 )
+# the recurrent cells' decode state: their names, in the cache's keys
+_CELL_STATE = {"mlstm": "Cnm", "slstm": "hcnm"}
 
 
-def _check_dense(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig) -> None:
     for name, item in _UNPORTED:
         if getattr(cfg, name) is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port's backbone runs dense archs only "
-                f"(with MoE FFNs, a VLM prefix or an enc-dec encoder); "
+                f"{cfg.name}: the port's backbone runs xLSTM and the dense archs "
+                f"only (with MoE FFNs, a VLM prefix or an enc-dec encoder); "
                 f"`{name}` configs wait for {item}")
 
 
 def sublayer_specs(cfg: ArchConfig) -> list[dict]:
-    """Per-sublayer spec of one superblock: a dense or MoE arch (and the
-    VLM and enc-dec decoders) has one attention sublayer, with a dense FFN
-    or, under ``cfg.moe``, an MoE FFN."""
-    _check_dense(cfg)
+    """Per-sublayer spec {"kind", "ffn"} of one superblock: a dense or MoE
+    arch (and the VLM and enc-dec decoders) has one attention sublayer,
+    with a dense FFN or, under ``cfg.moe``, an MoE FFN; an xLSTM's
+    superblock has ``period`` cells, the sLSTM at ``slstm_index`` and
+    mLSTMs elsewhere, with no FFN."""
+    _check_ported(cfg)
+    if cfg.xlstm is not None:
+        return [{"kind": "slstm" if j == cfg.xlstm.slstm_index else "mlstm",
+                 "ffn": "none"} for j in range(cfg.superblock)]
     return [{"kind": "attn", "ffn": "moe" if cfg.moe is not None else "dense"}]
+
+
+def _layer_slots(cfg: ArchConfig) -> list[tuple[dict, tuple]]:
+    """(spec, cache index) of each layer: an attention layer's index is
+    its ordinal among the attention layers ((a,) into the (L, ...) K/V
+    ring), a cell's (superblock, ordinal among its kind in the superblock)
+    into the per-kind state tensors."""
+    specs = sublayer_specs(cfg)
+    out, n_attn = [], 0
+    for i in range(cfg.n_layers):
+        s, j = divmod(i, len(specs))
+        spec = specs[j]
+        if spec["kind"] == "attn":
+            out.append((spec, (n_attn,)))
+            n_attn += 1
+        else:
+            same = sum(1 for sp in specs[:j] if sp["kind"] == spec["kind"])
+            out.append((spec, (s, same)))
+    return out
 
 
 # --------------------------------------------------------------- helpers ---
@@ -186,11 +236,18 @@ def sinusoidal_positions(T: int, d: int, offset: int = 0, *, device=None):
 # ------------------------------------------------------------------ init ---
 def _init_layer(cfg: ArchConfig, spec: dict, gen: torch.Generator,
                 **place) -> dict:
-    p = {"norm": _norm_init(cfg, **place),
-         "attn": attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-                                **place),
-         "ffn_norm": _norm_init(cfg, **place)}
+    p = {"norm": _norm_init(cfg, **place)}
+    if spec["kind"] == "mlstm":
+        p["cell"] = mlstm_init(gen, cfg.d_model, cfg.n_heads, **place)
+    elif spec["kind"] == "slstm":
+        p["cell"] = slstm_init(gen, cfg.d_model, cfg.n_heads, **place)
+    else:
+        p["attn"] = attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                                   **place)
+    if spec["ffn"] == "none":
+        return p
+    p["ffn_norm"] = _norm_init(cfg, **place)
     if spec["ffn"] == "dense":
         ffn_init = mlp_init if cfg.norm == "layernorm" else swiglu_ffn_init
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, **place)
@@ -243,7 +300,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     values for moonshot-v1-16b-a3b).  The draws differ from the JAX
     package's for the same seed: bridge JAX weights with
     ``repro_torch.bridge.backbone_params_from_numpy`` to compare."""
-    specs = sublayer_specs(cfg)
+    slots = _layer_slots(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=gen_device).manual_seed(seed)
     place = {"dtype": cfg.dtype, "device": device}
@@ -258,8 +315,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
         params["blocks"] = [_init_decoder_layer_encdec(cfg, gen, **place)
                             for _ in range(cfg.n_layers)]
     else:
-        params["blocks"] = [_init_layer(cfg, specs[0], gen, **place)
-                            for _ in range(cfg.n_layers)]
+        params["blocks"] = [_init_layer(cfg, spec, gen, **place)
+                            for spec, _ in slots]
     if cfg.vlm is not None:
         params["vision_proj"] = dense_init(gen, cfg.vlm.vision_dim, cfg.d_model,
                                            **place)
@@ -271,11 +328,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 
 # --------------------------------------------------------------- forward ---
 def _apply_ffn(cfg: ArchConfig, spec: dict, p, x, *, dropless: bool = False):
-    """The post-attention FFN sublayer with its residual.  Returns (x, aux):
-    aux is {} for a dense FFN, else the MoE layer's aux.  ``dropless``
-    (inference) sizes the MoE capacity as the JAX package does: E / k
-    (provably dropless) when E <= 8, else min(4, E / k); training keeps
-    the configured capacity factor."""
+    """The post-mixer FFN sublayer with its residual.  Returns (x, aux):
+    aux is {} for a dense FFN or none (x passes through), else the MoE
+    layer's aux.  ``dropless`` (inference) sizes the MoE capacity as the
+    JAX package does: E / k (provably dropless) when E <= 8, else min(4,
+    E / k); training keeps the configured capacity factor."""
+    if spec["ffn"] == "none":
+        return x, {}
     h = _norm(cfg, p["ffn_norm"], x)
     if spec["ffn"] == "dense":
         return x + _ffn(cfg, p["ffn"], h), {}
@@ -295,15 +354,22 @@ def _apply_ffn(cfg: ArchConfig, spec: dict, p, x, *, dropless: bool = False):
 
 def _apply_sublayer(cfg: ArchConfig, spec: dict, p, x, *, window: int,
                     dropless: bool = False, kv_valid_len=None):
-    """Full-sequence (training / prefill) layer.  Returns (x, (k, v),
-    aux)."""
+    """Full-sequence (training / prefill) layer.  Returns (x, its decode
+    state, aux): (k, v) of an attention layer, a cell's state dict after
+    the last token."""
     h = _norm(cfg, p["norm"], x)
-    y, k, v = attention_apply(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, causal=True, window=window,
-        rope_theta=cfg.rope_theta, return_kv=True, kv_valid_len=kv_valid_len)
+    if spec["kind"] == "mlstm":
+        y, state = mlstm_apply(p["cell"], h, n_heads=cfg.n_heads, return_state=True)
+    elif spec["kind"] == "slstm":
+        y, state = slstm_apply(p["cell"], h, n_heads=cfg.n_heads, return_state=True)
+    else:
+        y, k, v = attention_apply(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, causal=True, window=window,
+            rope_theta=cfg.rope_theta, return_kv=True, kv_valid_len=kv_valid_len)
+        state = (k, v)
     x, aux = _apply_ffn(cfg, spec, p, x + y, dropless=dropless)
-    return x, (k, v), aux
+    return x, state, aux
 
 
 def _zero_aux(device) -> dict:
@@ -336,21 +402,23 @@ def _layer_loop(layers, x, body, remat: bool, *args):
 
 
 def _run_layers(cfg: ArchConfig, params, x, *, window: int, remat: bool = True):
-    """Every layer over x (B, T, d).  Returns (x, aux), aux the MoE aux
-    losses averaged over the MoE layers (zeros for a dense arch)."""
-    spec = sublayer_specs(cfg)[0]
+    """Every layer over x (B, T, d), layer i by spec ``i % superblock``.
+    Returns (x, aux), aux the MoE aux losses averaged over the MoE layers
+    (zeros for an arch without)."""
+    specs = sublayer_specs(cfg)
     n_moe = _moe_layer_count(cfg)
 
-    def body(p, h):
-        h, _, aux = _apply_sublayer(cfg, spec, p, h, window=window)
+    def body(p, h, j):
+        h, _, aux = _apply_sublayer(cfg, specs[j], p, h, window=window)
         return h, aux
 
     acc = _zero_aux(x.device)
-    for p in params["blocks"]:
+    for i, p in enumerate(params["blocks"]):
+        j = i % len(specs)
         if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(body, p, x, use_reentrant=False)
+            x, aux = checkpoint(body, p, x, j, use_reentrant=False)
         else:
-            x, aux = body(p, x)
+            x, aux = body(p, x, j)
         acc = _acc_aux(acc, aux, n_moe)
     return x, acc
 
@@ -532,24 +600,47 @@ def cache_window(cfg: ArchConfig, context_len: int, *,
                  long_context: bool = False) -> int:
     """KV ring-buffer capacity for a decode context of `context_len`: the
     native sliding window, else with ``long_context`` (full-attention
-    archs switch to a sliding window at 500k tokens) the
-    ``long_context_window``, else the whole context."""
+    archs switch to a sliding window at 500k tokens; hybrid and xLSTM
+    archs do not) the ``long_context_window``, else the whole context."""
     if cfg.sliding_window:
         return min(cfg.sliding_window, context_len)
-    if long_context:
+    if long_context and cfg.hybrid is None and cfg.xlstm is None:
         return min(cfg.long_context_window, context_len)
     return context_len
+
+
+def _cell_cache(cfg: ArchConfig, batch: int, device, alloc) -> dict:
+    """The xLSTM cells' state tensors (the module docstring's shapes),
+    each made by ``alloc(shape, dtype, fill)``."""
+    specs = sublayer_specs(cfg)
+    n_sb, H, hd, d = cfg.n_superblocks, cfg.n_heads, cfg.resolved_head_dim, cfg.d_model
+    f32 = torch.float32
+    shapes = {"mlstm": {"C": ((H, hd, hd), f32), "n": ((H, hd), f32), "m": ((H,), f32)},
+              "slstm": {"h": ((d,), cfg.dtype), "c": ((d,), f32), "n": ((d,), f32),
+                        "m": ((d,), f32)}}
+    out = {}
+    for kind, names in _CELL_STATE.items():
+        n = sum(1 for s in specs if s["kind"] == kind)
+        for name in names if n else ():
+            shape, dtype = shapes[kind][name]
+            out[f"{kind}_{name}"] = alloc((n_sb, n, batch) + shape, dtype,
+                                          NEG if name == "m" else 0.0)
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, context_len: int, *,
                long_context: bool = False, device=None) -> dict:
     """Zero decode cache: {"k", "v"}, each (L, B, S, Hkv, D) in cfg.dtype
     (CUDA by default), S = cache_window(context_len, long_context=); an
-    enc-dec cache adds {"ck", "cv"}, each (L, B, F, H, D)."""
+    enc-dec cache adds {"ck", "cv"}, each (L, B, F, H, D).  An xLSTM's is
+    its cells' states (the module docstring), the m's at -1e30."""
     sublayer_specs(cfg)
+    device = resolve_device(device)
+    if cfg.xlstm is not None:
+        return _cell_cache(cfg, batch, device, lambda shape, dtype, fill: torch.full(
+            shape, fill, dtype=dtype, device=device))
     S = cache_window(cfg, context_len, long_context=long_context)
     hd = cfg.resolved_head_dim
-    device = resolve_device(device)
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
     out = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
@@ -584,8 +675,13 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     ``long_context`` a full-attention arch attends within the last
     min(long_context_window, context length) positions.
 
+    An xLSTM's cache is its cells' states after the last token (the
+    module docstring's layout); ``max_len`` and ``long_context`` do not
+    shape it.
+
     lengths: optional (B,) valid prompt lengths of a right-padded token
-    batch (no patches, not enc-dec): pad keys are masked out of attention
+    batch (no patches, not enc-dec, no recurrent cells, which would take
+    the pads into their state): pad keys are masked out of attention
     for every row, and the logits are gathered at each row's last real
     token.  The padded width must fit the cache window.  An MoE arch runs
     at the inference capacity (``_apply_ffn(dropless=True)``); pad tokens
@@ -594,10 +690,11 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     aux: an optional dict, filled with the MoE aux losses of this forward
     (``load_balance_loss``, ``dropped_fraction``: () float32 tensors on the
     device, averaged over the MoE layers; zeros for a dense arch)."""
-    spec = sublayer_specs(cfg)[0]
-    if lengths is not None and (cfg.encdec is not None or "patches" in batch):
+    slots = _layer_slots(cfg)
+    if lengths is not None and (cfg.encdec is not None or cfg.xlstm is not None
+                                or "patches" in batch):
         raise ValueError("bucketed (right-padded) prefill takes token batches "
-                         "of a decoder-only arch")
+                         "of an attention-only decoder")
     x, _ = _embed_inputs(cfg, params, batch)
     B, total_T = x.shape[0], x.shape[1]
     S = cache_window(cfg, max_len or total_T + 64, long_context=long_context)
@@ -605,9 +702,13 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
         raise ValueError(f"bucket {total_T} exceeds cache window {S}: ring "
                          "compaction would drop real (non-pad) tokens")
     hd = cfg.resolved_head_dim
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, hd)
-    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+    n_attn = sum(1 for spec, _ in slots if spec["kind"] == "attn")
+    cache = _cell_cache(cfg, B, x.device, lambda shape, dtype, fill: torch.empty(
+        shape, dtype=dtype, device=x.device))
+    if n_attn:
+        shape = (n_attn, B, S, cfg.n_kv_heads, hd)
+        cache["k"] = torch.empty(shape, dtype=x.dtype, device=x.device)
+        cache["v"] = torch.empty(shape, dtype=x.dtype, device=x.device)
     if cfg.encdec is not None:
         enc_out = _run_encoder(cfg, params, _batch_tensor(params, batch, "frames"))
         cross = (cfg.n_layers, B, enc_out.shape[1], cfg.n_heads, hd)
@@ -623,12 +724,16 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
             cache_window(cfg, total_T, long_context=True) if long_context else 0)
         n_moe = _moe_layer_count(cfg)
         acc = None if aux is None else _zero_aux(x.device)
-        for i, p in enumerate(params["blocks"]):
-            x, (k, v), layer_aux = _apply_sublayer(
+        for p, (spec, at) in zip(params["blocks"], slots):
+            x, state, layer_aux = _apply_sublayer(
                 cfg, spec, p, x, window=window, dropless=True,
                 kv_valid_len=lengths)
-            cache["k"][i] = _ring_compact(k, S, total_T)
-            cache["v"][i] = _ring_compact(v, S, total_T)
+            if spec["kind"] == "attn":
+                cache["k"][at] = _ring_compact(state[0], S, total_T)
+                cache["v"][at] = _ring_compact(state[1], S, total_T)
+            else:
+                for name in _CELL_STATE[spec["kind"]]:
+                    cache[f"{spec['kind']}_{name}"][at] = state[name]
             if aux is not None:
                 acc = _acc_aux(acc, layer_aux, n_moe)
         if aux is not None:
@@ -647,11 +752,12 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len, *,
     init_cache/prefill; cache_len: an int (every row at one depth) or a
     (B,) tensor (each row at its own depth; RoPE archs only, since
     sinusoidal positions take one offset).  Returns (logits (B, vocab)
-    float32, cache), the cache updated IN PLACE.  An MoE arch routes the
+    float32, cache), the cache updated IN PLACE.  An xLSTM's cells advance
+    their states (cache_len does not enter).  An MoE arch routes the
     step's B tokens as one group at the inference capacity (at moonshot's
     E = 64, k = 6 and B = 8: 4 slots an expert, so slots can drop, as in
     the JAX package); ``aux`` as in ``prefill``."""
-    spec = sublayer_specs(cfg)[0]
+    slots = _layer_slots(cfg)
     per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0
     if per_row and cfg.rope_theta <= 0:
         raise ValueError(f"{cfg.name}: a per-row cache_len needs RoPE positions "
@@ -663,12 +769,21 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len, *,
                                      device=x.device).to(x.dtype)
     n_moe = _moe_layer_count(cfg)
     acc = None if aux is None else _zero_aux(x.device)
-    for i, p in enumerate(params["blocks"]):
+    for i, (p, (spec, at)) in enumerate(zip(params["blocks"], slots)):
         h = _norm(cfg, p["norm"], x)
-        y, _, _ = attention_decode_apply(
-            p["attn"], h, cache["k"][i], cache["v"][i], cache_len,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=hd,
-            rope_theta=cfg.rope_theta)
+        kind = spec["kind"]
+        if kind == "attn":
+            y, _, _ = attention_decode_apply(
+                p["attn"], h, cache["k"][at], cache["v"][at], cache_len,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=hd,
+                rope_theta=cfg.rope_theta)
+        else:
+            names = _CELL_STATE[kind]
+            state = {n: cache[f"{kind}_{n}"][at] for n in names}
+            step = mlstm_decode_apply if kind == "mlstm" else slstm_decode_apply
+            y, state = step(p["cell"], h, state, n_heads=cfg.n_heads)
+            for n in names:
+                cache[f"{kind}_{n}"][at].copy_(state[n])
         x = x + y
         if cfg.encdec is not None:
             c = _norm(cfg, p["cross_norm"], x)
@@ -703,15 +818,17 @@ def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
     last_index: an int, or a (B,) sequence / integer tensor, of the
     segment row whose logits are returned.  Returns (logits (B, vocab)
     float32, cache).  Chunked prefill needs a pure-attention dense-FFN
-    RoPE decoder with no sliding window, no patches, no encoder and no MoE
+    RoPE decoder with no sliding window, no patches, no encoder, no MoE and
+    no recurrent cells, which would take the pad tokens into their state
     (ValueError otherwise)."""
     sublayer_specs(cfg)
     if (cfg.rope_theta <= 0 or cfg.sliding_window or cfg.vlm is not None
-            or cfg.encdec is not None or cfg.moe is not None):
+            or cfg.encdec is not None or cfg.moe is not None
+            or cfg.xlstm is not None):
         raise ValueError(
             f"{cfg.name}: chunked prefill needs a pure-attention dense-FFN "
-            "RoPE decoder (no MoE, patches or encoder) with no sliding "
-            "window (a ring cache breaks slot == position)")
+            "RoPE decoder (no MoE, recurrent cells, patches or encoder) with "
+            "no sliding window (a ring cache breaks slot == position)")
     B, C = tokens.shape
     S = cache["k"].shape[2]
     if not (0 <= depth and depth + C <= S and attend_width <= S):

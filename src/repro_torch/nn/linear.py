@@ -14,11 +14,16 @@ from repro_torch.nn.init import he_normal, lecun_normal, normal
 
 # ---------------------------------------------------------------- dense ----
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
-               use_bias: bool = True, dtype=torch.float32, device=None) -> dict:
-    """``w`` (in, out) lecun-normal and ``b`` zeros, in ``dtype`` on
-    ``device`` (the generator's when None)."""
-    w = lecun_normal(gen, (in_dim, out_dim), fan_in=in_dim, dtype=dtype,
-                     device=device)
+               use_bias: bool = True, dtype=torch.float32, device=None,
+               std: float | None = None) -> dict:
+    """``w`` (in, out) lecun-normal (normal of ``std`` when given, as the
+    sLSTM's recurrent weight) and ``b`` zeros, in ``dtype`` on ``device``
+    (the generator's when None)."""
+    if std is None:
+        w = lecun_normal(gen, (in_dim, out_dim), fan_in=in_dim, dtype=dtype,
+                         device=device)
+    else:
+        w = normal(gen, (in_dim, out_dim), std=std, dtype=dtype, device=device)
     p = {"w": w}
     if use_bias:
         p["b"] = torch.zeros(out_dim, dtype=dtype, device=w.device)

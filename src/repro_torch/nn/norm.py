@@ -6,8 +6,9 @@ import torch
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 
 
-def groupnorm_init(dim: int) -> dict:
-    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+def groupnorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
 
 
 def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:

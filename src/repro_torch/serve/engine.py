@@ -18,8 +18,9 @@ The port of ``repro.serve.engine``.  Two execution paths share one
   * continuous batching — mixed lengths and deadlines route through
     ``repro_torch.serve.scheduler.ContinuousScheduler`` (built lazily,
     seeded with ``seed + 1``).  Architectures the scheduler rules out
-    (MoE among them) fall back to one equal-length call per prompt length
-    (so do requests with extras); deadlines on those raise ValueError.
+    (MoE and the recurrent xLSTM among them) fall back to one equal-length
+    call per prompt length (so do requests with extras); deadlines on
+    those raise ValueError.
 
 An MoE arch's equal-length call keeps each forward's aux losses in
 ``ServeEngine.moe_aux``: {"prefill": {...}, "decode": [{...} a step]},

@@ -22,7 +22,7 @@ from repro.nn import linear as jlin  # noqa: E402
 from repro.nn.rope import apply_rope as jax_apply_rope  # noqa: E402
 from repro_torch.bridge import backbone_params_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import XLSTMSpec  # noqa: E402
+from repro_torch.configs.base import HybridSpec  # noqa: E402
 from repro_torch.models import backbone as tbb  # noqa: E402
 from repro_torch.nn import activations as tact  # noqa: E402
 from repro_torch.nn import attention as tattn  # noqa: E402
@@ -179,6 +179,6 @@ def test_teacher_forced_decode_equals_prefill():
 
 def test_unported_archs_raise():
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              xlstm=XLSTMSpec(period=2, slstm_index=1))
+                              hybrid=HybridSpec(period=2))
     with pytest.raises(NotImplementedError, match="item 6"):
         tbb.init_params(cfg, device="cpu")

@@ -40,6 +40,12 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_the_xlstm_cells():
+    """The AST scan above reads every module of the package, the xLSTM
+    cells among them."""
+    assert ROOT / "src" / "repro_torch" / "nn" / "xlstm.py" in PORT_FILES
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     from repro_torch.bridge import backbone_params_from_numpy, params_from_numpy
     from repro_torch.configs import get_config
@@ -96,6 +102,17 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         backbone_params_from_numpy({"embed": {"table": [[0.0]]}, "blocks": []},
                                    llm)
+
+    xlstm = get_config("xlstm-350m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(xlstm, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(xlstm, 1, 8)
+    cache = init_cache(xlstm, 1, 8, device="cpu")
+    assert cache["mlstm_C"].shape == (3, 7, 1, 4, 256, 256)
+    assert all(t.device.type == "cpu" for t in cache.values())
+    small = init_params(xlstm.reduced(), 0, device="cpu")
+    assert small["blocks"][0]["cell"]["wq"]["w"].device.type == "cpu"
 
     from repro_torch.serve.frontend import StreamingFrontend
 
