@@ -285,6 +285,36 @@ Phases, each of which raises on failure:
      third step profiled: its busy share, device ms by kernel and the
      shares of its launches, host time and device time in the sLSTM time
      loop and in the mLSTM cells (read from the raw trace, ``raw_profile``).
+  jamba-1.5-large-398b, the Mamba hybrid (slice 17), in a fresh child
+  process (``--jamba-alone JSON``) after phase 18's:
+ 19. (a) one Mamba block at full width (d 8,192, d_inner 16,384), fp32,
+     TF32 off, plain torch (the reference has no kernel for the scan), B
+     2, T 200 (off the 128-token chunk): the chunked scan against the
+     sequential oracle within 2e-4, the prefill's state then 3 decode
+     steps against it within 3e-4, both paths timed (host ms, and device
+     ms and launches by torch.profiler); (b) the three bf16 kernels at the
+     served model's shapes, a GQA group of 8: flash at q (8, 256, 64,
+     128), k/v (8, 256, 8, 128), causal; decode attention on the 288-slot
+     cache (8, 288, 8, 128); RMSNorm at (2048, 8192) and (8, 8192), the
+     kernel's widest row; phase 16a's checks and bars, each timed beside
+     the fp32 kernel, the plain version, the library call and the bound;
+     (c) the model at full width cut to one card (one superblock of 8
+     layers, 12 of its 16 experts, top-2; 35.6 B params, 66.3 GiB in bf16,
+     drawn on the card) through ``ServeEngine(max_len=288).generate``: 8
+     prompts of 256 tokens, 32 greedy tokens, launches from 0 and exact (1
+     flash a prefill, 1 decode attention a step, 17 RMSNorm a forward); a
+     second generate's tokens equal, its attention layer's and final
+     norm's kernel calls replayed against the plain versions; weights,
+     peak, tokens/s, the dropped fractions, the prefill alone, each decode
+     step's host ms, and by torch.profiler (read raw) a prefill's and a
+     decode step's kernels and the Mamba mixers' shares of their launches,
+     host time and device time; (d) reduced Jamba in fp32 on the card
+     against the port's CPU: prefill logits and greedy tokens (phase 8's
+     bars); one ``make_train_step`` (loss within 1e-4 relative, every
+     gradient leaf within 1e-3 of scale) of the same model routing to all
+     4 experts, and of the top-2 config with its leaves' distance
+     reported; each step again from the same state bitwise, its launches
+     exact.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -402,6 +432,7 @@ from repro_torch.nn.linear import conv2d, dense  # noqa: E402
 from repro_torch.nn.module import param_count  # noqa: E402
 from repro_torch.nn.moe import _pick_group_size, moe_routing  # noqa: E402
 from repro_torch.nn.norm import groupnorm, rmsnorm  # noqa: E402
+from repro_torch.nn import ssm as ssm_nn  # noqa: E402
 from repro_torch.nn import xlstm as xlstm_nn  # noqa: E402
 from repro_torch.nn.rope import apply_rope  # noqa: E402
 from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
@@ -702,6 +733,34 @@ XLSTM_CPU_B, XLSTM_CPU_T, XLSTM_CPU_NEW = 2, 64, 8
 # 9.0-14.1 s, phase 18 took 159 s and the script 951 s of its 1,200); 3
 # steps, the third profiled
 XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_STEPS = 512, 2, 3
+# slice 17: jamba-1.5-large-398b, the Mamba hybrid (superblocks of 8 layers:
+# attention at index 0 and 7 Mamba blocks; MoE FFNs at the odd layers, 16
+# experts top-2, dense SwiGLU at the even), in a fresh child process
+# (python3 chip_smoke.py --jamba-alone JSON) after phase 18's
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_ALONE_TIMEOUT_S = 600
+# (a) one Mamba block at full width (d 8,192, d_inner 16,384, d_state 16),
+# fp32: B 2, T 200 (off the 128-token chunk), then 3 decode steps; the
+# reference's bars (tests/test_recurrent.py): chunked vs sequential 2e-4,
+# prefill state then decode vs sequential 3e-4
+JAMBA_BLOCK_B, JAMBA_BLOCK_T, JAMBA_BLOCK_DECODE = 2, 200, 3
+JAMBA_CHUNK_TOL, JAMBA_DECODE_TOL = 2e-4, 3e-4
+# (c) served at full width in bf16, cut to fit one card: its 72 layers weigh
+# 742 GiB, and even one superblock (the least depth that keeps the 1:7
+# interleave) with its 16 experts is 45.2 B params, 84.2 GiB; one
+# superblock with 12 of the 16 experts (top-2 kept), the most that fits
+# beside the serving transients (about 6 GiB), is 35.6 B, 66.3 GiB.
+# ServeEngine(max_len=288).generate of 8 prompts of 256 tokens, 32 greedy
+# tokens; decode steps traced by torch.profiler
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 12
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW = 8, 256, 32
+JAMBA_MAX_LEN = JAMBA_PROMPT + JAMBA_NEW
+JAMBA_PROFILE_STEPS = 4
+# (d) reduced (one superblock, d 256, 4 experts top-2), fp32, the card
+# against the port's CPU: 2 prompts of 64 tokens, 8 tokens each (phase 8's
+# bars); one make_train_step on 2 x 128 tokens (phase 14c's bars)
+JAMBA_CPU_B, JAMBA_CPU_T, JAMBA_CPU_NEW = 2, 64, 8
+JAMBA_TRAIN_B, JAMBA_TRAIN_T = 2, 128
 
 
 def check(cond, msg: str) -> None:
@@ -2647,10 +2706,16 @@ def kernel_picks(cfg) -> dict:
     the encoder's first flash call and decoder layer 0's self and cross
     flash in the prefill, layer 0's self and cross decode attention in
     each step; its LayerNorm is plain torch, so it has no RMSNorm.  An
-    xLSTM forward: layer 0's pre-norm and the final norm."""
+    xLSTM forward: layer 0's pre-norm and the final norm.  A hybrid
+    forward: the first attention layer's flash or decode attention, its
+    pre-norm (layer 0's) and the final norm."""
     L = cfg.n_layers
     if cfg.xlstm is not None:       # no attention; a pre-norm a layer, the final norm
         return {"rmsnorm": (L + 1, {0, L})}
+    if cfg.hybrid is not None:      # one attention layer a superblock
+        n_attn = cfg.n_superblocks
+        return {"flash_attention": (n_attn, {0}), "decode_attention": (n_attn, {0}),
+                "rmsnorm": (2 * L + 1, {0, 2 * L})}
     if cfg.encdec is None:
         return {"flash_attention": (L, {0}), "decode_attention": (L, {0}),
                 "rmsnorm": (2 * L + 1, {0})}
@@ -4343,82 +4408,30 @@ def flash_sweep(gen) -> list:
     return out
 
 
-def moe_kernels(cfg, card) -> dict:
-    """Phase 16a: the three bf16 kernels at moonshot-v1-16b-a3b's serving
-    shapes (flash at the prefill's q = k/v (8, 256, 16, 128), causal, and
-    a 4,096-token prompt's (1, 4096, 16, 128); decode attention on the
-    288-slot cache at the first and last step's depth; RMSNorm on the
-    prefill's 2,048 rows and a decode step's 8, d = 2,048).  Decode
-    attention is bitwise the fp32 kernel on the widened inputs (rounded);
-    flash and RMSNorm, kernels of their own since slice 13, are held to
-    ``bf16_bars``; each within BF16_TOL of its plain version.  Their
-    times by CUDA events beside the fp32 kernel's on the widened inputs,
-    the plain version's, the library call's (SDPA, ``F.rms_norm``, in
-    bf16) and the bound; flash also beside ``torch.addcmul(q, k, v)``, one
-    call that moves the same bytes (q, k and v read, o's size written).
-    Then flash's contract sweep (``flash_sweep``) and RMSNorm at N in
-    {1, 8, 2048, 4097} x d in {896, 2048, 8192}, a d off 8 and a view off
-    16 bytes, each held to ``bf16_bars``."""
-    B, T, S = MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN
-    H, Hkv, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
-    G = H // Hkv
-    gen = torch.Generator(device="cuda").manual_seed(160)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def bf16_row(name, kern, args, plain, library, nbytes, ops, what, tag: str,
+             extra=None) -> dict:
+    """One of the bf16 kernels at one shape (phase 16a's checks; ``what``
+    names the shape, ``tag`` the phase): decode attention bitwise its fp32 kernel on the widened
+    inputs (rounded) and within BF16_TOL of its plain version, flash and
+    RMSNorm to ``bf16_bars``; its time by CUDA events beside the fp32
+    kernel's on the widened inputs, the plain version's, the library
+    call's and its bf16 bound."""
+    if name == "decode_attention":
+        got = bf16_bitwise(kern, args, {}, f"{tag}: {what}")
+        bars = {"bitwise_fp32": True,
+                "max_abs_err": close_err(got, plain(), BF16_TOL[name], f"{tag}: {what}")}
+    else:
+        bars = bf16_bars(name, kern, args, {}, f"{tag}: {what}")
+    bound_ms, bound_by = bf16_bound(nbytes, ops)
+    wide = widened(args)
+    return {"shape": what, **bars,
+            "ms": time_ms(lambda: kern(*args)), "fp32_ms": time_ms(lambda: kern(*wide)),
+            "plain_ms": time_ms(plain, reps=10), "library_ms": time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+            **(extra or {})}
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    def heads_first(t, rep=1):
-        return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-
-    def row(name, kern, args, plain, library, nbytes, ops, what, extra=None):
-        if name == "decode_attention":
-            got = bf16_bitwise(kern, args, {}, f"phase 16a: {what}")
-            bars = {"bitwise_fp32": True,
-                    "max_abs_err": close_err(got, plain(), BF16_TOL[name],
-                                             f"phase 16a: {what}")}
-        else:
-            bars = bf16_bars(name, kern, args, {}, f"phase 16a: {what}")
-        bound_ms, bound_by = bf16_bound(nbytes, ops)
-        wide = widened(args)
-        return {"shape": what, **bars,
-                "ms": time_ms(lambda: kern(*args)), "fp32_ms": time_ms(lambda: kern(*wide)),
-                "plain_ms": time_ms(plain, reps=10), "library_ms": time_ms(library),
-                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
-                **(extra or {})}
-
-    out = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
-    for Bf, Tf in ((B, T), MOE_LONG_PROMPT):
-        q, k, v = randn(Bf, Tf, H, D), randn(Bf, Tf, Hkv, D), randn(Bf, Tf, Hkv, D)
-        qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
-        pairs = Bf * H * Tf * (Tf + 1) // 2
-        out["flash_attention"].append(row(
-            "flash_attention", flash_attention_cuda, (q, k, v),
-            lambda: flash_attention_ref(q, k, v), lambda: sdpa(qt, kt, vt, is_causal=True),
-            (2 * Bf * Tf * H * D + 2 * Bf * Tf * Hkv * D) * 2, 4 * D * pairs,
-            f"q = k/v {(Bf, Tf, H, D)}, causal",
-            {"tc_3xtf32_bound_ms": 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3,
-             "bytes_ms": time_ms(lambda: torch.addcmul(q, k, v)) if G == 1 else None}))
-        del q, k, v, qt, kt, vt
-    for n in (T + 1, S - 1):
-        q, kc, vc = randn(B, 1, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-        qt, kt, vt = heads_first(q), heads_first(kc, G), heads_first(vc, G)
-        live = (torch.arange(S, device="cuda") < n).view(1, 1, 1, S)
-        out["decode_attention"].append(row(
-            "decode_attention", decode_attention_cuda, (q, kc, vc, n),
-            lambda: decode_attention_ref(q, kc, vc, n),
-            lambda: sdpa(qt, kt, vt, attn_mask=live),
-            (2 * B * H * D + 2 * B * n * Hkv * D) * 2, 4 * B * H * n * D,
-            f"q {(B, 1, H, D)}, cache {(B, S, Hkv, D)}, attend {n}"))
-        del q, kc, vc, qt, kt, vt
-    for rows in (B * T, B):
-        x = randn(rows, d)
-        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
-        out["rmsnorm"].append(row(
-            "rmsnorm", rmsnorm_cuda, (x, scale), lambda: rmsnorm_ref(x, scale),
-            lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-6),
-            (2 * rows * d + d) * 2, 4 * rows * d, f"({rows}, {d})"))
-    torch.cuda.synchronize()
+def print_bf16_rows(out: dict, tag: str, card) -> None:
     for name, cases in out.items():
         for c in cases:
             held = ("bitwise the fp32 kernel on the widened inputs" if c.get("bitwise_fp32")
@@ -4432,12 +4445,88 @@ def moe_kernels(cfg, card) -> dict:
                          f"{c['fp32_ms'] / c['ms']:.2f}x faster than the fp32 kernel, "
                          f"{c['library_ms'] / c['ms']:.2f}x SDPA's speed"
                          + (f"; torch.addcmul(q, k, v) {c['bytes_ms']:.4f}"
-                            if c["bytes_ms"] is not None else ""))
-            print(f"phase 16a: {name} bf16 at {c['shape']}: {held}; |err| vs plain "
+                            if c.get("bytes_ms") is not None else ""))
+            print(f"{tag}: {name} bf16 at {c['shape']}: {held}; |err| vs plain "
                   f"{c['max_abs_err']:.3e} (bar {BF16_TOL[name]}); {c['ms']:.4f} ms "
                   f"(fp32 kernel {c['fp32_ms']:.4f}), plain {c['plain_ms']:.4f}, library "
                   f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f} ({c['bound_by']})"
                   + extra + f"  [{card}]")
+
+
+def bf16_kernel_rows(B, T, S, H, Hkv, D, d, prompts, tag: str, gen, card) -> dict:
+    """The three bf16 kernels at a served model's shapes (``bf16_row`` for
+    each, printed): flash at each (batch, prompt) of ``prompts``, q (B, T,
+    H, D), k/v (B, T, Hkv, D), causal, beside SDPA with the kv heads
+    expanded (and, where H == Hkv, ``torch.addcmul(q, k, v)``, one call
+    that moves the same bytes); decode attention on the S-slot cache at
+    the first and last decode step's depth, T + 1 and S - 1; RMSNorm on
+    the prefill's B * T rows and a decode step's B, width d, beside
+    ``F.rms_norm``."""
+    G = H // Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def heads_first(t, rep=1):
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+    out = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
+    for Bf, Tf in prompts:
+        q, k, v = randn(Bf, Tf, H, D), randn(Bf, Tf, Hkv, D), randn(Bf, Tf, Hkv, D)
+        qt, kt, vt = heads_first(q), heads_first(k, G), heads_first(v, G)
+        pairs = Bf * H * Tf * (Tf + 1) // 2
+        out["flash_attention"].append(bf16_row(
+            "flash_attention", flash_attention_cuda, (q, k, v),
+            lambda: flash_attention_ref(q, k, v), lambda: sdpa(qt, kt, vt, is_causal=True),
+            (2 * Bf * Tf * H * D + 2 * Bf * Tf * Hkv * D) * 2, 4 * D * pairs,
+            f"q {(Bf, Tf, H, D)}, k/v {(Bf, Tf, Hkv, D)}, causal", tag,
+            {"tc_3xtf32_bound_ms": 3 * 4 * D * pairs / TF32_OPS_PER_S * 1e3,
+             "bytes_ms": time_ms(lambda: torch.addcmul(q, k, v)) if G == 1 else None}))
+        del q, k, v, qt, kt, vt
+    for n in (T + 1, S - 1):
+        q, kc, vc = randn(B, 1, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        qt, kt, vt = heads_first(q), heads_first(kc, G), heads_first(vc, G)
+        live = (torch.arange(S, device="cuda") < n).view(1, 1, 1, S)
+        out["decode_attention"].append(bf16_row(
+            "decode_attention", decode_attention_cuda, (q, kc, vc, n),
+            lambda: decode_attention_ref(q, kc, vc, n),
+            lambda: sdpa(qt, kt, vt, attn_mask=live),
+            (2 * B * H * D + 2 * B * n * Hkv * D) * 2, 4 * B * H * n * D,
+            f"q {(B, 1, H, D)}, cache {(B, S, Hkv, D)}, attend {n}", tag))
+        del q, kc, vc, qt, kt, vt
+    for rows in (B * T, B):
+        x = randn(rows, d)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+        out["rmsnorm"].append(bf16_row(
+            "rmsnorm", rmsnorm_cuda, (x, scale), lambda: rmsnorm_ref(x, scale),
+            lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-6),
+            (2 * rows * d + d) * 2, 4 * rows * d, f"({rows}, {d})", tag))
+    torch.cuda.synchronize()
+    print_bf16_rows(out, tag, card)
+    return out
+
+
+def moe_kernels(cfg, card) -> dict:
+    """Phase 16a: the three bf16 kernels at moonshot-v1-16b-a3b's serving
+    shapes (``bf16_kernel_rows``: flash at the prefill's q = k/v (8, 256,
+    16, 128) and a 4,096-token prompt's (1, 4096, 16, 128); decode
+    attention on the 288-slot cache; RMSNorm at d = 2,048).  Decode
+    attention is bitwise the fp32 kernel on the widened inputs (rounded);
+    flash and RMSNorm, kernels of their own since slice 13, are held to
+    ``bf16_bars``; each within BF16_TOL of its plain version.  Then
+    flash's contract sweep (``flash_sweep``) and RMSNorm at N in {1, 8,
+    2048, 4097} x d in {896, 2048, 8192}, a d off 8 and a view off 16
+    bytes, each held to ``bf16_bars``."""
+    B, T = MOE_BATCH, MOE_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(160)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    out = bf16_kernel_rows(B, T, MOE_MAX_LEN, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, cfg.d_model, ((B, T), MOE_LONG_PROMPT),
+                           "phase 16a", gen, card)
     out["flash_sweep"] = flash_sweep(gen)
     print(f"phase 16a: flash_attention bf16 contract sweep, {len(out['flash_sweep'])} cases: "
           f"max |err| vs plain {max(c['max_abs_err'] for c in out['flash_sweep']):.3e}, "
@@ -5662,6 +5751,375 @@ def phase_xlstm(card) -> tuple:
     return launches, errs, xl
 
 
+# ------------------------------------------------------------ slice 17 ---
+def jamba_block(card) -> dict:
+    """Phase 19a: one Mamba block of jamba-1.5-large-398b at full width (d
+    8,192, d_inner 16,384), fp32, seed-190 weights drawn on the card, B =
+    JAMBA_BLOCK_B, T = JAMBA_BLOCK_T (off the 128-token chunk): the chunked
+    scan (``mamba_apply``) against the sequential oracle
+    (``mamba_reference``) within 2e-4; the prefill's state, then
+    JAMBA_BLOCK_DECODE decode steps, against the oracle within 3e-4; each
+    path over the T tokens timed once on the host and by torch.profiler
+    (its kernels' device ms and launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(JAMBA_ARCH)
+    h = cfg.hybrid
+    kw = {"d_state": h.d_state, "d_conv": h.d_conv}
+    B, T, n = JAMBA_BLOCK_B, JAMBA_BLOCK_T, JAMBA_BLOCK_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(190)
+    p = ssm_nn.mamba_init(gen, cfg.d_model, expand=h.expand, device="cuda", **kw)
+    x = 0.5 * torch.randn((B, T + n, cfg.d_model), generator=gen, device="cuda")
+    full = ssm_nn.mamba_reference(p, x, **kw)
+    y, state = ssm_nn.mamba_apply(p, x[:, :T], return_state=True, **kw)
+    out = {"shape": [B, T, cfg.d_model, h.expand * cfg.d_model, h.d_state],
+           "chunked_vs_sequential": close_err(
+               y, full[:, :T], JAMBA_CHUNK_TOL, "phase 19a: mamba_apply vs mamba_reference")}
+    steps = []
+    for t in range(T, T + n):
+        yt, state = ssm_nn.mamba_decode_apply(p, x[:, t:t + 1], state, **kw)
+        steps.append(yt)
+    out["decode_vs_sequential"] = close_err(
+        torch.cat(steps, 1), full[:, T:], JAMBA_DECODE_TOL,
+        "phase 19a: prefill state then decode vs mamba_reference")
+    xt = x[:, :T]
+    for name, fn in (("chunked", lambda: ssm_nn.mamba_apply(p, xt, **kw)),
+                     ("sequential", lambda: ssm_nn.mamba_reference(p, xt, **kw))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        raw = raw_profile(prof)
+        check(raw["n_kernels"] > 0, f"phase 19a: torch.profiler recorded no kernel of {name}")
+        out[name] = {"host_ms": host_ms, "device_ms": raw["busy_us"] / 1e3,
+                     "launches": raw["n_kernels"]}
+    del p, x, full, y, state
+    print(f"phase 19a: a Mamba block of {JAMBA_ARCH} at full width (B, T, d, d_inner, "
+          f"d_state) = {out['shape']}, fp32: chunked vs sequential max |err| "
+          f"{out['chunked_vs_sequential']:.3e} (bar {JAMBA_CHUNK_TOL} abs + rel), prefill "
+          f"state then {n} decode steps vs sequential {out['decode_vs_sequential']:.3e} (bar "
+          f"{JAMBA_DECODE_TOL}); over {T} tokens: chunked {out['chunked']['host_ms']:.2f} ms "
+          f"host, {out['chunked']['device_ms']:.2f} ms device in "
+          f"{out['chunked']['launches']} launches; sequential "
+          f"{out['sequential']['host_ms']:.2f} ms host, {out['sequential']['device_ms']:.2f} "
+          f"ms device in {out['sequential']['launches']} launches  [{card}]")
+    return out
+
+
+def jamba_served_config():
+    """Jamba at full width cut to one card: one superblock, JAMBA_EXPERTS
+    of its 16 experts (top-2 kept)."""
+    cfg = get_config(JAMBA_ARCH)
+    return dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
+                               moe=dataclasses.replace(cfg.moe, n_experts=JAMBA_EXPERTS))
+
+
+def jamba_serve(cfg, card) -> dict:
+    """Phase 19c: the served Jamba (``jamba_served_config``) in bf16, drawn
+    on the card, through ``ServeEngine.generate`` (launch counts from 0,
+    exact: a flash call a prefill and a decode attention call a step for
+    its attention layer, 2L + 1 RMSNorm calls a forward); weights, peak,
+    tokens/s, the dropped fractions; a second generate's tokens equal and
+    its attention layer's and final norm's kernel calls replayed against
+    the plain versions (phase 16b's bars); the prefill alone; each decode
+    step's host time; and by torch.profiler, read raw (``raw_profile``),
+    a prefill's and JAMBA_PROFILE_STEPS decode steps' kernels and the
+    Mamba mixers' shares of their launches, host time and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L, n_attn = cfg.n_layers, cfg.n_superblocks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    params = bb.init_params(cfg, seed=0, gen_device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    f32 = {"dt_bias", "A_log", "D"}
+    check(all(t.device.type == "cuda" for t in leaves)
+          and all((t.dtype == torch.float32) == (k in f32)
+                  for blk in params["blocks"] if "mamba" in blk
+                  for k, t in blk["mamba"].items() if isinstance(t, torch.Tensor)),
+          "phase 19c: a parameter is off the card, or a Mamba leaf in the wrong dtype")
+    n_params = param_count(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    rng = np.random.RandomState(193)
+    reqs = [Request(tokens=rng.randint(0, cfg.vocab, JAMBA_PROMPT),
+                    max_new_tokens=JAMBA_NEW) for _ in range(JAMBA_BATCH)]
+    eng = ServeEngine(cfg, params, max_len=JAMBA_MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = slice11_counts()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    steps = outs[0].steps
+    check(steps == JAMBA_NEW, f"phase 19c: {steps} steps for {JAMBA_NEW} tokens")
+    check_launches(launches, {"flash_attention_bf16": n_attn,
+                              "decode_attention_bf16": n_attn * (steps - 1),
+                              "rmsnorm_bf16": (2 * L + 1) * steps}, "phase 19c")
+    for c in outs:
+        check(len(c.tokens) == JAMBA_NEW and c.tokens.min() >= 0
+              and c.tokens.max() < cfg.vocab, f"phase 19c: a completion {c.tokens}")
+    aux = eng.moe_aux
+    dropped = {"prefill": float(aux["prefill"]["dropped_fraction"]),
+               "decode": [float(a["dropped_fraction"]) for a in aux["decode"]]}
+    check(len(dropped["decode"]) == steps - 1
+          and all(0.0 <= f < 1.0 for f in [dropped["prefill"], *dropped["decode"]]),
+          f"phase 19c: dropped fractions {dropped}")
+    tokens = [c.tokens.tolist() for c in outs]
+
+    kept, restore = capture_kernel_calls(cfg)
+    try:
+        again = eng.generate(reqs)
+    finally:
+        restore()
+    check([c.tokens.tolist() for c in again] == tokens,
+          "phase 19c: a second greedy generate gave other tokens")
+    kernel_errs = replay_kernel_calls(kept, "phase 19c", tol=BF16_TOL)
+    for name, calls in kept.items():
+        mod, attr, _ = PATH_KERNELS[name]
+        for a, kw in calls:
+            if name == "decode_attention":
+                bf16_bitwise(getattr(mod, attr), a, kw, f"phase 19c: {name} replayed")
+            else:
+                bf16_bars(name, getattr(mod, attr), a, kw, f"phase 19c: {name} replayed")
+    n_kept = {n: len(c) for n, c in kept.items()}
+    del kept
+
+    batch = {"tokens": torch.as_tensor(np.stack([r.tokens for r in reqs]), device="cuda")}
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, T = bb.prefill(cfg, params, batch, max_len=JAMBA_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    host = []
+    for i in range(JAMBA_NEW - 1):
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = bb.decode_step(cfg, params, tok, cache, T + i)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    del logits, cache
+
+    real = {"mamba_apply": bb.mamba_apply, "mamba_decode_apply": bb.mamba_decode_apply}
+    bb.mamba_apply = ranged(real["mamba_apply"], "jamba.mamba")
+    bb.mamba_decode_apply = ranged(real["mamba_decode_apply"], "jamba.mamba")
+    prof = {}
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pp:
+            t0 = time.perf_counter()
+            logits, cache, T = bb.prefill(cfg, params, batch, max_len=JAMBA_MAX_LEN)
+            torch.cuda.synchronize()
+            prefill_prof_s = time.perf_counter() - t0
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pd:
+            t0 = time.perf_counter()
+            for i in range(JAMBA_PROFILE_STEPS):
+                logits, cache = bb.decode_step(cfg, params, tok, cache, T + i)
+            torch.cuda.synchronize()
+            decode_prof_s = (time.perf_counter() - t0) / JAMBA_PROFILE_STEPS
+    finally:
+        bb.mamba_apply, bb.mamba_decode_apply = real["mamba_apply"], real["mamba_decode_apply"]
+    for name, pr, wall_s, per in (("prefill", pp, prefill_prof_s, 1),
+                                  ("decode_step", pd, decode_prof_s, JAMBA_PROFILE_STEPS)):
+        raw = raw_profile(pr, ("jamba.mamba",))
+        check(raw["n_kernels"] > 0, f"phase 19c: torch.profiler recorded no kernel in {name}")
+        m = raw["ranges"]["jamba.mamba"]
+        check(m["ranges"] == 7 * cfg.n_superblocks * per,
+              f"phase 19c: {m['ranges']} Mamba ranges in {name}")
+        top = sorted(((us / per / 1e3, k[:48]) for k, (us, _) in raw["kernels"].items()),
+                     reverse=True)[:6]
+        prof[name] = {"host_ms": wall_s * 1e3, "device_ms": raw["busy_us"] / 1e3 / per,
+                      "launches": raw["n_kernels"] / per, "top_kernels_ms": top,
+                      "mamba": {"launches": m["launches"] / raw["n_kernels"],
+                                "host": m["host_us"] / 1e6 / (wall_s * per),
+                                "device": m["device_us"] / raw["busy_us"]}}
+    out = {"arch": JAMBA_ARCH, "layers": L, "experts": cfg.moe.n_experts,
+           "params": n_params, "weight_bytes": weight_bytes, "init_s": init_s,
+           "requests": JAMBA_BATCH, "prompt": JAMBA_PROMPT, "new_tokens": JAMBA_NEW,
+           "generate_s": wall, "tokens_per_s": JAMBA_BATCH * JAMBA_NEW / wall,
+           "free_before_bytes": free_before, "peak_bytes": peak,
+           "peak_reserved_bytes": reserved, "launches": launches,
+           "dropped_fraction": dropped, "kernel_errs": kernel_errs, "replayed_calls": n_kept,
+           "prefill_s": statistics.median(prefill_s), "prefill_s_all": prefill_s,
+           "decode_step_host_ms": [x * 1e3 for x in host],
+           "decode_step_host_ms_median": statistics.median(host) * 1e3,
+           "profiled": prof, "greedy_tokens_row0": tokens[0]}
+    print(f"phase 19c: {JAMBA_ARCH} at full width, cut to {L} layers (one superblock; 72 "
+          f"in full) "
+          f"and {cfg.moe.n_experts} of 16 experts (top-{cfg.moe.top_k}): {n_params / 1e9:.2f} B "
+          f"params, {weight_bytes / 2**30:.2f} GiB (bf16; A_log, dt_bias, D fp32), drawn on "
+          f"the card in {init_s:.1f} s; ServeEngine(max_len={JAMBA_MAX_LEN}).generate of "
+          f"{JAMBA_BATCH} x {JAMBA_PROMPT}-token prompts, {JAMBA_NEW} greedy tokens each, in "
+          f"{wall:.3f} s ({out['tokens_per_s']:.1f} tokens/s); peak {peak / 2**30:.2f} GiB "
+          f"({reserved / 2**30:.2f} reserved; {free_before / 2**30:.2f} of "
+          f"{torch.cuda.mem_get_info()[1] / 2**30:.2f} free before the weights); "
+          f"launches { {n: c for n, c in launches.items() if c} } (exact); a second generate "
+          f"equal; dropped fraction prefill {dropped['prefill']:.4f}, decode steps max "
+          f"{max(dropped['decode']):.4f}  [{card}]")
+    print(f"phase 19c: prefill alone {out['prefill_s'] * 1e3:.1f} ms (host, median of 3: "
+          f"{[round(x * 1e3, 1) for x in prefill_s]}); decode steps on the host median "
+          f"{out['decode_step_host_ms_median']:.2f} ms ({[round(x * 1e3, 2) for x in host]})  "
+          f"[{card}]")
+    for name, c in prof.items():
+        print(f"phase 19c: a profiled {name}: {c['host_ms']:.2f} ms host, {c['device_ms']:.3f} "
+              f"ms of kernels in {c['launches']:.0f} launches; the Mamba mixers "
+              f"{c['mamba']['launches']:.1%} of the launches, {c['mamba']['host']:.1%} of the "
+              f"host time, {c['mamba']['device']:.1%} of the device time; top kernels (ms) "
+              f"{c['top_kernels_ms']}  [{card}]")
+    del params, eng, logits, cache, outs, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_train_vs_cpu(cfg, grad_tol, per_step: dict) -> dict:
+    """One ``make_train_step`` (one microbatch, zero momentum in, no weight
+    decay: the momentum out is the gradient) of ``cfg`` from seed-0
+    weights on JAMBA_TRAIN_B x JAMBA_TRAIN_T tokens, on the card and on the
+    port's CPU: the loss within LM_CPU_LOSS_TOL relative, every gradient
+    leaf finite and within ``grad_tol`` of the CPU leaf's scale (None:
+    reported); the card's step again from the same state bitwise.  Each of
+    the card's two steps launches exactly ``per_step``.  Returns the
+    distances and the card's launches over both steps, as counted."""
+    cpu = bb.init_params(cfg, seed=0, device="cpu")
+    params = tree_to(cpu, "cuda")
+    step = make_train_step(cfg, InputShape("t", JAMBA_TRAIN_T, JAMBA_TRAIN_B, "train"),
+                           n_micro_override=1)
+    rng = np.random.RandomState(194)
+    batch = {k: rng.randint(0, cfg.vocab, (JAMBA_TRAIN_B, JAMBA_TRAIN_T))
+             for k in ("tokens", "labels")}
+    counted = []
+    for i in (1, 2):
+        reset_counts()
+        out = step(params, opt_init(params), batch)
+        torch.cuda.synchronize()
+        counted.append(slice11_counts())
+        check_launches(counted[-1], per_step, f"phase 19d: {cfg.name} train step {i} of 2")
+        if i == 1:
+            p1, o1, m1 = out
+    p2, o2, m2 = out
+    launches = {n: sum(c[n] for c in counted) for n in counted[0]}
+    check(torch.equal(m1["loss"], m2["loss"])
+          and all(torch.equal(a, b) for a, b in zip(tree_leaves(p1) + tree_leaves(o1),
+                                                    tree_leaves(p2) + tree_leaves(o2))),
+          f"phase 19d: {cfg.name}'s train step again from the same state is not bitwise")
+    _, oc, mc = step(cpu, opt_init(cpu), batch)
+    loss_err = abs(float(m1["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+    check(loss_err <= LM_CPU_LOSS_TOL, f"phase 19d: {cfg.name} loss card vs CPU {loss_err:.3e}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(o1["momentum"]), tree_leaves(oc["momentum"]))):
+        e = (a.cpu().double() - b.double()).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        check(bool(torch.isfinite(a).all()) and (grad_tol is None or e <= grad_tol),
+              f"phase 19d: {cfg.name} gradient leaf {i} card vs CPU {e:.3e} of scale")
+        worst = max(worst, e)
+    n_leaves = len(tree_leaves(oc["momentum"]))
+    del params, p1, o1, p2, o2
+    return {"loss": float(mc["loss"]), "loss_rel_err": loss_err, "grad_err": worst,
+            "leaves": n_leaves, "launches": launches}
+
+
+def jamba_vs_cpu(card) -> dict:
+    """Phase 19d: reduced Jamba (one superblock, d 256, 4 experts top-2),
+    fp32, seed-0 weights, the card against the port's CPU: prefill logits
+    and greedy tokens (``card_vs_cpu``, phase 8's bars); one train step
+    (``jamba_train_vs_cpu``, phase 14c's bars) of the same model routing
+    to all 4 experts (no top-2 route can flip on an ulp), and of the top-2
+    config with its leaves' distance reported; launches of each train step
+    exact (remat runs each layer's forwards twice)."""
+    cfg = get_config(JAMBA_ARCH).reduced()
+    L, n_attn = cfg.n_layers, cfg.n_superblocks
+    params = tree_to(bb.init_params(cfg, seed=0, device="cpu"), "cuda")
+    prompts = np.random.RandomState(195).randint(0, cfg.vocab, (JAMBA_CPU_B, JAMBA_CPU_T))
+    reset_counts()
+    serve = card_vs_cpu(cfg, params, [Request(tokens=p, max_new_tokens=JAMBA_CPU_NEW)
+                                      for p in prompts],
+                        JAMBA_CPU_T + JAMBA_CPU_NEW, "phase 19d")
+    serve_launches = slice11_counts()
+    every = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, top_k=cfg.moe.n_experts))
+    per_step = {"flash_attention": 2 * n_attn, "flash_attention_backward": n_attn,
+                "rmsnorm": 4 * L + 1, "rmsnorm_backward": 2 * L + 1}
+    train = {}
+    for key, c, tol in (("top_k = n_experts", every, LM_CPU_GRAD_TOL), ("top-2", cfg, None)):
+        train[key] = jamba_train_vs_cpu(c, tol, per_step)
+        print(f"phase 19d: {c.name} top-{c.moe.top_k} of {c.moe.n_experts}, fp32: one "
+              f"make_train_step on {JAMBA_TRAIN_B} x {JAMBA_TRAIN_T} tokens, card vs CPU: loss "
+              f"{train[key]['loss_rel_err']:.3e} relative (bar {LM_CPU_LOSS_TOL}); every one of "
+              f"{train[key]['leaves']} gradient leaves within {train[key]['grad_err']:.3e} of "
+              f"its scale (bar {tol or 'none: reported'}); the step again bitwise; launches of "
+              f"the two steps { {n: v for n, v in train[key]['launches'].items() if v} } "
+              f"(each step exact)  [{card}]")
+    launches = {n: serve_launches.get(n, 0) + sum(t["launches"].get(n, 0)
+                                                  for t in train.values())
+                for n in set(serve_launches)}
+    return {"serve": serve, "train": train, "launches": launches}
+
+
+def jamba_alone(card) -> dict:
+    """Phase 19 (a)-(d) in a fresh child process of this script, which
+    prints its lines and writes its numbers to a JSON file
+    (``phase_jamba``)."""
+    t0 = time.perf_counter()
+    block = jamba_block(card)
+    cfg = jamba_served_config()
+    kernels = bf16_kernel_rows(  # phase 19b: G = 8, RMSNorm at its widest row
+        JAMBA_BATCH, JAMBA_PROMPT, JAMBA_MAX_LEN, cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim, cfg.d_model, ((JAMBA_BATCH, JAMBA_PROMPT),), "phase 19b",
+        torch.Generator(device="cuda").manual_seed(192), card)
+    t_ab = time.perf_counter() - t0
+    serve = jamba_serve(cfg, card)
+    t_c = time.perf_counter() - t0 - t_ab
+    vs_cpu = jamba_vs_cpu(card)
+    return {"block": block, "kernels": kernels, "serve": serve, "vs_cpu": vs_cpu,
+            "part_s": {"ab": t_ab, "c": t_c, "d": time.perf_counter() - t0 - t_ab - t_c}}
+
+
+def phase_jamba(card) -> tuple:
+    """Phase 19: ``jamba_alone`` in a fresh child process (the 66.3 GiB
+    model wants an allocator the earlier phases never touched), started
+    after phase 18's has ended; returns the launches of the kernels on its
+    paths (the bf16 forwards of (c), the fp32 kernels of (d)), their
+    largest errors, and the numbers.  The child's allocator maps its
+    segments as they grow (``expandable_segments``): drawing the weights
+    frees a float32 copy of each leaf after its bf16 cast, and fixed
+    segments would keep those holes beside the 66 GiB."""
+    torch.cuda.empty_cache()
+    print(f"phase 19: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) of the card while its "
+          f"child runs")
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "jamba_alone.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--jamba-alone", path],
+                       check=True, timeout=JAMBA_ALONE_TIMEOUT_S,
+                       env={**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        with open(path) as f:
+            jb = json.load(f)
+    jb["phase_s"] = time.perf_counter() - t0
+    launches = {n: jb["serve"]["launches"].get(n, 0) + jb["vs_cpu"]["launches"].get(n, 0)
+                for n in set(jb["serve"]["launches"]) | set(jb["vs_cpu"]["launches"])}
+    errs = {f"{n}_bf16": max([c["max_abs_err"] for c in jb["kernels"][n]]
+                             + [jb["serve"]["kernel_errs"].get(n, 0.0)])
+            for n in ("flash_attention", "decode_attention", "rmsnorm")}
+    print(f"phase 19: {jb['phase_s']:.1f} s in a child process, by part "
+          f"{ {k: round(v, 1) for k, v in jb['part_s'].items()} }")
+    return launches, errs, jb
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -5677,6 +6135,10 @@ def main() -> int:
     ap.add_argument("--xlstm-alone", metavar="JSON",
                     help="only run phase 18 (xlstm-350m served and trained; the kernels "
                          "built already) and write the numbers here")
+    ap.add_argument("--jamba-alone", metavar="JSON",
+                    help="only run phase 19 (jamba-1.5-large-398b served at full width "
+                         "and trained reduced; the kernels built already) and write the "
+                         "numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5703,6 +6165,10 @@ def main() -> int:
     if args.xlstm_alone:
         with open(args.xlstm_alone, "w") as f:
             json.dump(xlstm_alone(card), f)
+        return 0
+    if args.jamba_alone:
+        with open(args.jamba_alone, "w") as f:
+            json.dump(jamba_alone(card), f)
         return 0
     print(f"phase 1: card: {card}")
     t0 = time.perf_counter()
@@ -5774,6 +6240,10 @@ def main() -> int:
     for row in rows:               # the fp32 RMSNorm kernels on slice 16's paths
         row["launches"] += xl_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], xl_errs.get(row["name"], 0.0))
+    jb_launches, jb_errs, jamba_numbers = phase_jamba(card)
+    for row in rows:               # the bf16 forwards and fp32 kernels on slice 17's paths
+        row["launches"] += jb_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"], jb_errs.get(row["name"], 0.0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -5795,12 +6265,13 @@ def main() -> int:
                                    "width": GATEWAY_WIDTH, **gw},
                        "train": train, "scheduler": sched, "prefix": prefix,
                        "lm": lm, "slice11": s11, "moe": moe,
-                       "moe_train": moe_train_numbers, "xlstm": xlstm_numbers},
+                       "moe_train": moe_train_numbers, "xlstm": xlstm_numbers,
+                       "jamba": jamba_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s "
           f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s, "
           f"phase 17 {moe_train_numbers['phase_s']:.1f} s, phase 18 "
-          f"{xlstm_numbers['phase_s']:.1f} s)")
+          f"{xlstm_numbers['phase_s']:.1f} s, phase 19 {jamba_numbers['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

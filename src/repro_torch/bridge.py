@@ -12,8 +12,11 @@ numpy.
   stacks its layers on a leading (n_superblocks,) axis (an enc-dec's
   encoder and decoder layers on a plain (L,) axis); the port keeps a list
   of per-layer dicts.  Dense weights keep their (in, out) layout, an MoE
-  layer's stacked experts their (E, in, out), and every leaf is cast to
-  the config's dtype.
+  layer's stacked experts their (E, in, out), a Mamba block's depthwise
+  conv ``conv_w`` goes from JAX's (d_conv, 1, d_inner) to torch's
+  (d_inner, 1, d_conv) (both are cross-correlations: a transpose, no
+  flip), and every leaf is cast to the config's dtype but the Mamba
+  block's ``dt_bias``, ``A_log`` and ``D``, float32 in both packages.
 - ``agile_lm_params_from_numpy``: an AgileNN-on-tokens tree
   (``core/agile_lm.py``): its backbone as above, the rest as it is.
 - ``backbone_params_to_numpy``: the way back, for a backbone tree of the
@@ -49,11 +52,26 @@ def params_from_numpy(tree, device=None):
     return _convert(tree, resolve_device(device))
 
 
+# a Mamba block is the dict that holds _MAMBA_KEY (``_leaves_to`` and
+# ``_numpy`` spot it by that key and transpose it); its _MAMBA_F32 leaves
+# stay float32 whatever the model's dtype
+_MAMBA_KEY = "conv_w"
+_MAMBA_F32 = ("dt_bias", "A_log", "D")
+
+
 def _leaves_to(tree, device, dtype=None):
     if isinstance(tree, dict):
+        if _MAMBA_KEY in tree:
+            return {k: _mamba_leaf(k, v, device, dtype) for k, v in tree.items()}
         return {k: _leaves_to(v, device, dtype) for k, v in tree.items()}
     t = torch.tensor(np.asarray(tree), device=device)
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def _mamba_leaf(key, leaf, device, dtype):
+    if key == _MAMBA_KEY:                           # (d_conv, 1, d_inner) -> OIW
+        leaf = np.asarray(leaf).transpose(2, 1, 0)
+    return _leaves_to(leaf, device, None if key in _MAMBA_F32 else dtype)
 
 
 def backbone_params_from_numpy(tree, cfg, device=None):
@@ -72,7 +90,6 @@ def backbone_params_from_numpy(tree, cfg, device=None):
     ``"encoder"`` and ``"blocks"`` are each one dict whose leaves are
     stacked over layers; layer ``i`` is leaf ``[i]``.  Every other entry
     (``vision_proj``, the norms, the embedding) keeps its layout."""
-    sublayer_specs(cfg)                 # refuses a config the port cannot run
     device = resolve_device(device)
     dtype = cfg.dtype
     stacked = ("encoder", "blocks")
@@ -108,7 +125,10 @@ def agile_lm_params_from_numpy(tree, cfg, device=None):
 
 def _numpy(tree):
     if isinstance(tree, dict):
-        return {k: _numpy(v) for k, v in tree.items()}
+        out = {k: _numpy(v) for k, v in tree.items()}
+        if _MAMBA_KEY in out:                       # back to WIO
+            out[_MAMBA_KEY] = np.ascontiguousarray(out[_MAMBA_KEY].transpose(2, 1, 0))
+        return out
     t = tree.detach().cpu()
     return (t.float() if t.is_floating_point() else t).numpy()
 
@@ -122,7 +142,8 @@ def _stack(trees):
 def backbone_params_to_numpy(tree, cfg) -> dict:
     """A backbone tree of the port (``backbone_params_from_numpy``'s
     layout: params or gradients) in the JAX package's layout, every leaf a
-    numpy array, floating point widened to float32 (a bf16 leaf exactly):
+    numpy array, floating point widened to float32 (a bf16 leaf exactly),
+    a Mamba block's ``conv_w`` transposed back to JAX's (d_conv, 1, d_inner):
     ``"blocks"`` becomes one dict per sublayer of a superblock with each
     leaf stacked over superblocks (an enc-dec's ``"encoder"`` and
     ``"blocks"`` one dict each, stacked over layers)."""

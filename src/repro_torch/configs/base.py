@@ -5,8 +5,7 @@ means the same model in both packages.  ``dtype`` gives a torch dtype
 (``param_dtype``: the MoE archs are bfloat16 at full size, and
 ``reduced()`` forces float32 as the JAX package's does).  The port
 registers the dense archs, internvl2-1b (VLM), whisper-tiny (enc-dec),
-the MoE archs and xlstm-350m; the hybrid spec dataclass is kept so that a
-config carrying it can be named and refused.
+the MoE archs, xlstm-350m and the Mamba hybrid jamba-1.5-large-398b.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@ decode.
 
 The port of ``repro.models.backbone`` for the dense archs (qwen2,
 llama3.2), the MoE archs (moonshot-v1-16b-a3b, mixtral-8x7b,
-arctic-480b), the VLM (internvl2-1b), the enc-dec (whisper-tiny) and the
-xLSTM (xlstm-350m):
+arctic-480b), the VLM (internvl2-1b), the enc-dec (whisper-tiny), the
+xLSTM (xlstm-350m) and the Mamba hybrid (jamba-1.5-large-398b):
 
 - dense: every layer is RMSNorm -> causal GQA self-attention with RoPE ->
   residual, RMSNorm -> SwiGLU FFN -> residual, and a final RMSNorm before
@@ -28,29 +28,37 @@ xLSTM (xlstm-350m):
 - xLSTM: superblocks of ``cfg.xlstm.period`` layers, each RMSNorm -> an
   mLSTM cell (``nn/xlstm.py``) -> residual, except the sLSTM cell at
   ``slstm_index``; no FFN sublayer (``ffn == "none"``), an untied readout.
+- hybrid: superblocks of ``cfg.hybrid.period`` layers, each RMSNorm -> a
+  Mamba block (``nn/ssm.py``) -> residual, except the attention layer at
+  ``attn_index``, then RMSNorm -> an FFN -> residual: MoE where ``j %
+  moe.every == every - 1``, dense SwiGLU elsewhere.
 
 A superblock is ``sublayer_specs(cfg)``: one spec {"kind", "ffn"} per
-layer of it (one layer for every arch but the xLSTM); layer i takes spec
-``i % cfg.superblock``.  Where the JAX package stacks the superblocks on a
-leading axis and scans them, the port keeps ``params["blocks"]`` (and the
-enc-dec ``params["encoder"]``) as a Python list of per-layer dicts, layer
-``s * superblock + j`` being sublayer j of superblock s, and loops over it.
+layer of it (one layer for every arch but the xLSTM and the hybrid);
+layer i takes spec ``i % cfg.superblock``.  Where the JAX package stacks
+the superblocks on a leading axis and scans them, the port keeps
+``params["blocks"]`` (and the enc-dec ``params["encoder"]``) as a Python
+list of per-layer dicts, layer ``s * superblock + j`` being sublayer j of
+superblock s, and loops over it.
 
 The decode cache of an attention arch is ``{"k", "v"}``, each one (L, B,
 S, Hkv, D) tensor whose ``[i]`` slice is attention layer i's contiguous
 ring of S slots; an enc-dec cache adds ``{"ck", "cv"}``, each (L, B, F,
-H, D), the cross-attention K/V of the encoder's output.  An xLSTM's cache
-holds the cells' recurrent states in the JAX package's per-kind tensors,
-(n_superblocks, cells of the kind in a superblock, B, ...): ``mlstm_C``
-(.., H, D, D), ``mlstm_n`` (.., H, D) and ``mlstm_m`` (.., H) in float32,
+H, D), the cross-attention K/V of the encoder's output.  The recurrent
+layers' states sit in the JAX package's per-kind tensors, (n_superblocks,
+layers of the kind in a superblock, B, ...): an xLSTM's ``mlstm_C`` (..,
+H, D, D), ``mlstm_n`` (.., H, D) and ``mlstm_m`` (.., H) in float32,
 ``slstm_h`` (.., d) in the model's dtype and ``slstm_c`` / ``_n`` / ``_m``
-(.., d) in float32, the m's filled with -1e30 before the first token.
+(.., d) in float32, the m's filled with -1e30 before the first token; a
+hybrid's ``mamba_conv`` (.., d_conv - 1, d_inner) in the model's dtype and
+``mamba_ssm`` (.., d_inner, d_state) in float32, beside the K/V of its
+attention layers (one per superblock: L = n_superblocks).
 ``decode_step`` writes into the cache IN PLACE and returns the same dict
 (the JAX package returns new arrays).
 ``prefill(long_context=True)`` runs a full-attention arch as a sliding
 window of ``cfg.long_context_window`` tokens, in prefill and in a ring
-cache of that many slots (an xLSTM has no attention to window, and
-ignores it).
+cache of that many slots (an xLSTM has no attention to window and a
+hybrid keeps its whole context, as in the JAX package: both ignore it).
 
 ``forward_loss`` is the training forward (mean next-token cross-entropy
 by ``chunked_cross_entropy``) and ``forward_hidden`` the final hidden
@@ -74,9 +82,6 @@ Parameters are drawn in ``cfg.dtype`` (bfloat16 for the MoE archs at full
 size), each on its way to the device before the next is drawn.  A bf16
 model follows the JAX package's casts: norms, the router and the MoE
 combine in float32, K/V kept in a bf16 cache, logits in float32.
-
-Configs with hybrid (Mamba) parts raise NotImplementedError: that branch
-is not ported yet.
 """
 from __future__ import annotations
 
@@ -104,6 +109,7 @@ from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.ssm import mamba_apply, mamba_decode_apply, mamba_init
 from repro_torch.nn.xlstm import (
     NEG,
     mlstm_apply,
@@ -114,21 +120,8 @@ from repro_torch.nn.xlstm import (
     slstm_init,
 )
 
-# parts of a config the port's backbone cannot run yet, and where they wait
-_UNPORTED = (
-    ("hybrid", "ROADMAP Queue 1 item 6(e) (arch zoo: Mamba hybrid)"),
-)
-# the recurrent cells' decode state: their names, in the cache's keys
-_CELL_STATE = {"mlstm": "Cnm", "slstm": "hcnm"}
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    for name, item in _UNPORTED:
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port's backbone runs xLSTM and the dense archs "
-                f"only (with MoE FFNs, a VLM prefix or an enc-dec encoder); "
-                f"`{name}` configs wait for {item}")
+# the recurrent layers' decode state: their names, in the cache's keys
+_CELL_STATE = {"mlstm": "Cnm", "slstm": "hcnm", "mamba": ("conv", "ssm")}
 
 
 def sublayer_specs(cfg: ArchConfig) -> list[dict]:
@@ -136,12 +129,22 @@ def sublayer_specs(cfg: ArchConfig) -> list[dict]:
     arch (and the VLM and enc-dec decoders) has one attention sublayer,
     with a dense FFN or, under ``cfg.moe``, an MoE FFN; an xLSTM's
     superblock has ``period`` cells, the sLSTM at ``slstm_index`` and
-    mLSTMs elsewhere, with no FFN."""
-    _check_ported(cfg)
+    mLSTMs elsewhere, with no FFN; a hybrid's has ``period`` layers,
+    attention at ``attn_index`` and Mamba elsewhere, each with an MoE FFN
+    where ``j % moe.every == every - 1`` and a dense one elsewhere."""
     if cfg.xlstm is not None:
         return [{"kind": "slstm" if j == cfg.xlstm.slstm_index else "mlstm",
                  "ffn": "none"} for j in range(cfg.superblock)]
+    if cfg.hybrid is not None:
+        m = cfg.moe
+        return [{"kind": "attn" if j == cfg.hybrid.attn_index else "mamba",
+                 "ffn": "moe" if m is not None and j % m.every == m.every - 1
+                 else "dense"} for j in range(cfg.superblock)]
     return [{"kind": "attn", "ffn": "moe" if cfg.moe is not None else "dense"}]
+
+
+def _mamba_kwargs(cfg: ArchConfig) -> dict:
+    return {"d_state": cfg.hybrid.d_state, "d_conv": cfg.hybrid.d_conv}
 
 
 def _layer_slots(cfg: ArchConfig) -> list[tuple[dict, tuple]]:
@@ -241,6 +244,10 @@ def _init_layer(cfg: ArchConfig, spec: dict, gen: torch.Generator,
         p["cell"] = mlstm_init(gen, cfg.d_model, cfg.n_heads, **place)
     elif spec["kind"] == "slstm":
         p["cell"] = slstm_init(gen, cfg.d_model, cfg.n_heads, **place)
+    elif spec["kind"] == "mamba":
+        h = cfg.hybrid
+        p["mamba"] = mamba_init(gen, cfg.d_model, expand=h.expand, d_state=h.d_state,
+                                d_conv=h.d_conv, **place)
     else:
         p["attn"] = attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
@@ -355,10 +362,12 @@ def _apply_ffn(cfg: ArchConfig, spec: dict, p, x, *, dropless: bool = False):
 def _apply_sublayer(cfg: ArchConfig, spec: dict, p, x, *, window: int,
                     dropless: bool = False, kv_valid_len=None):
     """Full-sequence (training / prefill) layer.  Returns (x, its decode
-    state, aux): (k, v) of an attention layer, a cell's state dict after
-    the last token."""
+    state, aux): (k, v) of an attention layer, a cell's or a Mamba block's
+    state dict after the last token."""
     h = _norm(cfg, p["norm"], x)
-    if spec["kind"] == "mlstm":
+    if spec["kind"] == "mamba":
+        y, state = mamba_apply(p["mamba"], h, return_state=True, **_mamba_kwargs(cfg))
+    elif spec["kind"] == "mlstm":
         y, state = mlstm_apply(p["cell"], h, n_heads=cfg.n_heads, return_state=True)
     elif spec["kind"] == "slstm":
         y, state = slstm_apply(p["cell"], h, n_heads=cfg.n_heads, return_state=True)
@@ -576,7 +585,6 @@ def forward_loss(cfg: ArchConfig, params, batch, *, window: int = 0,
 
     batch: {"tokens": (B, T), "labels": (B, T)} [+ "patches" (VLM) /
     "frames" (enc-dec)]."""
-    sublayer_specs(cfg)
     x, labels, aux = _hidden(cfg, params, batch,
                              window=window or cfg.sliding_window, remat=remat)
     x = _norm(cfg, params["final_norm"], x)
@@ -589,7 +597,6 @@ def forward_loss(cfg: ArchConfig, params, batch, *, window: int = 0,
 def forward_hidden(cfg: ArchConfig, params, batch, *, window: int = 0,
                    remat: bool = True):
     """Final hidden states (B, T, d): AgileNN's remote path."""
-    sublayer_specs(cfg)
     x, _, _ = _hidden(cfg, params, batch, window=window or cfg.sliding_window,
                       remat=remat)
     return _norm(cfg, params["final_norm"], x)
@@ -610,14 +617,19 @@ def cache_window(cfg: ArchConfig, context_len: int, *,
 
 
 def _cell_cache(cfg: ArchConfig, batch: int, device, alloc) -> dict:
-    """The xLSTM cells' state tensors (the module docstring's shapes),
-    each made by ``alloc(shape, dtype, fill)``."""
+    """The recurrent layers' state tensors (the module docstring's
+    shapes), each made by ``alloc(shape, dtype, fill)``."""
     specs = sublayer_specs(cfg)
     n_sb, H, hd, d = cfg.n_superblocks, cfg.n_heads, cfg.resolved_head_dim, cfg.d_model
     f32 = torch.float32
     shapes = {"mlstm": {"C": ((H, hd, hd), f32), "n": ((H, hd), f32), "m": ((H,), f32)},
               "slstm": {"h": ((d,), cfg.dtype), "c": ((d,), f32), "n": ((d,), f32),
                         "m": ((d,), f32)}}
+    if cfg.hybrid is not None:
+        hy = cfg.hybrid
+        d_inner = hy.expand * d
+        shapes["mamba"] = {"conv": ((hy.d_conv - 1, d_inner), cfg.dtype),
+                           "ssm": ((d_inner, hy.d_state), f32)}
     out = {}
     for kind, names in _CELL_STATE.items():
         n = sum(1 for s in specs if s["kind"] == kind)
@@ -631,19 +643,21 @@ def _cell_cache(cfg: ArchConfig, batch: int, device, alloc) -> dict:
 def init_cache(cfg: ArchConfig, batch: int, context_len: int, *,
                long_context: bool = False, device=None) -> dict:
     """Zero decode cache: {"k", "v"}, each (L, B, S, Hkv, D) in cfg.dtype
-    (CUDA by default), S = cache_window(context_len, long_context=); an
-    enc-dec cache adds {"ck", "cv"}, each (L, B, F, H, D).  An xLSTM's is
-    its cells' states (the module docstring), the m's at -1e30."""
-    sublayer_specs(cfg)
+    (CUDA by default), L the attention layers, S = cache_window(context_len,
+    long_context=); an enc-dec cache adds {"ck", "cv"}, each (L, B, F, H,
+    D).  The recurrent layers' states (an xLSTM's cells, a hybrid's Mamba
+    blocks) as in the module docstring, the m's at -1e30."""
     device = resolve_device(device)
-    if cfg.xlstm is not None:
-        return _cell_cache(cfg, batch, device, lambda shape, dtype, fill: torch.full(
-            shape, fill, dtype=dtype, device=device))
+    out = _cell_cache(cfg, batch, device, lambda shape, dtype, fill: torch.full(
+        shape, fill, dtype=dtype, device=device))
+    n_attn = sum(1 for spec, _ in _layer_slots(cfg) if spec["kind"] == "attn")
+    if not n_attn:
+        return out
     S = cache_window(cfg, context_len, long_context=long_context)
     hd = cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, hd)
-    out = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-           "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    shape = (n_attn, batch, S, cfg.n_kv_heads, hd)
+    out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
     if cfg.encdec is not None:
         cross = (cfg.n_layers, batch, cfg.encdec.n_frames, cfg.n_heads, hd)
         out["ck"] = torch.zeros(cross, dtype=cfg.dtype, device=device)
@@ -675,13 +689,13 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     ``long_context`` a full-attention arch attends within the last
     min(long_context_window, context length) positions.
 
-    An xLSTM's cache is its cells' states after the last token (the
-    module docstring's layout); ``max_len`` and ``long_context`` do not
-    shape it.
+    The recurrent layers' part of the cache is their states after the
+    last token (the module docstring's layout); ``max_len`` and
+    ``long_context`` do not shape it.
 
     lengths: optional (B,) valid prompt lengths of a right-padded token
-    batch (no patches, not enc-dec, no recurrent cells, which would take
-    the pads into their state): pad keys are masked out of attention
+    batch (no patches, not enc-dec, no recurrent cells or Mamba blocks,
+    which would take the pads into their state): pad keys are masked out of attention
     for every row, and the logits are gathered at each row's last real
     token.  The padded width must fit the cache window.  An MoE arch runs
     at the inference capacity (``_apply_ffn(dropless=True)``); pad tokens
@@ -692,7 +706,7 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
     device, averaged over the MoE layers; zeros for a dense arch)."""
     slots = _layer_slots(cfg)
     if lengths is not None and (cfg.encdec is not None or cfg.xlstm is not None
-                                or "patches" in batch):
+                                or cfg.hybrid is not None or "patches" in batch):
         raise ValueError("bucketed (right-padded) prefill takes token batches "
                          "of an attention-only decoder")
     x, _ = _embed_inputs(cfg, params, batch)
@@ -752,8 +766,8 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len, *,
     init_cache/prefill; cache_len: an int (every row at one depth) or a
     (B,) tensor (each row at its own depth; RoPE archs only, since
     sinusoidal positions take one offset).  Returns (logits (B, vocab)
-    float32, cache), the cache updated IN PLACE.  An xLSTM's cells advance
-    their states (cache_len does not enter).  An MoE arch routes the
+    float32, cache), the cache updated IN PLACE.  The recurrent layers
+    advance their states (cache_len does not enter them).  An MoE arch routes the
     step's B tokens as one group at the inference capacity (at moonshot's
     E = 64, k = 6 and B = 8: 4 slots an expert, so slots can drop, as in
     the JAX package); ``aux`` as in ``prefill``."""
@@ -780,8 +794,12 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, cache_len, *,
         else:
             names = _CELL_STATE[kind]
             state = {n: cache[f"{kind}_{n}"][at] for n in names}
-            step = mlstm_decode_apply if kind == "mlstm" else slstm_decode_apply
-            y, state = step(p["cell"], h, state, n_heads=cfg.n_heads)
+            if kind == "mamba":
+                y, state = mamba_decode_apply(p["mamba"], h, state,
+                                              **_mamba_kwargs(cfg))
+            else:
+                step = mlstm_decode_apply if kind == "mlstm" else slstm_decode_apply
+                y, state = step(p["cell"], h, state, n_heads=cfg.n_heads)
             for n in names:
                 cache[f"{kind}_{n}"][at].copy_(state[n])
         x = x + y
@@ -819,16 +837,16 @@ def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
     segment row whose logits are returned.  Returns (logits (B, vocab)
     float32, cache).  Chunked prefill needs a pure-attention dense-FFN
     RoPE decoder with no sliding window, no patches, no encoder, no MoE and
-    no recurrent cells, which would take the pad tokens into their state
-    (ValueError otherwise)."""
-    sublayer_specs(cfg)
+    no recurrent cells or Mamba blocks, which would take the pad tokens
+    into their state (ValueError otherwise)."""
     if (cfg.rope_theta <= 0 or cfg.sliding_window or cfg.vlm is not None
             or cfg.encdec is not None or cfg.moe is not None
-            or cfg.xlstm is not None):
+            or cfg.xlstm is not None or cfg.hybrid is not None):
         raise ValueError(
             f"{cfg.name}: chunked prefill needs a pure-attention dense-FFN "
-            "RoPE decoder (no MoE, recurrent cells, patches or encoder) with "
-            "no sliding window (a ring cache breaks slot == position)")
+            "RoPE decoder (no MoE, recurrent cells, Mamba blocks, patches or "
+            "encoder) with no sliding window (a ring cache breaks slot == "
+            "position)")
     B, C = tokens.shape
     S = cache["k"].shape[2]
     if not (0 <= depth and depth + C <= S and attend_width <= S):

@@ -25,7 +25,7 @@ def _truncated_normal(gen: torch.Generator, shape, std: float, dtype,
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
-    return _place(std * t, dtype, device)
+    return _place(t.mul_(std), dtype, device)   # in place: one float32 copy at a time
 
 
 def lecun_normal(gen: torch.Generator, shape, fan_in: int | None = None, *,
@@ -45,4 +45,4 @@ def he_normal(gen: torch.Generator, shape, fan_in: int | None = None, *,
 def normal(gen: torch.Generator, shape, std: float = 0.02, *,
            dtype=torch.float32, device=None):
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return _place(std * t, dtype, device)
+    return _place(t.mul_(std), dtype, device)

@@ -1,8 +1,9 @@
 """Dense, conv and embedding primitives on channels-last tensors.
 
 Weights: dense ``w`` is (in, out) as in the JAX package; conv ``w`` is
-OIHW, torch's layout (the JAX package keeps HWIO; ``repro_torch.bridge``
-transposes).  Activations stay NHWC at every public function.
+OIHW / OIW, torch's layout (the JAX package keeps HWIO / WIO;
+``repro_torch.bridge`` transposes).  Activations stay channels-last (NHWC,
+NWC) at every public function.
 """
 from __future__ import annotations
 
@@ -119,6 +120,35 @@ class _Conv2d(torch.autograd.Function):
         if ctx.has_bias and ctx.needs_input_grad[2]:
             gb = g.sum(dim=(0, 2, 3))
         return gx, gw, gb, None, None
+
+
+def conv1d_init(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int, *,
+                use_bias: bool = True, groups: int = 1, **place) -> dict:
+    """``w`` (out, in / groups, kernel), torch's OIW (the JAX package keeps
+    WIO), he-normal over the kernel x in / groups inputs of an output, as
+    JAX's ``conv1d_init`` with its ``in_ch`` the group's; ``b`` zeros."""
+    w = he_normal(gen, (out_ch, in_ch // groups, kernel), fan_in=kernel * (in_ch // groups),
+                  **place)
+    p = {"w": w}
+    if use_bias:
+        p["b"] = torch.zeros(out_ch, dtype=w.dtype, device=w.device)
+    return p
+
+
+def conv1d(params, x, *, stride: int = 1, padding: str = "SAME", groups: int = 1):
+    """x: (B, T, C) NWC -> (B, T', O), a cross-correlation as XLA's with
+    "SAME" (XLA's asymmetric pads, ``same_pads``) or "VALID" padding;
+    ``groups`` is JAX's ``feature_group_count`` (``groups=C``: depthwise,
+    as the Mamba block's causal conv after its own left pad)."""
+    w = params["w"]
+    xc = x.transpose(1, 2)
+    if padding == "SAME":
+        lo, hi = same_pads(x.shape[1], w.shape[2], stride)
+        xc = F.pad(xc, (lo, hi))
+    elif padding != "VALID":
+        raise ValueError(f"padding {padding!r}: \"SAME\" or \"VALID\"")
+    return F.conv1d(xc, w, params.get("b"), stride=stride,
+                    groups=groups).transpose(1, 2)
 
 
 # ------------------------------------------------------------ embedding ----

@@ -178,7 +178,31 @@ def test_teacher_forced_decode_equals_prefill():
 
 
 def test_unported_archs_raise():
+    """Once refused, the hybrid branch now runs: reduced qwen2 with a
+    2-layer Mamba hybrid superblock (attention, then a Mamba block, dense
+    FFNs) inits to the tree of JAX's init, and its prefill logits and
+    every cache entry on those weights match JAX's within SLICE_TOL (K/V
+    in the port's (L, B, S, H, D) shape)."""
+    from repro.configs.base import HybridSpec as JaxHybridSpec
+    from repro_torch.bridge import backbone_params_to_numpy
+
     cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                               hybrid=HybridSpec(period=2))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbb.init_params(cfg, device="cpu")
+    jcfg = dataclasses.replace(jax_get_config("qwen2-0.5b").reduced(),
+                               hybrid=JaxHybridSpec(period=2))
+    params = tbb.init_params(cfg, device="cpu")
+    assert [s["kind"] for s in tbb.sublayer_specs(cfg)] == ["attn", "mamba"]
+    tree = backbone_params_to_numpy(params, cfg)
+    shapes = jax.eval_shape(lambda: jbb.init_params(jcfg, KEY))
+    assert ([(jax.tree_util.keystr(k), v.shape) for k, v in
+             jax.tree_util.tree_leaves_with_path(tree)]
+            == [(jax.tree_util.keystr(k), v.shape) for k, v in
+                jax.tree_util.tree_leaves_with_path(shapes)])
+    toks = np.random.RandomState(3).randint(0, cfg.vocab, (2, 9)).astype(np.int32)
+    jl, jc, _ = jbb.prefill(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                            {"tokens": jnp.asarray(toks)}, max_len=16)
+    tl, tc, _ = tbb.prefill(cfg, params, {"tokens": torch.from_numpy(toks)}, max_len=16)
+    close(jl, tl, SLICE_TOL)
+    assert sorted(tc) == sorted(jc) == ["k", "mamba_conv", "mamba_ssm", "v"]
+    for k in jc:
+        close(np.asarray(jc[k]).reshape(tc[k].shape), tc[k], SLICE_TOL)

@@ -582,7 +582,17 @@ def test_backbone_refuses_extras_and_other_families():
         tbb.forward_loss(cfg, params, {"tokens": np.zeros((1, 4), np.int32),
                                        "labels": np.zeros((1, 4), np.int32),
                                        "patches": np.zeros((1, 2, 8), np.float32)})
+    # a hybrid, once refused, now runs: forward_hidden of attention + a
+    # Mamba block within TOL of JAX's on the same weights
+    from repro.configs.base import HybridSpec as JaxHybridSpec
+    from repro_torch.bridge import backbone_params_to_numpy
     from repro_torch.configs.base import HybridSpec
     hybrid = dataclasses.replace(cfg, hybrid=HybridSpec(period=2))
-    with pytest.raises(NotImplementedError, match="dense archs only"):
-        tbb.forward_hidden(hybrid, params, {"tokens": np.zeros((1, 4), np.int32)})
+    jhybrid = dataclasses.replace(jax_get_config("qwen2-0.5b").reduced(),
+                                  hybrid=JaxHybridSpec(period=2))
+    hp = tbb.init_params(hybrid, 0, device="cpu")
+    toks = np.random.RandomState(2).randint(0, cfg.vocab, (1, 6)).astype(np.int32)
+    want = jbb.forward_hidden(jhybrid, jax.tree_util.tree_map(
+        jnp.asarray, backbone_params_to_numpy(hp, hybrid)), {"tokens": jnp.asarray(toks)})
+    got = tbb.forward_hidden(hybrid, hp, {"tokens": toks})
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=TOL, rtol=TOL)

@@ -142,7 +142,12 @@ def test_top_k_ties_take_the_lower_index():
 def test_moe_serving_routes_and_refusals():
     """Mixed prompt lengths take one equal-length call per length (the
     scheduler rules MoE out); chunked prefill refuses MoE; bucketed
-    prefill (lengths) runs; hybrid configs still raise."""
+    prefill (lengths) runs.  A hybrid of the same MoE arch (attention and
+    a Mamba block, both with MoE FFNs), once refused, now runs: its
+    ``init_cache`` holds JAX's keys and shapes (K/V as (L, B, S, H, D)),
+    and a decode step from a prefill gives the logits of a prefill one
+    token longer, within the reference's prefill -> decode bar for Mamba
+    (3e-4)."""
     cfg = get_config("moonshot-v1-16b-a3b").reduced()
     params = tbb.init_params(cfg, 0, device="cpu")
     assert all(t.dtype == torch.float32 for t in params["blocks"][0]["moe"].values()
@@ -165,6 +170,22 @@ def test_moe_serving_routes_and_refusals():
                                lengths=torch.tensor([8, 5]))
     assert torch.isfinite(logits).all()
     from repro_torch.configs.base import HybridSpec
+    from repro.configs import get_config as jax_get_config
+    from repro.configs.base import HybridSpec as JaxHybridSpec
+    from repro.models import backbone as jbb
     hybrid = dataclasses.replace(cfg, hybrid=HybridSpec(period=2))
-    with pytest.raises(NotImplementedError, match="6\\(e\\)"):
-        tbb.init_params(hybrid, device="cpu")
+    jhybrid = dataclasses.replace(jax_get_config("moonshot-v1-16b-a3b").reduced(),
+                                  hybrid=JaxHybridSpec(period=2))
+    assert tbb.sublayer_specs(hybrid) == jbb.sublayer_specs(jhybrid) == [
+        {"kind": "attn", "ffn": "moe"}, {"kind": "mamba", "ffn": "moe"}]
+    hp = tbb.init_params(hybrid, 0, device="cpu")
+    jc = jbb.init_cache(jhybrid, 2, 16)
+    tc = tbb.init_cache(hybrid, 2, 16, device="cpu")
+    assert sorted(tc) == sorted(jc)
+    assert all(tc[k].numel() == jc[k].size and str(tc[k].dtype)[6:] == str(jc[k].dtype)
+               for k in jc)
+    _, cache, T = tbb.prefill(hybrid, hp, {"tokens": toks}, max_len=16)
+    step, _ = tbb.decode_step(hybrid, hp, toks[:, -1:], cache, T)
+    full, _, _ = tbb.prefill(hybrid, hp, {"tokens": torch.cat([toks, toks[:, -1:]], 1)},
+                             max_len=16)
+    torch.testing.assert_close(step, full, atol=3e-4, rtol=3e-4)

@@ -14,8 +14,9 @@ width 32).  Tolerances, each with its reason:
 - a whole pipeline run against JAX's measured report (not the system
   test's thresholds) at 0.03: over the run the two trajectories part
   (fp32 training is chaotic), and the report's rates count discrete
-  flips over 512 images; the channel mapping and the port against itself
-  exactly;
+  flips over 512 images; its loss curve at LOSS_CURVE_TOL, twice JAX's
+  own spread one ulp away (``test_run_full_pipeline_...``); the channel
+  mapping and the port against itself exactly;
 - selections, mappings and checkpoints exactly.
 """
 import dataclasses
@@ -59,6 +60,12 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = 1e-5
 OPT_TOL = dict(atol=1e-6, rtol=1e-6)
 REPORT_TOL = 0.03
+# JAX's joint-stage loss curve in the shortened full pipeline moves by up
+# to this much when one input of stage A is nudged one ulp (measured on the
+# CPU, see test_run_full_pipeline_matches_jax_report_and_reruns_bitwise)
+JAX_ONE_ULP_LOSS_SPREAD = 2.77e-3
+LOSS_CURVE_TOL = 2 * JAX_ONE_ULP_LOSS_SPREAD
+PIPELINE_THREADS = 1
 
 _SIZES = dict(image_size=16, remote_width=32, remote_blocks=2,
               reference_width=32, reference_blocks=2)
@@ -421,15 +428,35 @@ def test_evaluate_matches_jax(system):
 
 def test_run_full_pipeline_matches_jax_report_and_reruns_bitwise():
     """tests/test_system.py's configuration, shortened (4 + 3 steps), from
-    the JAX run's own initial params: the mapping of Alg. 1 is JAX's, the
-    report and the loss curve are JAX's measured ones within REPORT_TOL,
-    and a second run of the port is bitwise the first."""
+    the JAX run's own initial params, the port on PIPELINE_THREADS torch
+    threads (restored afterwards), so that its result and its time do not
+    depend on the machine or the test worker: the mapping of Alg. 1 is
+    JAX's, the report is JAX's measured one within REPORT_TOL, the
+    joint-stage loss curve JAX's within LOSS_CURVE_TOL, and a second run
+    of the port is bitwise the first.
+
+    The loss curve's bar, measured on the CPU: JAX's curve is [0.8035477,
+    0.7706028, 0.8376005]; with stage A's initial reference params nudged
+    one ulp it moves by up to 2.77e-3 (at the third step; 9.2e-4 with the
+    initial extractor nudged instead): JAX_ONE_ULP_LOSS_SPREAD.  The port
+    on one thread ends 1.19e-3 from JAX's curve (on 2, 4, 8 threads 2.77e-3,
+    1.13e-3, 2.8e-4: its own spread over thread counts is 4.0e-3).  The
+    two packages first part in stage A: after its 4 SGD steps their
+    weights are 1.3e-5 apart (relative), and the port's stages C-D run from
+    JAX's own stage-B state give JAX's curve within 6e-8.  Each package's
+    trajectory spreads on its own by about one such spread, so the bar is
+    twice it."""
     _, _, tinit = _pipeline_init(SYS_JCFG)
     _, _, jrep, jhist, _ = jtrain.run_full_pipeline(
         SYS_JCFG, pretrain_steps=4, joint_steps=3, batch_size=32)
-    runs = [train.run_full_pipeline(SYS_CFG, pretrain_steps=4, joint_steps=3,
-                                    batch_size=32, init=tinit, device="cpu")
-            for _ in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(PIPELINE_THREADS)
+    try:
+        runs = [train.run_full_pipeline(SYS_CFG, pretrain_steps=4, joint_steps=3,
+                                        batch_size=32, init=tinit, device="cpu")
+                for _ in range(2)]
+    finally:
+        torch.set_num_threads(threads)
     tp, _, trep, thist, _ = runs[0]
     assert tp["mapping"] == tuple(range(24))          # folded at stage D
     assert sorted(trep) == sorted(jrep)
@@ -437,7 +464,7 @@ def test_run_full_pipeline_matches_jax_report_and_reruns_bitwise():
         assert abs(trep[key] - jrep[key]) <= REPORT_TOL, (key, trep, jrep)
     assert len(thist) == len(jhist) == 3
     for rj, rt in zip(jhist, thist):
-        assert abs(rt["loss"] - rj["loss"]) <= 1e-3, (rt, rj)
+        assert abs(rt["loss"] - rj["loss"]) <= LOSS_CURVE_TOL, (rt, rj)
     again = runs[1]
     assert again[2] == trep and again[3] == thist
     for a, b in zip(tree_leaves(again[0]), tree_leaves(tp)):
