@@ -90,7 +90,7 @@ Phases, each of which raises on failure:
      16-row pool with depths spread over its splits, and RMSNorm at the
      path's rows (16, 128, 256, 512 of d = 896), against their plain
      versions (atol = rtol = 2e-5); (b) qwen2-0.5b at full width through
-     ``ServeEngine(max_len=1024, scheduler=SCHED_CFG).generate`` on 48
+     ``ServeEngine(max_len=1024, scheduler=SCHED_CFG).generate`` on 24
      requests (prompts 16-512, budgets 8-64, greedy), launch counts from
      0 and checked exactly against the forwards the run made (the
      backbone's prefill / prefill_chunk / decode_step wrapped with
@@ -99,7 +99,7 @@ Phases, each of which raises on failure:
      share over eight rounds of a second run under torch.profiler, against
      that window's own wall time; one decode step alone at the pool's
      shape, host ms against its kernels' ms; (c) overlap off giving exactly
-     the same tokens, every 4th request against its decode alone, a
+     the same tokens, every 8th request against its decode alone, a
      deadline eviction under a fake clock (a prefix of its run), a
      suspend/resume, 6 requests on the card against the port's CPU, and
      a sampled queue repeating itself under one seed.  Token checks pass
@@ -315,6 +315,33 @@ Phases, each of which raises on failure:
      4 experts, and of the top-2 config with its leaves' distance
      reported; each step again from the same state bitwise, its launches
      exact.
+  the launchers, the roofline and the examples (slice 18), in this
+  process after phase 19's child has ended:
+ 20. each launcher's ``main(argv)``: (a) ``launch.serve --arch qwen2-0.5b
+     --tokens 32`` at full width, launches from 0 and exact, its greedy
+     tokens against ``ServeEngine.generate`` on the same weights and
+     prompt (phase 8's near-tie rule); (b) ``--queue 16 --lengths
+     64,256,512 --tokens 16 --prefix-cache --kv-tier-mb 8`` with
+     ``--metrics-json`` and ``--trace-out``, the prefix cache's hot budget
+     cut to 8 pages so that its cold tier runs: launches exact against the
+     forwards and the K / V pages compressed (one quantize launch at L =
+     256 each), the same tokens as the same SchedulerConfig driven
+     directly, the JAX launcher's gauge names in the dump, a Chrome trace
+     with spans; (c) ``--queue 16 --stream --max-queue 8 --priority mixed
+     --preempt --journal J``: served + shed + rejected account for all 16,
+     the journal recovered into a fresh frontend with none lost; (d) the
+     gateway's SLO run and chaos run: every request on the ladder, one
+     offload_fused launch a fleet build; (e) ``launch.train --local
+     --steps 3`` for qwen2-0.5b, whisper-tiny and internvl2-1b: finite
+     losses, launches counted (exact for the RMSNorm decoders); (f)
+     ``roofline.analysis.analyze_step`` of a prefill of 8 x 512, one
+     decode step of 8 rows at depth 544 and phase 14's train step at full
+     width, each counted in a run of its own, then timed by CUDA events
+     (median of 5): flops, bytes, the bound and what bounds it, the share
+     of the bound, the analytic estimate at ``MeshSpec(1, 1, 1)`` beside
+     the count; on reduced qwen2-0.5b the card's count equal to the
+     port's CPU's, exactly; (g) each ``examples/torch_*.py``'s ``main``
+     with small arguments, each launching its path's kernels.
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -323,6 +350,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -417,7 +446,15 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref  #
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda  # noqa: E402
 from repro_torch.kernels.topk_split.ops import channel_permute_op  # noqa: E402
 from repro_torch.kernels.topk_split.ref import channel_permute_ref  # noqa: E402
-from repro_torch.launch.steps import make_train_step, n_microbatches, opt_init  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+    n_microbatches,
+    opt_init,
+)
 from repro_torch.models import backbone as bb  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     extractor_apply,
@@ -466,9 +503,12 @@ from repro_torch.serve.gateway import (  # noqa: E402
 )
 from repro_torch.serve.gateway import gateway as gateway_mod  # noqa: E402
 from repro_torch.serve.offload import measure_payload, run_offload_inference  # noqa: E402
+from repro_torch.serve.prefix_cache import PrefixCache  # noqa: E402
 from repro_torch.serve.recovery import RequestJournal, recover  # noqa: E402
 from repro_torch.serve.scheduler import ContinuousScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.serve.telemetry import Histogram, Telemetry  # noqa: E402
+from repro_torch.roofline import analysis as roof  # noqa: E402
+from repro_torch.roofline import analytic as roof_analytic  # noqa: E402
 from repro_torch.train import agile_pipeline  # noqa: E402
 from repro_torch.train.agile_pipeline import joint_step, run_full_pipeline  # noqa: E402
 
@@ -539,17 +579,20 @@ TRAIN_BATCHES, TRAIN_MEM_FRACTION, TRAIN_TIMED_STEPS = (64, 32, 16, 8), 0.9, 3
 PIPE_BATCH, PIPE_PRETRAIN, PIPE_JOINT = 64, 40, 12
 
 # the continuous scheduler: qwen2-0.5b at full width through
-# ServeEngine(max_len=1024, scheduler=SCHED_CFG); 48 requests, prompt
-# lengths in [16, 512] and budgets in [8, 64], all greedy
+# ServeEngine(max_len=1024, scheduler=SCHED_CFG); 24 requests, prompt
+# lengths in [16, 512] and budgets in [8, 64], all greedy (48 until slice
+# 18, whose phase 20 took the time: the queue ran five times, 217-261 s);
+# every SCHED_ALONE_EVERY-th request is decoded alone as well
 SCHED_CFG = SchedulerConfig(buckets=(64, 128, 256, 512), max_slots=16,
                             prefill_group=4, chunk=8, page_size=32,
                             prefill_segment=128)
-SCHED_REQS, SCHED_SEED = 48, 3
+SCHED_REQS, SCHED_SEED, SCHED_ALONE_EVERY = 24, 3, 8
 # the sampled rerun takes the queue's first 16 (its rounds run twice)
 SCHED_SAMPLED = 16
 # a second run of the queue, its rounds SCHED_PROF_FROM + 1 .. +
-# SCHED_PROF_ROUNDS traced by torch.profiler (the card's busy share)
-SCHED_PROF_FROM, SCHED_PROF_ROUNDS = 40, 8
+# SCHED_PROF_ROUNDS traced by torch.profiler (the card's busy share), of
+# the queue's 74 rounds (a CPU rehearsal; rounds do not depend on weights)
+SCHED_PROF_FROM, SCHED_PROF_ROUNDS = 30, 8
 # the decode step timed alone at the pool's shape: 16 rows at these depths
 SCHED_STEP_DEPTHS = tuple(range(16, 577, 37))
 # the same scheduler on the card and on the CPU: 6 requests of 16-200
@@ -761,6 +804,52 @@ JAMBA_PROFILE_STEPS = 4
 # bars); one make_train_step on 2 x 128 tokens (phase 14c's bars)
 JAMBA_CPU_B, JAMBA_CPU_T, JAMBA_CPU_NEW = 2, 64, 8
 JAMBA_TRAIN_B, JAMBA_TRAIN_T = 2, 128
+# slice 18: the launchers, the roofline and the examples, driven in this
+# process (phase 20).  (a) the plain mode at full width, 32 tokens
+LAUNCH_TOKENS = 32
+LAUNCH_PLAIN_ARGV = ["--arch", LLM_ARCH, "--tokens", str(LAUNCH_TOKENS)]
+# (b) a shared-prefix queue with a cold-tier budget; the prefix cache's
+# hot budget cut from its default 512 pages (which this queue's 134 pages
+# never fill) so that pages demote and the cold tier quantizes them; the
+# gauges the JAX launcher's dump carries
+LAUNCH_QUEUE_ARGV = ["--arch", LLM_ARCH, "--queue", "16", "--lengths", "64,256,512",
+                     "--tokens", "16", "--prefix-cache", "--kv-tier-mb", "8"]
+LAUNCH_HOT_PAGES = 8
+LAUNCH_QUEUE_GAUGES = ("serve.requests", "serve.tokens", "serve.wall_s",
+                       "serve.tokens_per_s", "sched.pool_occupancy", "sched.backlog",
+                       "sched.staging", "prefix.page_lookups", "prefix.page_hits",
+                       "prefix.inserts", "prefix.demotions", "prefix.promotions",
+                       "prefix.hot_drops", "prefix.cold_drops", "prefix.hit_rate",
+                       "prefix.hot_pages", "prefix.cold_pages", "prefix.cold_used_bytes")
+# (c) the streaming frontend, (d) the gateway's two runs, (e) training
+LAUNCH_STREAM_REQS = 16
+LAUNCH_STREAM_ARGV = ["--arch", LLM_ARCH, "--queue", str(LAUNCH_STREAM_REQS), "--stream",
+                      "--max-queue", "8", "--priority", "mixed", "--preempt"]
+LAUNCH_GATEWAY_ARGVS = (
+    ["--gateway", "32", "--requests", "4", "--slo-ms", "30"],
+    ["--gateway", "16", "--deadline-ms", "150", "--faults",
+     "blackout:0.05:0.2;burst;corrupt:0:1:0.3", "--fault-seed", "7"])
+LAUNCH_TRAIN_ARCHS, LAUNCH_TRAIN_STEPS = ("qwen2-0.5b", "whisper-tiny", "internvl2-1b"), 3
+# (f) the roofline records at full width: a prefill of 8 x 512, one decode
+# step of 8 rows at depth 544, phase 14's train step (2 x (4, 4096)), each
+# timed by CUDA events (median of ROOF_REPS); and the same three at small
+# shapes on reduced qwen2-0.5b, counted on the card and on the CPU
+ROOF_SIZES = ((8, 512), (8, 544), (LM_GLOBAL_BATCH, LM_SEQ, LM_MICRO))
+ROOF_SMALL = ((2, 64), (2, 80), (4, 128, 2))
+ROOF_REPS = 5
+# (g) each example's argv (TMP: a temporary directory) and the kernels it
+# must launch
+EXAMPLES = {
+    "torch_serve_split": (["--tokens", "4", "--batch", "2", "--prompt-len", "8"],
+                          ("rmsnorm", "flash_attention", "decode_attention")),
+    "torch_gateway_demo": (["--clients", "4", "--requests", "2"], ("offload_fused",)),
+    "torch_quickstart": (["--steps", "2", "--pretrain-steps", "2"],
+                         ("topk_split", "quantize", "offload_fused")),
+    "torch_train_backbone": (["--steps", "3", "--batch", "2", "--seq", "16", "--ckpt",
+                              "TMP/ckpt.npz", "--ckpt-every", "2"],
+                             ("flash_attention_backward", "rmsnorm_backward")),
+    "torch_agile_lm_demo": (["--steps", "2"], ("quantize", "flash_attention_backward")),
+}
 
 
 def check(cond, msg: str) -> None:
@@ -2210,7 +2299,8 @@ def phase_train(card):
 
 
 def sched_queue(cfg, temps=None):
-    """The phase's 48 requests: lengths, budgets and tokens from one seed."""
+    """The phase's SCHED_REQS requests: lengths, budgets and tokens from
+    one seed."""
     rng = np.random.RandomState(SCHED_SEED)
     lens = rng.randint(16, 513, SCHED_REQS)
     new = rng.randint(8, 65, SCHED_REQS)
@@ -2465,19 +2555,19 @@ def phase_sched(cfg, params, card):
     serial_s = time.perf_counter() - t0
     check([c.tokens.tolist() for c in serial] == tokens,
           "overlap=False gave other tokens than overlap=True")
-    # every 4th request alone through the equal-length path
+    # every SCHED_ALONE_EVERY-th request alone through the equal-length path
     alone_eng = ServeEngine(cfg, params, max_len=LLM_MAX_LEN)
     diverged = {}
-    for i in range(0, SCHED_REQS, 4):
+    for i in range(0, SCHED_REQS, SCHED_ALONE_EVERY):
         ref = alone_eng.generate([reqs[i]])[0].tokens
         step = near_tie(cfg, params, reqs[i].tokens, ref, tokens[i],
                         f"phase 12c: request {i} alone", max_len=LLM_MAX_LEN)
         if step is not None:
             diverged[i] = step
     print(f"phase 12c: overlap=False ({serial_s:.3f} s) gives the same tokens "
-          f"exactly; {SCHED_REQS // 4} requests decoded alone through the "
-          f"equal-length path equal the scheduler's except at near-ties "
-          f"{diverged}")
+          f"exactly; {len(range(0, SCHED_REQS, SCHED_ALONE_EVERY))} requests decoded "
+          f"alone through the equal-length path equal the scheduler's except at "
+          f"near-ties {diverged}")
     # a fake clock: one request evicted mid-decode, one neighbour untouched
     sch = ContinuousScheduler(cfg, params, sched=SCHED_CFG, max_len=LLM_MAX_LEN,
                               clock=FakeClock())
@@ -6120,6 +6210,399 @@ def phase_jamba(card) -> tuple:
     return launches, errs, jb
 
 
+# ------------------------------------------------------------- phase 20 ---
+def kernel_counts() -> dict:
+    return {n: k.launches for n, k in _build.KERNELS.items()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {n: c for n, c in counts.items() if c}
+
+
+def launch_plain(cfg, params, card) -> dict:
+    """20a: ``python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens
+    32`` at full width: launches from 0, exact; its greedy tokens against
+    ``ServeEngine.generate`` on the same weights and prompt (phase 8's
+    near-tie rule)."""
+    kept, real = [], launch_serve.serve_plain
+
+    def plain(cfg_, params_, batch, args, tel):
+        out = real(cfg_, params_, batch, args, tel)
+        kept.append((batch, out))
+        return out
+
+    launch_serve.serve_plain = plain
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = launch_serve.main(LAUNCH_PLAIN_ARGV)
+    finally:
+        launch_serve.serve_plain = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(rc == 0 and len(kept) == 1, f"20a: the launcher returned {rc}")
+    batch, got = kept[0]
+    B, T = batch["tokens"].shape
+    L, new = cfg.n_layers, LAUNCH_TOKENS
+    expect = dict.fromkeys(_build.KERNELS, 0) | {
+        "rmsnorm": (2 * L + 1) * (new + 1), "flash_attention": L,
+        "decode_attention": L * new}
+    check(launches == expect, f"20a: launches {nonzero(launches)}, expected {nonzero(expect)}")
+    max_len = T + new + 8
+    reqs = [Request(tokens=batch["tokens"][b].cpu().numpy(), max_new_tokens=new + 1)
+            for b in range(B)]
+    ref = ServeEngine(cfg, params, max_len=max_len).generate(reqs)
+    ties = [near_tie(cfg, params, reqs[b].tokens, ref[b].tokens.tolist(), got[b].tolist(),
+                     f"phase 20a: row {b}", max_len=max_len) for b in range(B)]
+    print(f"phase 20a: launch.serve {' '.join(LAUNCH_PLAIN_ARGV)} at full width: "
+          f"{B} x {T}-token prompt, {new + 1} greedy tokens a row in {wall:.2f} s with "
+          f"the weights' draw; launches {nonzero(launches)} (exact); tokens equal "
+          f"ServeEngine.generate's but at near-ties {ties}  [{card}]")
+    return {"wall_s": wall, "launches": launches, "near_ties": ties}
+
+
+def launch_queue(cfg, params, card, tmp) -> dict:
+    """20b: ``--queue 16 --lengths 64,256,512 --tokens 16 --prefix-cache
+    --kv-tier-mb 8`` at full width with its metrics dump and trace, the
+    prefix cache's hot budget cut to LAUNCH_HOT_PAGES so that its cold
+    tier runs: launches from 0, exact against the forwards and page
+    compressions; the same tokens as the same SchedulerConfig driven
+    directly; JAX's gauge names in the dump; a Chrome trace with spans."""
+    metrics, trace = os.path.join(tmp, "metrics.json"), os.path.join(tmp, "trace.json")
+    engines, real_generate = [], ServeEngine.generate
+    compressions, real_compress = [], PrefixCache._compress
+
+    def generate(self, reqs):
+        outs = real_generate(self, reqs)
+        engines.append((self, reqs, [c.tokens.tolist() for c in outs]))
+        return outs
+
+    def compress(self, page):
+        compressions.append(page.shape)
+        return real_compress(self, page)
+
+    ServeEngine.generate, PrefixCache._compress = generate, compress
+    sched_cfg = launch_serve.SchedulerConfig
+    launch_serve.SchedulerConfig = functools.partial(SchedulerConfig,
+                                                     prefix_hot_pages=LAUNCH_HOT_PAGES)
+    calls, unwrap = count_forwards()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = launch_serve.main(LAUNCH_QUEUE_ARGV + ["--metrics-json", metrics,
+                                                    "--trace-out", trace])
+    finally:
+        ServeEngine.generate, PrefixCache._compress = real_generate, real_compress
+        launch_serve.SchedulerConfig = sched_cfg
+        unwrap()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(rc == 0 and len(engines) == 1, f"20b: the launcher returned {rc}")
+    eng, reqs, tokens = engines[0]
+    expect = expected_launches(cfg, calls) | {"quantize": len(compressions)}
+    check(launches == expect, f"20b: launches {nonzero(launches)}, expected "
+          f"{nonzero(expect)} over forwards {calls}")
+    check(launches["quantize"] > 0 and len(compressions) % 2 == 0,
+          f"20b: the cold tier compressed {len(compressions)} K / V pages")
+    with open(metrics) as f:
+        dump = json.load(f)
+    names = set(LAUNCH_QUEUE_GAUGES) - set(dump)
+    check(not names, f"20b: the metrics dump lacks {sorted(names)}")
+    check(dump["prefix.cold_pages"] > 0 and dump["prefix.page_hits"] > 0,
+          f"20b: prefix stats { {k: v for k, v in dump.items() if k.startswith('prefix')} }")
+    with open(trace) as f:
+        events = [ev for ev in json.load(f)["traceEvents"] if ev["ph"] == "X"]
+    check(events and all({"name", "ts", "dur", "tid"} <= set(ev) for ev in events),
+          "20b: the trace holds no Chrome-trace spans")
+    t1 = time.perf_counter()
+    direct = ServeEngine(cfg, params, max_len=eng.max_len, scheduler=eng._sched_cfg).generate(reqs)
+    direct_s = time.perf_counter() - t1
+    check([c.tokens.tolist() for c in direct] == tokens,
+          "20b: the launcher's tokens differ from its SchedulerConfig driven directly")
+    generated = sum(map(len, tokens))
+    print(f"phase 20b: launch.serve {' '.join(LAUNCH_QUEUE_ARGV)} (hot budget "
+          f"{LAUNCH_HOT_PAGES} pages) at full width: {len(reqs)} requests of "
+          f"{min(map(len, (r.tokens for r in reqs)))}-{max(map(len, (r.tokens for r in reqs)))} "
+          f"tokens, {generated} generated in {dump['serve.wall_s']:.3f} s "
+          f"({dump['serve.tokens_per_s']:.1f} tokens/s), {wall:.2f} s with the weights' draw; "
+          f"forwards {calls}; launches {nonzero(launches)} (exact: {len(compressions)} "
+          f"quantize launches at L = 256 for {len(compressions) // 2} pages); prefix "
+          f"{ {k[7:]: v for k, v in dump.items() if k.startswith('prefix.')} }; "
+          f"{len(events)} trace spans; the same SchedulerConfig driven directly "
+          f"({direct_s:.2f} s) gives the same tokens  [{card}]")
+    return {"wall_s": wall, "serve_wall_s": dump["serve.wall_s"],
+            "tokens_per_s": dump["serve.tokens_per_s"], "forwards": calls,
+            "launches": launches, "pages_compressed": len(compressions) // 2,
+            "prefix": {k: v for k, v in dump.items() if k.startswith("prefix.")},
+            "trace_spans": len(events), "direct_s": direct_s}
+
+
+def launch_stream(cfg, params, card, tmp) -> dict:
+    """20c: ``--queue 16 --stream --max-queue 8 --priority mixed --preempt
+    --journal J``: served + shed + rejected account for every request, and
+    ``recover`` of the journal into a fresh frontend loses none."""
+    journal = os.path.join(tmp, "journal.jsonl")
+    frontends, real_run = [], StreamingFrontend.run
+
+    def run(self):
+        out = real_run(self)
+        frontends.append((self, out))
+        return out
+
+    StreamingFrontend.run = run
+    reset_counts()
+    try:
+        rc = launch_serve.main(LAUNCH_STREAM_ARGV + ["--journal", journal])
+    finally:
+        StreamingFrontend.run = real_run
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(rc == 0 and len(frontends) == 1, f"20c: the launcher returned {rc}")
+    fe, results = frontends[0]
+    by = {s: sum(st == s for st, _ in results.values()) for s in ("served", "shed")}
+    events = RequestJournal.read(journal)
+    submitted = {rec["rid"] for rec in events if rec["ev"] == "submit"}
+    rejected = LAUNCH_STREAM_REQS - len(submitted)
+    check(by["served"] + by["shed"] == len(submitted) == len(results)
+          and by["served"] > 0 and rejected >= 0,
+          f"20c: {by} of {len(submitted)} admitted, {rejected} rejected")
+    fresh = StreamingFrontend(cfg, params, sched=fe.sched.sched, max_len=fe.sched.max_len)
+    merged = recover(fresh, events)
+    lost = len(submitted - set(merged))
+    check(lost == 0, f"20c: recovery lost {lost} journaled requests")
+    check(all(np.asarray(merged[r][1]).tolist() == np.asarray(results[r][1]).tolist()
+              for r in submitted),
+          "20c: the recovered results differ from the run's")
+    check(launches["decode_attention"] > 0 and launches["flash_attention"] > 0,
+          f"20c: launches {nonzero(launches)}")
+    print(f"phase 20c: launch.serve {' '.join(LAUNCH_STREAM_ARGV)} --journal J: "
+          f"{LAUNCH_STREAM_REQS} requests -> {by['served']} served, {by['shed']} shed, "
+          f"{rejected} rejected; {len(events)} journal events, recovered into a fresh "
+          f"frontend with none lost; launches {nonzero(launches)}  [{card}]")
+    return {"served": by["served"], "shed": by["shed"], "rejected": rejected,
+            "journal_events": len(events), "lost": lost, "launches": launches}
+
+
+def launch_gateway(card) -> dict:
+    """20d: the two gateway runs through the launcher: every request
+    resolved on the ladder, one offload_fused launch a fleet build."""
+    reports, real_run = [], OffloadGateway.run
+
+    def run(self):
+        out = real_run(self)
+        reports.append(out)
+        return out
+
+    out, total = {}, dict.fromkeys(_build.KERNELS, 0)
+    OffloadGateway.run = run
+    try:
+        for argv in LAUNCH_GATEWAY_ARGVS:
+            reset_counts()
+            check(launch_serve.main(argv) == 0, f"20d: {argv} failed")
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            report = reports[-1]
+            n = int(argv[1]) * int(argv[argv.index("--requests") + 1]
+                                   if "--requests" in argv else 4)
+            resolved(report, n, f"20d: {' '.join(argv)}")
+            check(launches == dict.fromkeys(_build.KERNELS, 0) | {"offload_fused": 1},
+                  f"20d: launches {nonzero(launches)}, expected one offload_fused")
+            summary = report.summary()
+            out[" ".join(argv)] = {k: summary[k] for k in (
+                "requests", "e2e_p50_ms", "e2e_p99_ms", "fallback_rate", "degraded_rate",
+                "deadline_miss_rate", "clients_per_s")}
+            total = {k: total[k] + launches[k] for k in total}
+            print(f"phase 20d: launch.serve {' '.join(argv)}: {n} requests resolved on the "
+                  f"ladder, one offload_fused launch; {out[' '.join(argv)]}  [{card}]")
+    finally:
+        OffloadGateway.run = real_run
+    return {"runs": out, "launches": total}
+
+
+def launch_training(card) -> dict:
+    """20e: ``launch.train --local --steps 3`` for LAUNCH_TRAIN_ARCHS:
+    finite losses, each run's launches counted (exact for the RMSNorm
+    decoders, by ``lm_expected_launches``)."""
+    out, total, real = {}, dict.fromkeys(_build.KERNELS, 0), launch_train.train
+    for arch in LAUNCH_TRAIN_ARCHS:
+        kept = []
+
+        def train(*a, **kw):
+            kept.append(real(*a, **kw))
+            return kept[-1]
+
+        launch_train.train = train
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = launch_train.main(["--arch", arch, "--local", "--steps",
+                                    str(LAUNCH_TRAIN_STEPS)])
+        finally:
+            launch_train.train = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        losses = kept[0]
+        check(rc == 0 and len(losses) == LAUNCH_TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses), f"20e: {arch} losses {losses}")
+        cfg = get_config(arch).reduced()
+        if cfg.norm == "rmsnorm":
+            expect = dict.fromkeys(_build.KERNELS, 0) | lm_expected_launches(
+                cfg.n_layers, LAUNCH_TRAIN_STEPS)
+            check(launches == expect, f"20e: {arch} launches {nonzero(launches)}, "
+                  f"expected {nonzero(expect)}")
+        check(launches["flash_attention"] > 0 and launches["flash_attention_backward"] > 0,
+              f"20e: {arch} launches {nonzero(launches)}")
+        out[arch] = {"losses": losses, "launches": nonzero(launches), "wall_s": wall}
+        total = {k: total[k] + launches[k] for k in total}
+        print(f"phase 20e: launch.train --arch {arch} --local --steps "
+              f"{LAUNCH_TRAIN_STEPS}: losses {[round(x, 4) for x in losses]} in "
+              f"{wall:.2f} s; launches {nonzero(launches)}  [{card}]")
+    return {"archs": out, "launches": total}
+
+
+def roofline_records(cfg, params, sizes) -> dict:
+    """(fn, args, analytic shape, n_micro) of 20f's three steps: a prefill
+    of (B, T), one decode step at (B, depth), a train step of (global
+    batch, T) in n_micro microbatches, as ``sizes`` gives them; inputs
+    drawn on the params' device from one seed (a CPU generator, so that
+    the card and the CPU get the same inputs)."""
+    dev = params["embed"]["table"].device
+    gen = torch.Generator().manual_seed(20)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen).to(dev)
+
+    (B, T), (Bd, depth), (Bt, Tt, n_micro) = sizes
+    prefill_shape = InputShape("prefill", T, B, "prefill")
+    decode_shape = InputShape("decode", depth, Bd, "decode")
+    train_shape = InputShape("train_4k", Tt, Bt, "train")
+    return {
+        "prefill": (make_prefill_step(cfg, prefill_shape), (params, {"tokens": tokens(B, T)}),
+                    prefill_shape, 1),
+        "decode": (make_serve_step(cfg, decode_shape),
+                   (params, tokens(Bd, 1), bb.init_cache(cfg, Bd, depth + 1, device=dev),
+                    depth), decode_shape, 1),
+        "train": (make_train_step(cfg, train_shape, n_micro_override=n_micro),
+                  (params, opt_init(params), {"tokens": tokens(Bt, Tt),
+                                              "labels": tokens(Bt, Tt)}),
+                  train_shape, n_micro),
+    }
+
+
+def roofline_phase(cfg, params, card) -> dict:
+    """20f: ``analyze_step`` of a prefill, a decode step and a train step of
+    qwen2-0.5b at full width, each counted once in a run of its own, then
+    timed by CUDA events (median of ROOF_REPS); the analytic estimate at
+    MeshSpec(1, 1, 1) beside the count; and on reduced qwen2-0.5b the
+    count on the card equal to the count on the port's CPU, exactly."""
+    out = {}
+    mesh = roof_analytic.MeshSpec(1, 1, 1)
+    for name, (fn, args, shape, n_micro) in roofline_records(cfg, params, ROOF_SIZES).items():
+        rec = roof.analyze_step(fn, *args)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: fn(*args), reps=ROOF_REPS)
+        r = rec["roofline"]
+        bound_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+        est_flops = roof_analytic.flops_estimate(cfg, shape)
+        est_bytes = roof_analytic.memory_bytes_per_chip(cfg, shape, mesh, n_micro=n_micro)
+        out[name] = {"flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
+                     "flops_by_type": rec["flops_by_type"],
+                     "kernels": rec["kernels"], "compute_ms": r["compute_s"] * 1e3,
+                     "memory_ms": r["memory_s"] * 1e3, "bound_ms": bound_ms,
+                     "dominant": r["dominant"], "ms": ms, "share": bound_ms / ms,
+                     "analytic_flops": est_flops, "analytic_bytes": est_bytes,
+                     "flops_ratio": est_flops / rec["flops"],
+                     "bytes_ratio": est_bytes / rec["hbm_bytes"]}
+        print(f"phase 20f: roofline of the {name} step ({shape.global_batch} x "
+              f"{shape.seq_len}, {cfg.name} full width, fp32, TF32 off): {rec['flops']:.4e} "
+              f"flops ({ {k: f'{v:.4e}' for k, v in rec['flops_by_type'].items()} }), "
+              f"{rec['hbm_bytes']:.4e} bytes; bound {bound_ms:.3f} ms by "
+              f"{r['dominant'][:-2]} (compute {r['compute_s'] * 1e3:.3f}, memory "
+              f"{r['memory_s'] * 1e3:.3f}); measured {ms:.3f} ms (CUDA events, median of "
+              f"{ROOF_REPS}): {bound_ms / ms:.1%} of the bound; analytic flops_estimate "
+              f"{est_flops:.4e} ({est_flops / rec['flops']:.3f}x the count), "
+              f"memory_bytes_per_chip {est_bytes:.4e} ({est_bytes / rec['hbm_bytes']:.3f}x); "
+              f"the kernels' share: { {k: v['calls'] for k, v in rec['kernels'].items()} } "
+              f"calls  [{card}]")
+        del rec
+    small = get_config(LLM_ARCH).reduced()
+    cpu = bb.init_params(small, seed=0, device="cpu")
+    on_card = tree_to(cpu, "cuda")
+    same = {}
+    for name, (fn, args, _, _) in roofline_records(small, on_card, ROOF_SMALL).items():
+        got = roof.analyze_step(fn, *args)
+        want = roof.analyze_step(fn, *tree_to(list(args), "cpu"))
+        if got != want:
+            for part in ("kernels", "ops"):
+                diff = {k: (got[part].get(k), want[part].get(k))
+                        for k in set(got[part]) | set(want[part])
+                        if got[part].get(k) != want[part].get(k)}
+                print(f"phase 20f: {name} {part} card vs CPU: {diff}")
+        check(got == want, f"20f: reduced {name}: the card counts {got['flops']} flops, "
+              f"{got['hbm_bytes']} bytes, the CPU {want['flops']}, {want['hbm_bytes']}")
+        same[name] = {"flops": got["flops"], "hbm_bytes": got["hbm_bytes"]}
+    print(f"phase 20f: reduced {LLM_ARCH}: the card's count equals the CPU's exactly "
+          f"for each step {same}")
+    return {"full": out, "reduced_card_eq_cpu": same}
+
+
+def run_examples(card) -> dict:
+    """20g: each examples/torch_*.py's ``main`` with small arguments on the
+    card; each returns (exit 0) and launches the kernels of its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, total = {}, dict.fromkeys(_build.KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (argv, kernels) in EXAMPLES.items():
+            argv = [a.replace("TMP", tmp) for a in argv]
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(here, "examples", f"{name}.py"))
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            reset_counts()
+            t0 = time.perf_counter()
+            module.main(argv)
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            check(all(launches[k] > 0 for k in kernels),
+                  f"20g: {name} launched {nonzero(launches)}, expected {kernels}")
+            out[name] = {"s": time.perf_counter() - t0, "launches": nonzero(launches)}
+            total = {k: total[k] + launches[k] for k in total}
+            print(f"phase 20g: examples/{name}.py {' '.join(argv)}: exit 0 in "
+                  f"{out[name]['s']:.2f} s; launches {out[name]['launches']}  [{card}]")
+    return {"examples": out, "launches": total}
+
+
+def phase_launch(cfg, params, card) -> tuple:
+    """Phase 20: the launchers' ``main`` in this process, the roofline and
+    the examples; returns (the launches of the driven paths, numbers)."""
+    t_phase, part = time.perf_counter(), {}
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn in (("a", lambda: launch_plain(cfg, params, card)),
+                        ("b", lambda: launch_queue(cfg, params, card, tmp)),
+                        ("c", lambda: launch_stream(cfg, params, card, tmp)),
+                        ("d", lambda: launch_gateway(card)),
+                        ("e", lambda: launch_training(card)),
+                        ("f", lambda: roofline_phase(cfg, params, card)),
+                        ("g", lambda: run_examples(card))):
+            t0 = time.perf_counter()
+            numbers[key] = fn()
+            part[key] = time.perf_counter() - t0
+            sys.stdout.flush()
+    launches = dict.fromkeys(_build.KERNELS, 0)
+    for rec in numbers.values():
+        for n, c in rec.get("launches", {}).items():
+            launches[n] += c
+    numbers["part_s"] = part
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 20: {numbers['phase_s']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in part.items()} }")
+    return launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -6244,6 +6727,9 @@ def main() -> int:
     for row in rows:               # the bf16 forwards and fp32 kernels on slice 17's paths
         row["launches"] += jb_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], jb_errs.get(row["name"], 0.0))
+    lc_launches, launch_numbers = phase_launch(llm_cfg, llm_params, card)
+    for row in rows:               # the launchers' and examples' paths (slice 18)
+        row["launches"] += lc_launches.get(row["name"], 0)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -6266,12 +6752,13 @@ def main() -> int:
                        "train": train, "scheduler": sched, "prefix": prefix,
                        "lm": lm, "slice11": s11, "moe": moe,
                        "moe_train": moe_train_numbers, "xlstm": xlstm_numbers,
-                       "jamba": jamba_numbers},
+                       "jamba": jamba_numbers, "launch": launch_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s "
-          f"(phase 15 {s11['phase_s']:.1f} s, phase 16 {moe['phase_s']:.1f} s, "
-          f"phase 17 {moe_train_numbers['phase_s']:.1f} s, phase 18 "
-          f"{xlstm_numbers['phase_s']:.1f} s, phase 19 {jamba_numbers['phase_s']:.1f} s)")
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s "
+          f"(phase 12 {sched['phase_s']:.1f} s, phase 15 {s11['phase_s']:.1f} s, "
+          f"phase 16 {moe['phase_s']:.1f} s, phase 17 {moe_train_numbers['phase_s']:.1f} s, "
+          f"phase 18 {xlstm_numbers['phase_s']:.1f} s, phase 19 "
+          f"{jamba_numbers['phase_s']:.1f} s, phase 20 {launch_numbers['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

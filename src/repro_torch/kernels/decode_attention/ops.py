@@ -1,9 +1,11 @@
 """Dispatch of decode attention: the CUDA kernel for CUDA tensors, the
-plain version for CPU tensors, no fallback between them."""
+plain version for CPU tensors, no fallback between them.  Each call
+reports its work to the step roofline (``kernels/work.py``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.common import auto_page_size
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -19,9 +21,11 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     page passed is ``auto_page_size(S)``, as the JAX dispatcher picks it,
     or ``DEFAULT_PAGE`` when S does not split into pages; the kernel cuts
     the slots into its own splits, so any S runs it."""
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, attend_len)
-    page = auto_page_size(k_cache.shape[1]) or DEFAULT_PAGE
-    return decode_attention_cuda(q.contiguous(), k_cache.contiguous(),
-                                 v_cache.contiguous(), attend_len,
-                                 page_size=page)
+    with work.call("decode_attention", lambda: work.decode_attention(
+            q, k_cache, v_cache, attend_len)):
+        if q.device.type == "cpu":
+            return decode_attention_ref(q, k_cache, v_cache, attend_len)
+        page = auto_page_size(k_cache.shape[1]) or DEFAULT_PAGE
+        return decode_attention_cuda(q.contiguous(), k_cache.contiguous(),
+                                     v_cache.contiguous(), attend_len,
+                                     page_size=page)

@@ -5,14 +5,21 @@ Where a gradient is asked for on CUDA the forward kernel runs inside
 ``RMSNorm``, an autograd Function whose backward is the backward kernel
 of the same dtype (float32 or bf16); without one the forward kernel is
 called as it is, so inference launches exactly what it launched before
-the Function existed."""
+the Function existed.
+
+Each call reports its work to the step roofline (``kernels/work.py``);
+while that counts, a CPU call under a gradient also runs in ``RMSNorm``,
+with the plain bodies, so that its backward is one reported call as on
+the card (its gradients are the plain version's up to float32
+summation order)."""
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import work
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
 
 
 class RMSNorm(torch.autograd.Function):
@@ -34,7 +41,8 @@ class RMSNorm(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        dx, dscale = ctx.backward_body(x, scale, g.contiguous(), eps=ctx.eps)
+        with work.call("rmsnorm_backward", lambda: work.rmsnorm_backward(x, scale)):
+            dx, dscale = ctx.backward_body(x, scale, g.contiguous(), eps=ctx.eps)
         return dx, dscale, None, None, None
 
 
@@ -42,12 +50,17 @@ def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: (..., d); scale: (d,) of x's dtype (float32 or bfloat16 on CUDA).
     Returns x's shape and dtype; differentiable in x and scale on the CPU
     and on CUDA."""
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps=eps)
-    d = x.shape[-1]
-    x2 = x.reshape(-1, d).contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        y = RMSNorm.apply(x2, scale, eps, rmsnorm_cuda, rmsnorm_backward_cuda)
-    else:
-        y = rmsnorm_cuda(x2, scale, eps=eps)
-    return y.reshape(x.shape)
+    grad = torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad)
+    with work.call("rmsnorm", lambda: work.rmsnorm(x, scale)):
+        cpu = x.device.type == "cpu"
+        if cpu and not (grad and work.counting()):
+            return rmsnorm_ref(x, scale, eps=eps)
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d).contiguous()
+        if grad:
+            bodies = ((rmsnorm_ref, rmsnorm_backward_ref) if cpu
+                      else (rmsnorm_cuda, rmsnorm_backward_cuda))
+            y = RMSNorm.apply(x2, scale, eps, *bodies)
+        else:
+            y = rmsnorm_cuda(x2, scale, eps=eps)
+        return y.reshape(x.shape)

@@ -5,11 +5,15 @@ On CUDA the kernel runs inside ``ChannelPermute``, an autograd Function
 whose backward is the same kernel with the inverse permutation, so the
 permuted features carry gradients on the card as the plain version's
 indexing does on the CPU (AgileNN training backpropagates through them
-into the extractor)."""
+into the extractor).  Each call, and each backward, reports its work to
+the step roofline (``kernels/work.py``); while that counts, a CPU call
+under a gradient also runs in ``ChannelPermute``, with the plain body, so
+that its backward is one reported call as on the card."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.topk_split.kernel import channel_permute_cuda
 from repro_torch.kernels.topk_split.ref import channel_permute_ref
 
@@ -36,19 +40,24 @@ class ChannelPermute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return (ChannelPermute.apply(grad.contiguous(),
-                                     inverse_permutation(ctx.perm), ctx.body),
-                None, None)
+        with work.call("topk_split", lambda: work.channel_permute(grad)):
+            return (ChannelPermute.apply(grad.contiguous(),
+                                         inverse_permutation(ctx.perm), ctx.body),
+                    None, None)
 
 
 def channel_permute_op(x: torch.Tensor, perm) -> torch.Tensor:
     """x: (..., C) -> contiguous (..., C) with channel c = x[..., perm[c]],
     differentiable in x on either device."""
-    if x.device.type == "cpu":
-        return channel_permute_ref(x, perm)
-    C = x.shape[-1]
-    return ChannelPermute.apply(x.reshape(-1, C).contiguous(), tuple(perm),
-                                channel_permute_cuda).reshape(x.shape)
+    with work.call("topk_split", lambda: work.channel_permute(x)):
+        cpu = x.device.type == "cpu"
+        if cpu and not (torch.is_grad_enabled() and x.requires_grad
+                        and work.counting()):
+            return channel_permute_ref(x, perm)
+        C = x.shape[-1]
+        body = channel_permute_ref if cpu else channel_permute_cuda
+        return ChannelPermute.apply(x.reshape(-1, C).contiguous(), tuple(perm),
+                                    body).reshape(x.shape)
 
 
 def split_op(x: torch.Tensor, *, perm, k: int):

@@ -1,1 +1,2 @@
-"""Launchers: the one-device LM training step (the mesh waits)."""
+"""Launchers: serving (``serve``) and training (``train``) on one device,
+and the LM steps with their input specs (``steps``); the mesh waits."""

@@ -1,4 +1,5 @@
-"""The LM training step on one device, as ``repro.launch.steps``.
+"""The LM steps on one device and their input specs, as
+``repro.launch.steps``.
 
 ``make_train_step``: SGD-momentum with gradient accumulation over
 microbatches; ``n_microbatches`` picks their count from the width.  The
@@ -12,9 +13,15 @@ bfloat16 as JAX does, on its one-microbatch branch only.
 Where JAX scans the microbatches inside one jitted program, the port loops
 over them eagerly, each through ``repro_torch.value_and_grad`` of
 ``models/backbone.py::forward_loss``; the accumulation is in place.
-``Strategy``, ``batch_shardings``, ``lower_step``, the serve / prefill
-steps and ``launch/train.py`` need the mesh and wait for ROADMAP Queue 1
-item 7.
+
+``make_serve_step`` (one decode step) and ``make_prefill_step`` wrap the
+backbone's ``decode_step`` and ``prefill``.  The specs
+(``make_batch_specs``, ``params_specs``, ``opt_specs``, ``cache_specs``)
+are tensors on torch's ``meta`` device, JAX's ShapeDtypeStructs: shapes
+and dtypes, nothing allocated and nothing drawn (``nn/init.py`` draws no
+weight for a meta tensor), so arctic-480b's tree costs milliseconds.
+``Strategy``, ``batch_shardings`` and ``lower_step`` need a mesh and wait
+for ROADMAP Queue 1 item 7b.
 """
 from __future__ import annotations
 
@@ -41,6 +48,44 @@ def n_microbatches(cfg: ArchConfig, shape: InputShape) -> int:
     while shape.global_batch % n:
         n //= 2
     return max(1, n)
+
+
+def make_batch_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """Meta tensors of one training / prefill batch: a VLM's ``patches``
+    (B, P, vision_dim) and an enc-dec's ``frames`` (B, F, d) in cfg.dtype,
+    ``tokens`` (and, to train, ``labels``) (B, T - P) int32."""
+    B, T = shape.global_batch, shape.seq_len
+    meta = {"device": "meta"}
+    batch = {}
+    t_text = T
+    if cfg.vlm is not None:
+        batch["patches"] = torch.empty((B, cfg.vlm.n_patches, cfg.vlm.vision_dim),
+                                       dtype=cfg.dtype, **meta)
+        t_text = T - cfg.vlm.n_patches
+    if cfg.encdec is not None:
+        batch["frames"] = torch.empty((B, cfg.encdec.n_frames, cfg.d_model),
+                                      dtype=cfg.dtype, **meta)
+    batch["tokens"] = torch.empty((B, t_text), dtype=torch.int32, **meta)
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((B, t_text), dtype=torch.int32, **meta)
+    return batch
+
+
+def params_specs(cfg: ArchConfig) -> dict:
+    """The parameter tree as meta tensors: ``init_params``' structure,
+    shapes and dtypes, with nothing drawn or allocated."""
+    return bb.init_params(cfg, device="meta")
+
+
+def opt_specs(params_sds) -> dict:
+    return {"momentum": params_sds}
+
+
+def cache_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """The decode cache of ``shape`` (its batch and context) as meta
+    tensors; ``long_500k`` takes the long-context window."""
+    return bb.init_cache(cfg, shape.global_batch, shape.seq_len,
+                         long_context=shape.name == "long_500k", device="meta")
 
 
 def opt_init(params) -> dict:
@@ -99,3 +144,27 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, *,
         return p_upd, {"momentum": m_upd}, {"loss": loss}
 
     return train_step
+
+
+def make_serve_step(cfg: ArchConfig, shape: InputShape):
+    """(params, tokens (B, 1), cache, cache_len) -> (logits, cache): one
+    decode step, the cache written in place."""
+
+    def serve_step(params, tokens, cache, cache_len):
+        return bb.decode_step(cfg, params, tokens, cache, cache_len)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, shape: InputShape):
+    """(params, batch) -> (last-token logits, cache) over a context of
+    ``shape.seq_len``; ``long_500k`` prefills with the long-context
+    window."""
+    long = shape.name == "long_500k"
+
+    def prefill_step(params, batch):
+        logits, cache, _ = bb.prefill(cfg, params, batch, long_context=long,
+                                      max_len=shape.seq_len)
+        return logits, cache
+
+    return prefill_step

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.activations import silu
+from repro_torch.nn.init import on_meta
 from repro_torch.nn.linear import conv1d, conv1d_init, dense, dense_init
 
 
@@ -55,8 +56,11 @@ def mamba_init(gen: torch.Generator, d_model: int, *, expand: int = 2,
     p["conv_w"], p["conv_b"] = conv["w"], conv["b"]
     p["x_proj"] = dense_init(gen, d_inner, r + 2 * d_state, use_bias=False, **place)
     p["dt_proj"] = dense_init(gen, r, d_inner, use_bias=False, **place)
-    dt = 0.001 + 0.099 * torch.rand(d_inner, generator=gen, device=gen.device)
-    p["dt_bias"] = torch.log(torch.expm1(dt)).to(**f32)
+    if on_meta(device):
+        p["dt_bias"] = torch.empty(d_inner, **f32)
+    else:
+        dt = 0.001 + 0.099 * torch.rand(d_inner, generator=gen, device=gen.device)
+        p["dt_bias"] = torch.log(torch.expm1(dt)).to(**f32)
     p["A_log"] = torch.log(torch.arange(1, d_state + 1, **f32)).expand(
         d_inner, d_state).contiguous()
     p["D"] = torch.ones(d_inner, **f32)

@@ -27,7 +27,7 @@ An MoE arch's equal-length call keeps each forward's aux losses in
 each {"load_balance_loss", "dropped_fraction"} as () float32 tensors on
 the device (read them after the call; nothing waits on them).
 
-A mesh (sharded serving) waits for ROADMAP Queue 1 item 7.
+A mesh (sharded serving) waits for ROADMAP Queue 1 item 7b.
 """
 from __future__ import annotations
 

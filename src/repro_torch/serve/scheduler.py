@@ -46,7 +46,7 @@ inject), a staged one starts its segments past the resident whole
 segments, and every admission pins its shareable pages until its slot is
 released (``suspend`` parks the pins until the resumed admission
 re-pins).  Not ported: the mesh-sharded pool (``mesh=``, ROADMAP Queue 1
-item 7), which raises NotImplementedError.
+item 7b), which raises NotImplementedError.
 
 Correctness invariants (tested against one-request-at-a-time decode):
 pad keys are masked out of prefill attention and pad/stale cache slots
@@ -73,7 +73,7 @@ from repro_torch.serve import telemetry as _telemetry
 from repro_torch.serve.prefix_cache import PrefixCache
 
 _NULL = nullcontext()     # reentrant: shared no-op for disabled telemetry
-MESH_ITEM = "ROADMAP Queue 1 item 7 (mesh sharding)"
+MESH_ITEM = "ROADMAP Queue 1 item 7b (mesh sharding)"
 
 
 @dataclasses.dataclass(frozen=True)

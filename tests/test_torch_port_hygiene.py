@@ -22,7 +22,7 @@ KERNEL_NAMES = ["decode_attention", "flash_attention", "flash_attention_backward
 # KERNEL_NAMES)
 BF16_NAMES = ["decode_attention_bf16", "rmsnorm_backward_bf16", "rmsnorm_bf16"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -44,6 +44,17 @@ def test_scan_covers_the_xlstm_cells():
     """The AST scan above reads every module of the package, the xLSTM
     cells among them."""
     assert ROOT / "src" / "repro_torch" / "nn" / "xlstm.py" in PORT_FILES
+
+
+def test_scan_covers_the_launchers_roofline_and_examples():
+    """... the launchers, the roofline and the port's five examples."""
+    src = ROOT / "src" / "repro_torch"
+    for path in (src / "launch" / "serve.py", src / "launch" / "train.py",
+                 src / "roofline" / "analysis.py", src / "roofline" / "analytic.py"):
+        assert path in PORT_FILES
+    assert sorted(p.name for p in PORT_FILES if p.parent == ROOT / "examples") == [
+        f"torch_{n}.py" for n in ("agile_lm_demo", "gateway_demo", "quickstart",
+                                  "serve_split", "train_backbone")]
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
@@ -121,6 +132,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named(monkeypatch):
     fe = StreamingFrontend(llm, params, max_len=32, device="cpu")
     assert fe.sched.device.type == "cpu"
     assert fe.sched._pool["cache"]["k"].device.type == "cpu"
+
+    from repro_torch.launch import serve, train
+
+    for main, argv in ((serve.main, ["--arch", "qwen2-0.5b", "--local", "--tokens", "1"]),
+                       (serve.main, ["--gateway", "2", "--requests", "1"]),
+                       (train.main, ["--arch", "qwen2-0.5b", "--local", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+        assert main(argv + ["--device", "cpu"]) == 0
 
 
 def test_kernel_modules_import_and_run_on_cpu_without_building():
