@@ -101,7 +101,7 @@ Phases, each of which raises on failure:
      shape, host ms against its kernels' ms; (c) overlap off giving exactly
      the same tokens, every 8th request against its decode alone, a
      deadline eviction under a fake clock (a prefix of its run), a
-     suspend/resume, 6 requests on the card against the port's CPU, and
+     suspend/resume, 3 requests on the card against the port's CPU, and
      a sampled queue repeating itself under one seed.  Token checks pass
      equal or at a near-tie (phase 8's rule).
   the shared-prefix page cache, the streaming frontend and recovery (slice 8):
@@ -342,6 +342,21 @@ Phases, each of which raises on failure:
      the count; on reduced qwen2-0.5b the card's count equal to the
      port's CPU's, exactly; (g) each ``examples/torch_*.py``'s ``main``
      with small arguments, each launching its path's kernels.
+  mesh sharding (slice 19), in this process after phase 20:
+ 21. (a) 20b's argv with ``--mesh 1,1``: the queue served by one NCCL rank
+     on a (1, 1) mesh (params and the slot pool DTensors), its tokens
+     bitwise 20b's and its launches of every kernel exactly 20b's, one
+     pool gather a round, each a trace span; (b) 20f's decode step with
+     its params, tokens and cache distributed on a (1, 1) NCCL mesh:
+     ``analyze_step`` counts 20f's flops and bytes exactly and no
+     collective, its kernels launch; then the meshed and the mesh-less
+     step timed in turns, host ms and card ms; (c) ``python -m
+     repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` on the
+     256-rank mesh and ``--shape decode_32k --multi-pod`` on the 512-rank
+     one, each a child process (meta tensors over torch's fake process
+     group, no card; started before (a) and waited for after it): each
+     exits 0 with its record (per-rank argument and output bytes, the
+     roofline terms, the collectives by kind).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -573,8 +588,9 @@ TRAIN_KERNELS = ("topk_split", "quantize", "offload_fused")
 # JAX at small widths, tests/test_torch_train.py)
 TRAIN_LOSS_B, TRAIN_GRAD_TOL = 8, 1e-3
 # the timed joint step at 96^2: the largest batch whose peak, predicted
-# from the peaks at B = 4 and 8, fits TRAIN_MEM_FRACTION of the card
-TRAIN_BATCHES, TRAIN_MEM_FRACTION, TRAIN_TIMED_STEPS = (64, 32, 16, 8), 0.9, 3
+# from the peaks at B = 4 and 8, fits TRAIN_MEM_FRACTION of the card; 2
+# timed steps (3 until slice 19: phase 11c took 56 s)
+TRAIN_BATCHES, TRAIN_MEM_FRACTION, TRAIN_TIMED_STEPS = (64, 32, 16, 8), 0.9, 2
 # run_full_pipeline at 32^2, B = 64, its 300 + 400 steps cut to the phase's time
 PIPE_BATCH, PIPE_PRETRAIN, PIPE_JOINT = 64, 40, 12
 
@@ -587,17 +603,19 @@ SCHED_CFG = SchedulerConfig(buckets=(64, 128, 256, 512), max_slots=16,
                             prefill_group=4, chunk=8, page_size=32,
                             prefill_segment=128)
 SCHED_REQS, SCHED_SEED, SCHED_ALONE_EVERY = 24, 3, 8
-# the sampled rerun takes the queue's first 16 (its rounds run twice)
-SCHED_SAMPLED = 16
+# the sampled rerun takes the queue's first 8 (its rounds run twice; 16
+# until slice 19, whose script took 800-1,085 s on three hosts)
+SCHED_SAMPLED = 8
 # a second run of the queue, its rounds SCHED_PROF_FROM + 1 .. +
 # SCHED_PROF_ROUNDS traced by torch.profiler (the card's busy share), of
 # the queue's 74 rounds (a CPU rehearsal; rounds do not depend on weights)
 SCHED_PROF_FROM, SCHED_PROF_ROUNDS = 30, 8
 # the decode step timed alone at the pool's shape: 16 rows at these depths
 SCHED_STEP_DEPTHS = tuple(range(16, 577, 37))
-# the same scheduler on the card and on the CPU: 6 requests of 16-200
-# tokens, 12 new tokens each, 64-token segments
-SCHED_CPU_LENS, SCHED_CPU_NEW, SCHED_CPU_SEGMENT = (16, 40, 64, 100, 150, 200), 12, 64
+# the same scheduler on the card and on the CPU: 3 requests of 16-200
+# tokens, 8 new tokens each, 64-token segments (6 requests of 12 tokens,
+# 25.1 s, until slice 19 cut it to make room for phase 21)
+SCHED_CPU_LENS, SCHED_CPU_NEW, SCHED_CPU_SEGMENT = (16, 100, 200), 8, 64
 
 # the shared-prefix page cache: qwen2-0.5b at full width through
 # ServeEngine(max_len=1024, scheduler=PREFIX_CFG), sharing off then on;
@@ -837,6 +855,18 @@ LAUNCH_TRAIN_ARCHS, LAUNCH_TRAIN_STEPS = ("qwen2-0.5b", "whisper-tiny", "internv
 ROOF_SIZES = ((8, 512), (8, 544), (LM_GLOBAL_BATCH, LM_SEQ, LM_MICRO))
 ROOF_SMALL = ((2, 64), (2, 80), (4, 128, 2))
 ROOF_REPS = 5
+# slice 19: mesh sharding (phase 21).  (a) 20b's queue again on a one-rank
+# (1, 1) NCCL mesh; (b) 20f's decode step on that mesh, counted, and timed
+# against the mesh-less step in turns (MESH_STEP_REPS calls each); (c) the
+# dry-run (meta tensors over the fake process group, no card) of train_4k
+# on the 256-rank mesh and one 512-rank --multi-pod pair (decode_32k: the
+# multi-pod train_4k runs far longer in DTensor's redistribution planner),
+# each a child process under DRYRUN_TIMEOUT_S
+MESH_ARGV = ["--mesh", "1,1"]
+MESH_STEP_REPS = 5
+DRYRUN_ARGVS = (["--arch", LLM_ARCH, "--shape", "train_4k"],
+                ["--arch", LLM_ARCH, "--shape", "decode_32k", "--multi-pod"])
+DRYRUN_TIMEOUT_S = 400
 # (g) each example's argv (TMP: a temporary directory) and the kernels it
 # must launch
 EXAMPLES = {
@@ -6262,13 +6292,14 @@ def launch_plain(cfg, params, card) -> dict:
     return {"wall_s": wall, "launches": launches, "near_ties": ties}
 
 
-def launch_queue(cfg, params, card, tmp) -> dict:
+def launch_queue(cfg, params, card, tmp, extra=(), tag="20b") -> dict:
     """20b: ``--queue 16 --lengths 64,256,512 --tokens 16 --prefix-cache
     --kv-tier-mb 8`` at full width with its metrics dump and trace, the
     prefix cache's hot budget cut to LAUNCH_HOT_PAGES so that its cold
     tier runs: launches from 0, exact against the forwards and page
     compressions; the same tokens as the same SchedulerConfig driven
-    directly; JAX's gauge names in the dump; a Chrome trace with spans."""
+    directly; JAX's gauge names in the dump; a Chrome trace with spans.
+    ``extra``: more flags (phase 21a's mesh), which skip the direct run."""
     metrics, trace = os.path.join(tmp, "metrics.json"), os.path.join(tmp, "trace.json")
     engines, real_generate = [], ServeEngine.generate
     compressions, real_compress = [], PrefixCache._compress
@@ -6290,8 +6321,8 @@ def launch_queue(cfg, params, card, tmp) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     try:
-        rc = launch_serve.main(LAUNCH_QUEUE_ARGV + ["--metrics-json", metrics,
-                                                    "--trace-out", trace])
+        rc = launch_serve.main(LAUNCH_QUEUE_ARGV + list(extra) + [
+            "--metrics-json", metrics, "--trace-out", trace])
     finally:
         ServeEngine.generate, PrefixCache._compress = real_generate, real_compress
         launch_serve.SchedulerConfig = sched_cfg
@@ -6299,23 +6330,32 @@ def launch_queue(cfg, params, card, tmp) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_counts()
-    check(rc == 0 and len(engines) == 1, f"20b: the launcher returned {rc}")
+    check(rc == 0 and len(engines) == 1, f"{tag}: the launcher returned {rc}")
     eng, reqs, tokens = engines[0]
     expect = expected_launches(cfg, calls) | {"quantize": len(compressions)}
-    check(launches == expect, f"20b: launches {nonzero(launches)}, expected "
+    check(launches == expect, f"{tag}: launches {nonzero(launches)}, expected "
           f"{nonzero(expect)} over forwards {calls}")
     check(launches["quantize"] > 0 and len(compressions) % 2 == 0,
-          f"20b: the cold tier compressed {len(compressions)} K / V pages")
+          f"{tag}: the cold tier compressed {len(compressions)} K / V pages")
     with open(metrics) as f:
         dump = json.load(f)
     names = set(LAUNCH_QUEUE_GAUGES) - set(dump)
-    check(not names, f"20b: the metrics dump lacks {sorted(names)}")
+    check(not names, f"{tag}: the metrics dump lacks {sorted(names)}")
     check(dump["prefix.cold_pages"] > 0 and dump["prefix.page_hits"] > 0,
-          f"20b: prefix stats { {k: v for k, v in dump.items() if k.startswith('prefix')} }")
+          f"{tag}: prefix stats { {k: v for k, v in dump.items() if k.startswith('prefix')} }")
     with open(trace) as f:
         events = [ev for ev in json.load(f)["traceEvents"] if ev["ph"] == "X"]
     check(events and all({"name", "ts", "dur", "tid"} <= set(ev) for ev in events),
-          "20b: the trace holds no Chrome-trace spans")
+          f"{tag}: the trace holds no Chrome-trace spans")
+    numbers = {"wall_s": wall, "serve_wall_s": dump["serve.wall_s"],
+               "tokens_per_s": dump["serve.tokens_per_s"], "forwards": calls,
+               "launches": launches, "pages_compressed": len(compressions) // 2,
+               "prefix": {k: v for k, v in dump.items() if k.startswith("prefix.")},
+               "trace_spans": len(events), "tokens": tokens,
+               "gathers": dump.get("sched.pool_gathers"),
+               "gather_spans": sum(ev["name"] == "gather" for ev in events)}
+    if extra:
+        return numbers
     t1 = time.perf_counter()
     direct = ServeEngine(cfg, params, max_len=eng.max_len, scheduler=eng._sched_cfg).generate(reqs)
     direct_s = time.perf_counter() - t1
@@ -6332,11 +6372,7 @@ def launch_queue(cfg, params, card, tmp) -> dict:
           f"{ {k[7:]: v for k, v in dump.items() if k.startswith('prefix.')} }; "
           f"{len(events)} trace spans; the same SchedulerConfig driven directly "
           f"({direct_s:.2f} s) gives the same tokens  [{card}]")
-    return {"wall_s": wall, "serve_wall_s": dump["serve.wall_s"],
-            "tokens_per_s": dump["serve.tokens_per_s"], "forwards": calls,
-            "launches": launches, "pages_compressed": len(compressions) // 2,
-            "prefix": {k: v for k, v in dump.items() if k.startswith("prefix.")},
-            "trace_spans": len(events), "direct_s": direct_s}
+    return {**numbers, "direct_s": direct_s}
 
 
 def launch_stream(cfg, params, card, tmp) -> dict:
@@ -6603,6 +6639,175 @@ def phase_launch(cfg, params, card) -> tuple:
     return launches, numbers
 
 
+def step_times(fn, args, reps: int) -> tuple:
+    """(host ms, card ms) of ``fn(*args)``, medians of ``reps`` calls: the
+    host clock around the call (its enqueue), CUDA events around it."""
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn(*args)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(dev)
+
+
+def mesh_decode_step(cfg, params, card, plain_rec) -> dict:
+    """21b: 20f's decode step (8 rows at depth 544) with its params, tokens
+    and cache distributed on a one-rank (1, 1) NCCL mesh: ``analyze_step``
+    counts 20f's flops and bytes exactly (its collectives as they come:
+    none are expected on one rank), and every kernel's launches equal the
+    mesh-less step's on the same inputs; then the meshed and the mesh-less
+    step timed in turns (plain, meshed, meshed, plain), host and card ms."""
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_serving_mesh, process_group
+
+    fn, (p, tok, cache, depth), _, _ = roofline_records(cfg, params, ROOF_SIZES)["decode"]
+    with process_group("nccl"):
+        mesh = make_serving_mesh()
+        mp = partition.distribute(p, partition.param_shardings(p, mesh, cfg=cfg))
+        mt = partition.batch_spec(mesh, 2).distribute(tok)
+        mc = partition.distribute(cache, partition.cache_shardings(
+            cache, mesh, batch=tok.shape[0], cfg=cfg))
+        reset_counts()
+        roof.analyze_step(fn, p, tok, cache, depth)
+        torch.cuda.synchronize()
+        plain_launches = kernel_counts()
+        reset_counts()
+        rec = roof.analyze_step(fn, mp, mt, mc, depth, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        check(rec["flops"] == plain_rec["flops"] and rec["hbm_bytes"] == plain_rec["hbm_bytes"],
+              f"21b: the meshed decode step counts {rec['flops']} flops, "
+              f"{rec['hbm_bytes']} bytes; 20f's {plain_rec['flops']}, {plain_rec['hbm_bytes']}")
+        check(launches == plain_launches and launches["decode_attention"] == cfg.n_layers,
+              f"21b: the meshed step launched {nonzero(launches)}, the mesh-less "
+              f"{nonzero(plain_launches)}")
+        turns = {"plain": [], "meshed": []}
+        for name in ("plain", "meshed", "meshed", "plain"):
+            args = (p, tok, cache, depth) if name == "plain" else (mp, mt, mc, depth)
+            turns[name].append(step_times(fn, args, MESH_STEP_REPS))
+    r = rec["roofline"]
+    out = {"flops": rec["flops"], "hbm_bytes": rec["hbm_bytes"],
+           "collectives": rec["collectives"], "collective_s": r["collective_s"],
+           "chips": r["chips"], "launches": launches, "turns_ms": turns}
+    print(f"phase 21b: 20f's decode step (8 rows at depth 544, full width) on a (1, 1) "
+          f"NCCL mesh: {rec['flops']:.4e} flops, {rec['hbm_bytes']:.4e} bytes (20f's, "
+          f"exactly); collectives {rec['collectives']['counts']} "
+          f"({rec['collectives']['total_bytes']} bytes), collective_s {r['collective_s']}; "
+          f"launches {nonzero(launches)}; host / card ms (medians of {MESH_STEP_REPS}, in "
+          f"turns plain, meshed, meshed, plain): plain {turns['plain']}, meshed "
+          f"{turns['meshed']}  [{card}]")
+    return out
+
+
+def start_dryruns(tmp) -> list:
+    """21c, started: each DRYRUN_ARGVS run of ``python -m
+    repro_torch.launch.dryrun`` as a child process writing its record."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    # meta tensors only: the children see no card
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"), CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for i, argv in enumerate(DRYRUN_ARGVS):
+        out = os.path.join(tmp, f"dryrun{i}.json")
+        runs.append((argv, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return runs
+
+
+def finish_dryruns(runs, card) -> dict:
+    """21c: each dry-run child exits 0 within DRYRUN_TIMEOUT_S with an OK
+    line and a record (per-rank argument and output bytes, the roofline
+    terms, the collectives by kind), whose counter saw the collectives
+    DTensor issues inside its operators: the weights' all-gathers and the
+    partial sums' all-reduces of a tensor-parallel step."""
+    out = {}
+    for argv, path, t0, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                                         - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0 and "OK    " in stdout,
+              f"21c: dryrun {' '.join(argv)} exited {proc.returncode}: {stdout[-800:]} "
+              f"{stderr[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)[0]
+        key = " ".join(argv)
+        counts = rec["collectives"]["counts"]
+        check(counts["all-gather"] > 0 and counts["all-reduce"] > 0,
+              f"21c: dryrun {key} counted the collectives {counts}")
+        out[key] = {"wall_s": wall, "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+                    "memory": rec["memory"], "flops": rec["flops"],
+                    "hbm_bytes": rec["hbm_bytes"], "collectives": rec["collectives"],
+                    "roofline": rec["roofline"]}
+        r = rec["roofline"]
+        print(f"phase 21c: python -m repro_torch.launch.dryrun {key} (torch "
+              f"{torch.__version__}, meta tensors, fake process group, no card): mesh "
+              f"{rec['mesh']}, {rec['kind']}, lower {rec['lower_s']} s, compile "
+              f"{rec['compile_s']} s, {wall:.1f} s with start-up; per rank "
+              f"{rec['memory']['argument_bytes']} argument / {rec['memory']['output_bytes']} "
+              f"output bytes; {rec['flops']:.4e} flops, {rec['hbm_bytes']:.4e} bytes, "
+              f"collectives {rec['collectives']['counts']} ({rec['collectives']['total_bytes']} "
+              f"bytes); roofline compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+              f"collective {r['collective_s']:.4g} s over {r['chips']} ranks  [{card}]")
+    return out
+
+
+def phase_mesh(cfg, params, card, launch_numbers) -> tuple:
+    """Phase 21: mesh sharding on one rank; returns (the launches of the
+    driven paths, numbers)."""
+    t_phase, part = time.perf_counter(), {}
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = start_dryruns(tmp)
+        try:
+            t0 = time.perf_counter()
+            plain = launch_numbers["b"]
+            meshed = launch_queue(cfg, params, card, tmp, extra=MESH_ARGV, tag="21a")
+            check(meshed["tokens"] == plain["tokens"],
+                  "21a: the (1, 1) mesh's tokens differ from 20b's")
+            check(meshed["launches"] == plain["launches"],
+                  f"21a: launches {nonzero(meshed['launches'])}, 20b's "
+                  f"{nonzero(plain['launches'])}")
+            check(meshed["gathers"] and meshed["gather_spans"] == meshed["gathers"],
+                  f"21a: {meshed['gathers']} pool gathers, {meshed['gather_spans']} spans")
+            print(f"phase 21a: launch.serve {' '.join(LAUNCH_QUEUE_ARGV + MESH_ARGV)} (hot "
+                  f"budget {LAUNCH_HOT_PAGES} pages) on one NCCL rank: 20b's tokens "
+                  f"bitwise; launches {nonzero(meshed['launches'])} (20b's exactly); "
+                  f"{meshed['gathers']} pool gathers (one a round, each a trace span); "
+                  f"serve {meshed['serve_wall_s']:.3f} s ({meshed['tokens_per_s']:.1f} "
+                  f"tokens/s) against 20b's {plain['serve_wall_s']:.3f} s "
+                  f"({plain['tokens_per_s']:.1f}), {meshed['wall_s']:.2f} s with the "
+                  f"weights' draw  [{card}]")
+            numbers["a"] = {k: v for k, v in meshed.items() if k != "tokens"}
+            part["a"] = time.perf_counter() - t0
+        finally:
+            t0 = time.perf_counter()
+            numbers["c"] = finish_dryruns(runs, card)
+            part["c_wait"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numbers["b"] = mesh_decode_step(cfg, params, card, launch_numbers["f"]["full"]["decode"])
+        part["b"] = time.perf_counter() - t0
+    launches = dict.fromkeys(_build.KERNELS, 0)
+    for rec in (numbers["a"], numbers["b"]):
+        for n, c in rec["launches"].items():
+            launches[n] += c
+    numbers["part_s"] = part
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 21: {numbers['phase_s']:.1f} s, by part "
+          f"{ {k: round(v, 1) for k, v in part.items()} }")
+    return launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -6730,6 +6935,9 @@ def main() -> int:
     lc_launches, launch_numbers = phase_launch(llm_cfg, llm_params, card)
     for row in rows:               # the launchers' and examples' paths (slice 18)
         row["launches"] += lc_launches.get(row["name"], 0)
+    mesh_launches, mesh_numbers = phase_mesh(llm_cfg, llm_params, card, launch_numbers)
+    for row in rows:               # the meshed queue and decode step (slice 19)
+        row["launches"] += mesh_launches.get(row["name"], 0)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -6752,13 +6960,15 @@ def main() -> int:
                        "train": train, "scheduler": sched, "prefix": prefix,
                        "lm": lm, "slice11": s11, "moe": moe,
                        "moe_train": moe_train_numbers, "xlstm": xlstm_numbers,
-                       "jamba": jamba_numbers, "launch": launch_numbers},
+                       "jamba": jamba_numbers, "launch": launch_numbers,
+                       "mesh": mesh_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s "
           f"(phase 12 {sched['phase_s']:.1f} s, phase 15 {s11['phase_s']:.1f} s, "
           f"phase 16 {moe['phase_s']:.1f} s, phase 17 {moe_train_numbers['phase_s']:.1f} s, "
           f"phase 18 {xlstm_numbers['phase_s']:.1f} s, phase 19 "
-          f"{jamba_numbers['phase_s']:.1f} s, phase 20 {launch_numbers['phase_s']:.1f} s)")
+          f"{jamba_numbers['phase_s']:.1f} s, phase 20 {launch_numbers['phase_s']:.1f} s, "
+          f"phase 21 {mesh_numbers['phase_s']:.1f} s)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

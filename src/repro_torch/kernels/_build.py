@@ -104,13 +104,15 @@ def build(names) -> dict[str, Path]:
 
 
 def check_operand(t, what: str, dtype, device=None) -> None:
-    """Raise ValueError unless ``t`` is a contiguous CUDA tensor of
+    """Raise ValueError unless ``t`` is a plain (no subclass: never a
+    DTensor) contiguous CUDA tensor of
     ``dtype`` (one dtype, or a tuple of those the kernel takes; on
     ``device`` when given): what the kernels take.  The type is checked
     before the device, so a wrong dtype is named as such on any device."""
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, got "
                          f"{type(t)}")
+    check_plain(t, what)
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in dtypes:
         raise ValueError(f"{what}: the CUDA kernel takes "
@@ -129,10 +131,21 @@ def check_operand(t, what: str, dtype, device=None) -> None:
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def check_plain(t, what: str) -> None:
+    """Raise ValueError unless ``t`` is a plain tensor: a DTensor (or any
+    other tensor subclass) never reaches ``data_ptr()``, which is not its
+    data; the dispatchers hand a kernel each rank's local block."""
+    if type(t) not in (torch.Tensor, torch.nn.Parameter):
+        raise ValueError(f"{what}: the CUDA kernel takes a plain tensor, got a "
+                         f"{type(t).__name__} (hand it the local block)")
+
+
 def check_aligned(t, what: str) -> None:
     """Raise ValueError unless ``t``'s data starts on a 16-byte boundary,
     as the kernels' 16-byte copies need.  A contiguous view at an odd
-    offset can miss it; nothing here copies it into place."""
+    offset can miss it; nothing here copies it into place.  ``t`` is a
+    plain tensor (``check_plain``): a DTensor's ``data_ptr()`` is not its
+    data."""
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: the CUDA kernel takes 16-byte aligned data, "
                          f"got an address {t.data_ptr() % 16} bytes past it")

@@ -29,6 +29,7 @@ from repro_torch.kernels._build import (
     CudaKernel,
     check_aligned,
     check_operand,
+    check_plain,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,6 +67,7 @@ def _check_operands(q, rest) -> None:
     cause; all raise ValueError before any device work."""
     pairs = (("q", q), *rest)
     for name, t in pairs:
+        check_plain(t, name)
         want = KERNEL_DTYPES if t is q else (q.dtype,)
         if t.dtype not in want:
             raise ValueError(f"{name}: the CUDA kernel takes "
@@ -81,6 +83,7 @@ def _kv_valid_ptr(kv_valid_len, B: int, device):
     int32 copy on ``device`` (returned to keep it alive) and its address."""
     if kv_valid_len is None:
         return None, None
+    check_plain(kv_valid_len, "kv_valid_len")
     if kv_valid_len.shape != (B,) or kv_valid_len.is_floating_point():
         raise ValueError(f"kv_valid_len must be (B={B},) integers, got "
                          f"{tuple(kv_valid_len.shape)} {kv_valid_len.dtype}")

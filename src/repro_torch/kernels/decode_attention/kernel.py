@@ -21,6 +21,7 @@ from repro_torch.kernels._build import (
     CudaKernel,
     check_aligned,
     check_operand,
+    check_plain,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -88,6 +89,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     G = Hq // Hkv
     rows_ptr, attend_all = None, 0
     if isinstance(attend_len, torch.Tensor):
+        check_plain(attend_len, "attend_len")
         if attend_len.is_floating_point() or attend_len.dim() > 1:
             raise ValueError(f"attend_len must be () or (B,) integers, got "
                              f"{tuple(attend_len.shape)} {attend_len.dtype}")

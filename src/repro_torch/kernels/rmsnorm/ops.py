@@ -11,12 +11,18 @@ Each call reports its work to the step roofline (``kernels/work.py``);
 while that counts, a CPU call under a gradient also runs in ``RMSNorm``,
 with the plain bodies, so that its backward is one reported call as on
 the card (its gradients are the plain version's up to float32
-summation order)."""
+summation order).
+
+Under a mesh a DTensor's rows are normalised where they lie: the width
+axis is gathered where it is split (explicitly, by ``sharded``), the
+kernel runs on each rank's block, and the scale's gradient is a partial
+sum across the ranks that split the rows."""
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch import sharded
 from repro_torch.kernels import work
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_backward_ref, rmsnorm_ref
@@ -46,12 +52,27 @@ class RMSNorm(torch.autograd.Function):
         return dx, dscale, None, None, None
 
 
+def _meta_forward(x, scale, eps):
+    return torch.empty_like(x)
+
+
+def _meta_backward(x, scale, g, eps):
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
 def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: (..., d); scale: (d,) of x's dtype (float32 or bfloat16 on CUDA).
     Returns x's shape and dtype; differentiable in x and scale on the CPU
     and on CUDA."""
     grad = torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad)
+    if sharded.is_dtensor(x):
+        return _rmsnorm_sharded(x, scale, eps)
     with work.call("rmsnorm", lambda: work.rmsnorm(x, scale)):
+        if x.device.type == "meta":       # the dry-run: shapes only
+            if grad:
+                return RMSNorm.apply(x, scale, eps, _meta_forward,
+                                     _meta_backward).reshape(x.shape)
+            return torch.empty_like(x)
         cpu = x.device.type == "cpu"
         if cpu and not (grad and work.counting()):
             return rmsnorm_ref(x, scale, eps=eps)
@@ -64,3 +85,18 @@ def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
         else:
             y = rmsnorm_cuda(x2, scale, eps=eps)
         return y.reshape(x.shape)
+
+
+def _rmsnorm_sharded(x, scale, eps: float):
+    """``rmsnorm_op`` of a DTensor: each rank's rows, whole, through the
+    dispatcher; the scale whole on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows = sharded.keep_dims(x, range(x.dim() - 1))
+    local = sharded.local_block(x, rows)
+    if sharded.is_dtensor(scale):
+        grad = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+        scale = sharded.local_block(scale, [Replicate()] * len(rows),
+                                    grad_placements=grad)
+    return sharded.wrap(rmsnorm_op(local, scale, eps=eps), x.device_mesh, rows,
+                        x.shape)

@@ -52,8 +52,10 @@ def _nbytes(*tensors) -> int:
 
 
 def _lengths(value, B: int, default: int) -> np.ndarray:
-    """A per-row count (None, an int, a () or (B,) tensor) as (B,) int64."""
-    if value is None:
+    """A per-row count (None, an int, a () or (B,) tensor) as (B,) int64.
+    A meta tensor (the dry-run) has no values: every row counts its
+    ``default``."""
+    if value is None or (isinstance(value, torch.Tensor) and value.is_meta):
         return np.full(B, default, np.int64)
     a = np.asarray(value.tolist() if isinstance(value, torch.Tensor) else value,
                    np.int64)

@@ -1,2 +1,3 @@
-"""Launchers: serving (``serve``) and training (``train``) on one device,
-and the LM steps with their input specs (``steps``); the mesh waits."""
+"""Launchers: serving (``serve``) and training (``train``), the dry-run
+(``dryrun``), the LM steps with their input specs (``steps``), and the
+mesh (``mesh``) with its placement rules (``partition``)."""

@@ -29,16 +29,23 @@ the same queue, and the plain mode's prompt (and patches / frames) by a
 ``torch.Generator`` seeded 0.
 
 Flags are scope-checked at parse time, as in the JAX launcher: a flag that
-only applies to one mode is an argparse error (exit 2).  ``--mesh``,
-``--dry-run`` and ``--multi-pod`` stay in the parser so that those errors
-match; past the scope check they raise NotImplementedError before any
-model is built (mesh sharding and the dry run wait for ROADMAP Queue 1
-item 7b).
+only applies to one mode is an argparse error (exit 2).
+
+``--queue N --mesh DATA[,MODEL]`` serves the queue on a (DATA, MODEL)
+mesh, one process a rank (torch's SPMD model): the slot pool shards over
+DATA ranks and the params go tensor-parallel over MODEL
+(``serve/scheduler.py``).  With ``--device cpu`` the ranks are DATA x MODEL
+gloo processes spawned here; on CUDA they are NCCL processes, one a GPU,
+and fewer visible GPUs than ranks raise (the mesh is never shrunk).  A
+one-rank mesh runs in this process.  Rank 0 prints and dumps the metrics.
+``--dry-run`` runs ``launch.dryrun.run_one`` for ``--arch`` / ``--shape``
+(``--multi-pod``: the 512-rank mesh) and prints its record.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -61,7 +68,7 @@ from repro_torch.serve.frontend import (
 )
 from repro_torch.serve.gateway import Fleet, GatewayConfig, OffloadGateway, mixed_fleet
 from repro_torch.serve.recovery import RequestJournal
-from repro_torch.serve.scheduler import MESH_ITEM, SchedulerConfig
+from repro_torch.serve.scheduler import SchedulerConfig
 from repro_torch.serve.telemetry import Telemetry
 
 # the plain mode's batch, as the JAX launcher's
@@ -73,6 +80,8 @@ def _dump_telemetry(tel, args) -> None:
     Prometheus-style text goes to stderr, and --metrics-json /
     --trace-out persist the flat dump and the Chrome trace (load the
     trace in Perfetto / chrome://tracing)."""
+    if getattr(args, "rank", 0):
+        return                       # a meshed run's other ranks dump nothing
     text = tel.metrics.prometheus_text()
     if text:
         sys.stderr.write(text)
@@ -91,7 +100,13 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _serve_queue(cfg, params, args, tel, device) -> int:
+def mesh_dims(spec: str) -> tuple[int, int]:
+    """--mesh DATA[,MODEL] as (data, model)."""
+    dims = [int(x) for x in spec.split(",")]
+    return dims[0], (dims[1] if len(dims) > 1 else 1)
+
+
+def _serve_queue(cfg, params, args, tel, device, mesh=None) -> int:
     """Mixed-length request queue through the ServeEngine scheduler."""
     lengths = tuple(int(x) for x in args.lengths.split(","))
     rng = np.random.RandomState(0)
@@ -105,7 +120,7 @@ def _serve_queue(cfg, params, args, tel, device) -> int:
         shared = rng.randint(0, cfg.vocab, n_pages * page)
     max_len = len(shared) + max(lengths) + args.tokens + 8
     eng = ServeEngine(cfg, params, max_len=max_len, telemetry=tel, device=device,
-                      scheduler=SchedulerConfig(
+                      mesh=mesh, scheduler=SchedulerConfig(
                           buckets=tuple(len(shared) + b for b in lengths),
                           overlap=not args.serialized,
                           prefix_cache=args.prefix_cache,
@@ -120,7 +135,9 @@ def _serve_queue(cfg, params, args, tel, device) -> int:
     _sync(device)
     dt = time.time() - t0
     toks = sum(len(c.tokens) for c in outs)
-    print(f"served {len(reqs)} mixed-length requests "
+    topo = (f" on a ({mesh.shape[0]},{mesh.shape[1]}) mesh"
+            if mesh is not None else "")
+    print(f"served {len(reqs)} mixed-length requests{topo} "
           f"({toks} tokens) in {dt:.2f}s -> {toks / dt:.1f} tok/s")
     # end-of-run stats (prefix-cache tiers included) all flow through the
     # metrics dump
@@ -134,7 +151,7 @@ def _serve_queue(cfg, params, args, tel, device) -> int:
     return 0
 
 
-def _serve_stream(cfg, params, args, tel, device) -> int:
+def _serve_stream(cfg, params, args, tel, device, mesh=None) -> int:
     """Mixed-length queue through the overload-robust streaming frontend
     (bounded admission, priority classes, typed rejections)."""
     lengths = tuple(int(x) for x in args.lengths.split(","))
@@ -152,7 +169,7 @@ def _serve_stream(cfg, params, args, tel, device) -> int:
                               overlap=not args.serialized,
                               preempt=args.preempt),
         max_len=max(lengths) + args.tokens + 8, telemetry=tel,
-        journal=journal, device=device)
+        journal=journal, device=device, mesh=mesh)
     born = {}
     n_rej = 0
     t0 = time.time()
@@ -313,9 +330,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="waits for mesh sharding (ROADMAP Queue 1 item 7b)")
+                    help="--dry-run on the (2, 16, 16) mesh")
     ap.add_argument("--dry-run", action="store_true",
-                    help="waits for mesh sharding (ROADMAP Queue 1 item 7b)")
+                    help="run --arch / --shape on the production mesh on meta "
+                         "tensors (launch.dryrun) and print its record")
     ap.add_argument("--local", action="store_true",
                     help="serve the reduced config")
     ap.add_argument("--device", default=None,
@@ -327,8 +345,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lengths", default="8,16,32",
                     help="comma-separated prompt-length mix for --queue")
     ap.add_argument("--mesh", default=None, metavar="DATA[,MODEL]",
-                    help="serving mesh for --queue (waits for mesh sharding, "
-                         "ROADMAP Queue 1 item 7b)")
+                    help="serving mesh for --queue: the decode slot pool "
+                         "shards over DATA ranks, params go tensor-"
+                         "parallel over MODEL (default: unsharded)")
     ap.add_argument("--serialized", action="store_true",
                     help="disable the overlapped prefill/decode pipeline "
                          "(A/B baseline: host syncs every round)")
@@ -413,11 +432,18 @@ def main(argv=None) -> int:
     _validate_flags(ap, args)
     if args.gateway == 0 and args.arch is None:
         ap.error("--arch is required (unless --gateway N is given)")
-    for flag, on in (("--mesh", args.mesh), ("--dry-run", args.dry_run),
-                     ("--multi-pod", args.multi_pod)):
-        if on:
-            raise NotImplementedError(f"{flag} waits for {MESH_ITEM}")
+    if args.dry_run and not args.gateway:
+        from repro_torch.launch import dryrun
+
+        print(dryrun.run_one(args.arch, args.shape, multi_pod=args.multi_pod))
+        return 0
     device = resolve_device(args.device)
+    if args.mesh:
+        return _serve_meshed(args, sys.argv[1:] if argv is None else list(argv), device)
+    return _serve(args, device)
+
+
+def _serve(args, device, mesh=None) -> int:
     tel = Telemetry(enabled=True)
 
     if args.gateway:
@@ -430,12 +456,52 @@ def main(argv=None) -> int:
 
     if args.queue:
         if args.stream:
-            return _serve_stream(cfg, params, args, tel, device)
-        return _serve_queue(cfg, params, args, tel, device)
+            return _serve_stream(cfg, params, args, tel, device, mesh)
+        return _serve_queue(cfg, params, args, tel, device, mesh)
 
     serve_plain(cfg, params, plain_batch(cfg, device), args, tel)
     _dump_telemetry(tel, args)
     return 0
+
+
+def _serve_meshed(args, argv, device) -> int:
+    """--queue on a --mesh DATA[,MODEL]: one rank in this process, more as
+    spawned processes (gloo on the CPU, NCCL on CUDA, one GPU a rank)."""
+    data, model = mesh_dims(args.mesh)
+    ranks = data * model
+    if device.type == "cuda" and torch.cuda.device_count() < ranks:
+        raise RuntimeError(f"--mesh {args.mesh} needs {ranks} CUDA devices, "
+                           f"{torch.cuda.device_count()} are visible")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if ranks == 1:
+        return _serve_rank(0, argv, 1, None, backend)
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_serve_rank, args=(argv, ranks, f"file://{tmp}/rendezvous",
+                                              backend),
+                           nprocs=ranks, start_method="spawn")
+    return 0
+
+
+def _serve_rank(rank: int, argv, ranks: int, init_method, backend: str) -> int:
+    """One rank of a meshed --queue run: its process group, the mesh, the
+    queue; ranks other than 0 print nothing and write no dump."""
+    from repro_torch.launch.mesh import make_serving_mesh, process_group
+
+    args = parser().parse_args(argv)
+    args.rank = rank
+    if rank:
+        sys.stdout = open(os.devnull, "w")     # noqa: SIM115 - the rank's life
+    if backend == "gloo":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    data, model = mesh_dims(args.mesh)
+    with process_group(backend, world_size=ranks, rank=rank, init_method=init_method):
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if backend == "nccl" else torch.device("cpu")
+        return _serve(args, device, make_serving_mesh(data=data, model=model))
 
 
 if __name__ == "__main__":

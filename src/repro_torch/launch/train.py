@@ -14,9 +14,10 @@ are uniform draws of a ``torch.Generator`` seeded i (the VLM's patches
 and the enc-dec's frames normal draws of one seeded 0), weights the port's
 seed-0 draws.  Runs on ``--device`` (CUDA unless the CPU is named; without
 CUDA and without ``--device cpu`` it raises as
-``repro_torch.resolve_device`` does).  ``--dry-run`` and ``--multi-pod``
-wait for mesh sharding (ROADMAP Queue 1 item 7b) and raise
-NotImplementedError before any model is built.
+``repro_torch.resolve_device`` does).  ``--dry-run`` runs
+``launch.dryrun.run_one`` for ``--arch`` / ``--shape`` on the production
+mesh (``--multi-pod``: the 512-rank one) on meta tensors and prints its
+record, building no model.
 """
 from __future__ import annotations
 
@@ -32,7 +33,6 @@ from repro_torch.configs import get_config
 from repro_torch.configs.shapes import get_shape
 from repro_torch.launch.steps import make_train_step, opt_init
 from repro_torch.models import backbone as bb
-from repro_torch.serve.scheduler import MESH_ITEM
 
 # the reduced run's batch, as the JAX launcher's
 LOCAL_B, LOCAL_T = 4, 32
@@ -79,18 +79,21 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="waits for mesh sharding (ROADMAP Queue 1 item 7b)")
+                    help="--dry-run on the (2, 16, 16) mesh")
     ap.add_argument("--dry-run", action="store_true",
-                    help="waits for mesh sharding (ROADMAP Queue 1 item 7b)")
+                    help="run --arch / --shape on the production mesh on meta "
+                         "tensors (launch.dryrun) and print its record")
     ap.add_argument("--local", action="store_true",
                     help="train the reduced config on 4 x 32 tokens")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA; 'cpu' runs on the CPU)")
     args = ap.parse_args(argv)
-    for flag, on in (("--dry-run", args.dry_run), ("--multi-pod", args.multi_pod)):
-        if on:
-            raise NotImplementedError(f"{flag} waits for {MESH_ITEM}")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+
+        print(dryrun.run_one(args.arch, args.shape, multi_pod=args.multi_pod))
+        return 0
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)

@@ -92,7 +92,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharded
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.activations import mlp, mlp_init, swiglu_ffn, swiglu_ffn_init
 from repro_torch.nn.attention import (
@@ -103,6 +103,7 @@ from repro_torch.nn.attention import (
     cross_attention_decode,
     cross_kv,
     flash_attention,
+    merge_heads,
     project_qkv,
 )
 from repro_torch.nn.linear import dense, dense_init, embedding, embedding_init
@@ -502,9 +503,21 @@ def _logits(cfg: ArchConfig, params, last):
 def _chunk_ce(xc, w_vocab, lc, ignore_label: int):
     """(sum of the chunk's CE over its labelled tokens, their count)."""
     logits = xc.float() @ w_vocab.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    # the gold logit by gather: JAX's one-hot sum adds exact zeros to it
-    gold = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+    idx = torch.clamp(lc, min=0)
+    if sharded.is_dtensor(logits):
+        # the vocabulary stays split: its max and its sum of exponentials
+        # reduce across the split as (rows, positions) partials (DTensor's
+        # logsumexp would gather every logit), and the gold logit is JAX's
+        # one-hot sum (DTensor has no gather along a split vocab): the same
+        # gold logit, plus exact zeros
+        top = logits.detach().amax(dim=-1, keepdim=True)
+        logz = top[..., 0] + torch.log(torch.sum(torch.exp(logits - top), dim=-1))
+        hot = torch.arange(logits.shape[-1], device=idx.device) == idx[..., None]
+        gold = torch.sum(logits * hot.to(logits.dtype), dim=-1)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        # the gold logit by gather: JAX's one-hot sum adds exact zeros to it
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0]
     mask = (lc != ignore_label).float()
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
@@ -520,6 +533,13 @@ def chunked_cross_entropy(x, w_vocab, labels, *, chunk: int = 512,
     labelled ``ignore_label`` count for nothing."""
     B, T, _ = x.shape
     labels = labels.long()
+    if sharded.is_dtensor(w_vocab):
+        # rows split, vocabulary split, features whole: the readout's FSDP
+        # split is gathered once for every chunk (left to itself DTensor
+        # splits x's features instead, and every chunk's logits become
+        # partial sums over the whole vocabulary)
+        w_vocab = w_vocab.redistribute(w_vocab.device_mesh, sharded.keep_dims(w_vocab, {1}))
+        x = x.redistribute(x.device_mesh, sharded.keep_dims(x, {0}))
     Tc = min(chunk, T)
     loss_sum = x.new_zeros((), dtype=torch.float32)
     cnt = x.new_zeros((), dtype=torch.float32)
@@ -717,22 +737,31 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
                          "compaction would drop real (non-pad) tokens")
     hd = cfg.resolved_head_dim
     n_attn = sum(1 for spec, _ in slots if spec["kind"] == "attn")
-    cache = _cell_cache(cfg, B, x.device, lambda shape, dtype, fill: torch.empty(
-        shape, dtype=dtype, device=x.device))
+    # the cache's shapes and dtypes; each tensor is allocated at its first
+    # write, in the layout of the value written (a DTensor's placements)
+    shapes = _cell_cache(cfg, B, "meta", lambda shape, dtype, fill: torch.empty(
+        shape, dtype=dtype, device="meta"))
     if n_attn:
-        shape = (n_attn, B, S, cfg.n_kv_heads, hd)
-        cache["k"] = torch.empty(shape, dtype=x.dtype, device=x.device)
-        cache["v"] = torch.empty(shape, dtype=x.dtype, device=x.device)
+        shapes["k"] = shapes["v"] = torch.empty(
+            (n_attn, B, S, cfg.n_kv_heads, hd), dtype=x.dtype, device="meta")
+    cache = {}
+
+    def put(name, at, value):
+        if name not in cache:
+            cache[name] = sharded.empty_for(shapes[name], value)
+        cache[name][at] = value
+
     if cfg.encdec is not None:
         enc_out = _run_encoder(cfg, params, _batch_tensor(params, batch, "frames"))
-        cross = (cfg.n_layers, B, enc_out.shape[1], cfg.n_heads, hd)
-        cache["ck"] = torch.empty(cross, dtype=x.dtype, device=x.device)
-        cache["cv"] = torch.empty(cross, dtype=x.dtype, device=x.device)
+        shapes["ck"] = shapes["cv"] = torch.empty(
+            (cfg.n_layers, B, enc_out.shape[1], cfg.n_heads, hd), dtype=x.dtype,
+            device="meta")
         for i, p in enumerate(params["blocks"]):
             x, (k, v, ck, cv) = _decoder_layer_encdec(cfg, p, x, enc_out)
-            cache["k"][i] = _ring_compact(k, S, total_T)
-            cache["v"][i] = _ring_compact(v, S, total_T)
-            cache["ck"][i], cache["cv"][i] = ck, cv
+            put("k", i, _ring_compact(k, S, total_T))
+            put("v", i, _ring_compact(v, S, total_T))
+            put("ck", i, ck)
+            put("cv", i, cv)
     else:
         window = cfg.sliding_window or (
             cache_window(cfg, total_T, long_context=True) if long_context else 0)
@@ -743,11 +772,11 @@ def prefill(cfg: ArchConfig, params, batch, *, long_context: bool = False,
                 cfg, spec, p, x, window=window, dropless=True,
                 kv_valid_len=lengths)
             if spec["kind"] == "attn":
-                cache["k"][at] = _ring_compact(state[0], S, total_T)
-                cache["v"][at] = _ring_compact(state[1], S, total_T)
+                put("k", at, _ring_compact(state[0], S, total_T))
+                put("v", at, _ring_compact(state[1], S, total_T))
             else:
                 for name in _CELL_STATE[spec["kind"]]:
-                    cache[f"{spec['kind']}_{name}"][at] = state[name]
+                    put(f"{spec['kind']}_{name}", at, state[name])
             if aux is not None:
                 acc = _acc_aux(acc, layer_aux, n_moe)
         if aux is not None:
@@ -866,7 +895,7 @@ def prefill_chunk(cfg: ArchConfig, params, tokens, cache, depth: int, *,
         out = flash_attention(q, cache["k"][i, :, :attend_width],
                               cache["v"][i, :, :attend_width], causal=True,
                               q_offset=depth)
-        x = x + dense(p["attn"]["wo"], out.reshape(B, C, cfg.n_heads * hd))
+        x = x + dense(p["attn"]["wo"], merge_heads(out))
         x = x + swiglu_ffn(p["ffn"], rmsnorm(p["ffn_norm"], x))
     x = rmsnorm(params["final_norm"], x)
     if isinstance(last_index, int):

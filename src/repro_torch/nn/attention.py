@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch import sharded
+
 from repro_torch.kernels.attention.ops import flash_attention_op
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.nn.linear import dense, dense_init
@@ -47,11 +49,40 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def project_qkv(params, x, *, n_heads: int, n_kv_heads: int, head_dim: int):
-    B, T, _ = x.shape
-    q = dense(params["wq"], x).reshape(B, T, n_heads, head_dim)
-    k = dense(params["wk"], x).reshape(B, T, n_kv_heads, head_dim)
-    v = dense(params["wv"], x).reshape(B, T, n_kv_heads, head_dim)
+    q = _heads(dense(params["wq"], x), n_heads, head_dim)
+    k = _heads(dense(params["wk"], x), n_kv_heads, head_dim)
+    v = _heads(dense(params["wv"], x), n_kv_heads, head_dim)
     return q, k, v
+
+
+def merge_heads(t):
+    """(B, T, H, D) -> (B, T, H * D).  For a DTensor the gradient's heads
+    are gathered, as ``_heads`` gathers them, where its split does not
+    divide them."""
+    if sharded.is_dtensor(t) and torch.is_grad_enabled() and t.requires_grad:
+        return _MergeHeads.apply(t)
+    return t.reshape(t.shape[:-2] + (t.shape[-2] * t.shape[-1],))
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.shape = t.shape
+        return t.reshape(t.shape[:-2] + (t.shape[-2] * t.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = sharded.whole_groups(g, g.dim() - 1, ctx.shape[-2])
+        return g.reshape(ctx.shape)
+
+
+def _heads(t, n_heads: int, head_dim: int):
+    """(B, T, H * D) -> (B, T, H, D).  A DTensor whose last axis is split
+    where the split does not divide the heads (qwen2-0.5b's 14 heads of a
+    16-way model axis) is gathered along it first, explicitly."""
+    if sharded.is_dtensor(t):
+        t = sharded.whole_groups(t, t.dim() - 1, n_heads)
+    return t.reshape(t.shape[:-1] + (n_heads, head_dim))
 
 
 # ------------------------------------------------------------------ cores --
@@ -90,7 +121,7 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
     With return_kv, also returns the (roped) K/V tensors (B, T, Hkv, D) so
     prefill can fill a decode cache.  kv_valid_len (B,) masks right-padding
     keys out of every row (bucketed prefill)."""
-    B, T, _ = x.shape
+    T = x.shape[1]
     q, k, v = project_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                           head_dim=head_dim)
     if positions is None:
@@ -100,7 +131,7 @@ def attention_apply(params, x, *, n_heads: int, n_kv_heads: int,
         k = apply_rope(k, positions, rope_theta)
     out = flash_attention(q, k, v, causal=causal, window=window,
                           kv_valid_len=kv_valid_len)
-    y = dense(params["wo"], out.reshape(B, T, n_heads * head_dim))
+    y = dense(params["wo"], merge_heads(out))
     if return_kv:
         return y, k, v
     return y
@@ -130,10 +161,9 @@ def attention_decode_apply(params, x, k_cache, v_cache, cache_len, *,
         q = apply_rope(q, pos_b, rope_theta)
         k = apply_rope(k, pos_b, rope_theta)
     if per_row:
-        rows = torch.arange(B, device=x.device)
         slot = pos_b[:, 0] % S
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        _put_rows(k_cache, slot, k[:, 0])
+        _put_rows(v_cache, slot, v[:, 0])
         attend_len = torch.clamp(pos_b[:, 0] + 1, max=S)
     else:
         slot = int(cache_len) % S
@@ -141,35 +171,51 @@ def attention_decode_apply(params, x, k_cache, v_cache, cache_len, *,
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
         attend_len = min(int(cache_len) + 1, S)
     out = decode_attention(q, k_cache, v_cache, attend_len)
-    out = dense(params["wo"], out.reshape(B, 1, n_heads * head_dim))
+    out = dense(params["wo"], merge_heads(out))
     return out, k_cache, v_cache
+
+
+def _put_rows(cache, slot, new) -> None:
+    """cache[b, slot[b]] = new[b] for every row b, IN PLACE.  A DTensor
+    cache is written on each rank's block of rows (DTensor has no sharding
+    strategy for a write by row index along a split row axis): its rows'
+    slots and new values, the heads split as the cache's."""
+    if sharded.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        place = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+                 else p if isinstance(p, Shard) else Replicate()
+                 for p in cache.placements]
+        new = sharded.local_block(new, place) if sharded.is_dtensor(new) else new
+        slot = sharded.local_rows(slot, cache)
+        _put_rows(cache.to_local(), slot, new)
+        return
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot] = new.to(cache.dtype)
 
 
 def cross_kv(params, enc_out, *, n_kv_heads: int, head_dim: int):
     """Cross-attention K/V of the encoder output (B, F, d): each
     (B, F, n_kv_heads, head_dim)."""
-    B, F, _ = enc_out.shape
-    k = dense(params["wk"], enc_out).reshape(B, F, n_kv_heads, head_dim)
-    v = dense(params["wv"], enc_out).reshape(B, F, n_kv_heads, head_dim)
+    k = _heads(dense(params["wk"], enc_out), n_kv_heads, head_dim)
+    v = _heads(dense(params["wv"], enc_out), n_kv_heads, head_dim)
     return k, v
 
 
 def cross_attention_apply(params, x, k, v, *, n_heads: int, head_dim: int):
     """Decoder queries x (B, T, d) against the encoder's K/V (B, F, H, D),
     no mask: flash attention with T != S, not causal."""
-    B, T, _ = x.shape
-    q = dense(params["wq"], x).reshape(B, T, n_heads, head_dim)
+    q = _heads(dense(params["wq"], x), n_heads, head_dim)
     out = flash_attention(q, k, v, causal=False)
-    return dense(params["wo"], out.reshape(B, T, n_heads * head_dim))
+    return dense(params["wo"], merge_heads(out))
 
 
 def cross_attention_decode(params, x, k, v, *, n_heads: int, head_dim: int):
     """One-token cross-attention: x (B, 1, d) against all F cached encoder
     K/V slots (decode attention at attend_len = F)."""
-    B = x.shape[0]
-    q = dense(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    q = _heads(dense(params["wq"], x), n_heads, head_dim)
     out = decode_attention(q, k, v, k.shape[1])
-    return dense(params["wo"], out.reshape(B, 1, n_heads * head_dim))
+    return dense(params["wo"], merge_heads(out))
 
 
 # ----------------------------------------------------------- references ----

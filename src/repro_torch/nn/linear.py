@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
+
 from repro_torch.nn.init import he_normal, lecun_normal, normal
 
 
@@ -159,6 +161,8 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int, *,
 
 
 def embedding(params, ids):
+    if sharded.is_dtensor(params["table"]):
+        return sharded.embedding(params["table"], ids)
     return params["table"][ids]
 
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
 from repro_torch.nn.activations import silu
 from repro_torch.nn.init import lecun_normal
 from repro_torch.nn.linear import dense_init
@@ -112,6 +113,14 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: (B, T, d).  Returns (y (B, T, d) in x's dtype, aux) where aux
     holds the Switch load-balance loss and the fraction of routing slots
     dropped over capacity, both () float32 tensors."""
+    if sharded.is_dtensor(x):
+        # DTensor has no sharding strategy for the routing's sort, cumsum
+        # and index dispatch: the layer runs on plain tensors, params
+        # gathered, over the whole batch on every rank (its routing groups
+        # and capacities are the unsharded layer's)
+        return sharded.run_local(moe_apply, params, x, rows=False, top_k=top_k,
+                                 capacity_factor=capacity_factor,
+                                 min_capacity=min_capacity, group_size=group_size)
     B, T, d = x.shape
     E = params["router"]["w"].shape[1]
     r = moe_routing(params, x, top_k=top_k, capacity_factor=capacity_factor,

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
 from repro_torch.nn.activations import silu
 from repro_torch.nn.init import on_meta
 from repro_torch.nn.linear import conv1d, conv1d_init, dense, dense_init
@@ -112,6 +113,13 @@ def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
     also the decode state after the last token: {"conv": the last d_conv -
     1 pre-conv inputs (B, d_conv - 1, d_inner), zeros where T is shorter,
     "ssm": (B, d_inner, d_state) float32}."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(mamba_apply, params, x, d_state=d_state,
+                                 d_conv=d_conv, dt_rank=dt_rank, chunk=chunk,
+                                 return_state=return_state)
     B, T, d_model = x.shape
     d_inner = params["conv_b"].shape[0]
     r = _rank(d_model, dt_rank)
@@ -140,6 +148,12 @@ def mamba_decode_apply(params, x, state, *, d_state: int = 16, d_conv: int = 4,
                        dt_rank: int | None = None):
     """One token x (B, 1, d_model) from ``state``.  Returns (y (B, 1,
     d_model), the new state)."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(mamba_decode_apply, params, x, state,
+                                 d_state=d_state, d_conv=d_conv, dt_rank=dt_rank)
     r = _rank(x.shape[-1], dt_rank)
     x_in, z = dense(params["in_proj"], x).chunk(2, dim=-1)          # (B, 1, di)
     conv_buf = torch.cat([state["conv"], x_in], dim=1)               # (B, d_conv, di)

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharded
 from repro_torch.nn.linear import dense, dense_init
 from repro_torch.nn.norm import groupnorm, groupnorm_init
 
@@ -163,6 +164,12 @@ def _mlstm_gates(params, x, n_heads: int):
 def mlstm_apply(params, x, *, n_heads: int, chunk: int = 64,
                 return_state: bool = False):
     """x: (B, T, d) -> (B, T, d) [, the state after the last token]."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(mlstm_apply, params, x, n_heads=n_heads, chunk=chunk,
+                                 return_state=return_state)
     B, T, d_model = x.shape
     y, state = mlstm_chunked(*_mlstm_gates(params, x, n_heads), chunk=chunk)
     y = groupnorm(params["norm"], y.reshape(B, T, d_model).to(x.dtype), groups=n_heads)
@@ -179,6 +186,11 @@ def mlstm_decode_init_state(batch: int, n_heads: int, head_dim: int, *,
 
 def mlstm_decode_apply(params, x, state, *, n_heads: int):
     """One token: x (B, 1, d) -> (y (B, 1, d), the new state)."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(mlstm_decode_apply, params, x, state, n_heads=n_heads)
     B, _, d_model = x.shape
     q, k, v, li, lf = _mlstm_gates(params, x, n_heads)
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
@@ -243,6 +255,12 @@ def slstm_decode_init_state(batch: int, d_model: int, dtype=torch.float32, *,
 def slstm_apply(params, x, *, n_heads: int, return_state: bool = False):
     """x: (B, T, d) -> (B, T, d) [, the state after the last token], one
     token at a time."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(slstm_apply, params, x, n_heads=n_heads,
+                                 return_state=return_state)
     B, T, d_model = x.shape
     init = slstm_decode_init_state(B, d_model, x.dtype, device=x.device)
     state = (init["h"], init["c"], init["n"], init["m"])
@@ -259,6 +277,11 @@ def slstm_apply(params, x, *, n_heads: int, return_state: bool = False):
 
 def slstm_decode_apply(params, x, state, *, n_heads: int):
     """One token: x (B, 1, d) -> (y (B, 1, d), the new state)."""
+    if sharded.is_dtensor(x):
+        # the recurrence runs on plain tensors (DTensor has no sharding
+        # strategy for its loop's writes), params gathered, over each
+        # rank's rows (rows are independent)
+        return sharded.run_local(slstm_decode_apply, params, x, state, n_heads=n_heads)
     h, new = slstm_step(params, x[:, 0], (state["h"], state["c"], state["n"], state["m"]))
     y = groupnorm(params["norm"], h[:, None, :], groups=n_heads)
     return y, dict(zip("hcnm", new))

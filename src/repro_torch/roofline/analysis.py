@@ -6,8 +6,26 @@ Three terms per step, in seconds (``analyze_step``):
                computes in (a float32 product with TF32 off at the
                float32 rate, bf16 on the tensor cores at the bf16 rate)
   memory     = the bytes its operators read and write / HBM bandwidth
-  collective = 0 on one card (counting ``torch.distributed`` traffic
-               comes with mesh sharding, ROADMAP Queue 1 item 7b)
+  collective = the bytes the step's collectives move / (chips x NVLink
+               bandwidth); 0 without a mesh
+
+Under a mesh (DTensors, ``launch/partition.py``) the counter counts what
+this rank runs: it leaves each DTensor operator to DTensor and counts the
+operators DTensor then runs on this rank's blocks, so ``flops`` and
+``hbm_bytes`` are one rank's (work replicated over a mesh axis counts in
+full on every rank that does it) and the compute and memory terms are
+that rank's times.  The collectives of DTensor's redistributions, those
+inside an operator (a weight gathered before a product, a partial sum
+reduced after one) and the explicit ones (``sharded.local_block``), reach
+the counter as ``_c10d_functional`` operators: each is counted by kind
+under the JAX package's names (``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``) with its
+output's bytes, as ``collective_bytes_from_hlo`` counts an HLO
+collective's result shape, and kept out of ``hbm_bytes``; the collective
+term is their bytes over (ranks x NVLink bandwidth), the JAX package's
+formula.  The operators that DTensor's sharding propagation runs on fake
+tensors to learn an output's shape (once per operator and shapes) are not
+counted.
 
 The JAX package reads these from XLA's ``cost_analysis`` and HLO text
 (``repro.roofline.analysis.analyze_compiled``); torch has neither, so
@@ -53,6 +71,21 @@ _GATHERS = {torch.ops.aten.index, torch.ops.aten.embedding,
             torch.ops.aten.index_select, torch.ops.aten.gather}
 _SCATTERS = {torch.ops.aten.index_put, torch.ops.aten.index_put_,
              torch.ops.aten._index_put_impl_}
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+# torch's collective operators by the JAX package's (XLA's) names; the
+# other operators of these namespaces (waits, autograd wrappers) move
+# nothing
+_COLLECTIVE_KIND = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute", "permute_tensor": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
 
 
 def peak_flops(dtype) -> float:
@@ -107,9 +140,14 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.flop_registry = FlopCounterMode(display=False).flop_registry
         self.hidden = 0            # > 0 inside a reported call
+        from torch.distributed.tensor import DTensor
+
+        self.dtensor = DTensor
         self.ops: dict[str, dict] = {}
         self.kernels: dict[str, dict] = {}
         self.flops_by_type: dict[str, int] = {}
+        self.collectives = {"bytes_by_kind": dict.fromkeys(_COLLECTIVES, 0),
+                            "counts": dict.fromkeys(_COLLECTIVES, 0)}
 
     @staticmethod
     def _add(table: dict, name: str, flops: int, nbytes: int) -> None:
@@ -133,8 +171,18 @@ class _Counter(TorchDispatchMode):
         self.hidden -= 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self.dtensor) for t in types):
+            return NotImplemented      # DTensor runs it; its local operators come here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out                 # DTensor's sharding propagation
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            kind = _COLLECTIVE_KIND.get(func._opname)
+            if kind is not None:       # counted inside reported calls too
+                self.collectives["bytes_by_kind"][kind] += _nbytes(_tensors(out))
+                self.collectives["counts"][kind] += 1
+            return out
         if self.hidden:
             return out
         flops = 0
@@ -147,35 +195,54 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-def analyze_step(fn, *args, **kwargs) -> dict:
-    """Roofline record of one call ``fn(*args, **kwargs)`` on one card, in
-    the JAX package's shape: ``flops``, ``hbm_bytes`` and ``roofline``
-    {``compute_s``, ``memory_s``, ``collective_s``, ``dominant``,
-    ``chips``}; also ``flops_by_type``, ``kernels`` (each dispatcher's
-    calls, flops and bytes) and ``ops`` (each operator's).  The call runs
-    once (its outputs are dropped); only integers are counted, so two runs
-    on the same shapes and data give the same record."""
+def count_step(fn, *args, **kwargs):
+    """(the counter, the outputs) of one call ``fn(*args, **kwargs)``."""
     counter = _Counter()
     if work._counter is not None:
         raise RuntimeError("analyze_step does not nest")
     work._counter = counter
     try:
         with counter:
-            fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
     finally:
         work._counter = None
+    return counter, out
+
+
+def record(counter, mesh=None) -> dict:
+    """The roofline record of a counted call (``analyze_step``'s)."""
+    chips = 1 if mesh is None else mesh.size()
     tables = (counter.ops, counter.kernels)
     flops = sum(r["flops"] for t in tables for r in t.values())
     hbm_bytes = sum(r["bytes"] for t in tables for r in t.values())
     compute_s = sum(f / peak_flops(getattr(torch, t))
                     for t, f in counter.flops_by_type.items())
+    coll = {**counter.collectives,
+            "total_bytes": sum(counter.collectives["bytes_by_kind"].values())}
     terms = {"compute_s": compute_s, "memory_s": hbm_bytes / HBM_BW,
-             "collective_s": 0.0}
+             "collective_s": (coll["total_bytes"] / (chips * LINK_BW)
+                              if mesh is not None else 0.0)}
     return {"flops": flops, "hbm_bytes": hbm_bytes,
             "flops_by_type": dict(counter.flops_by_type),
-            "kernels": counter.kernels, "ops": counter.ops,
+            "kernels": counter.kernels, "ops": counter.ops, "collectives": coll,
             "roofline": {**terms, "dominant": max(terms, key=terms.get),
-                         "chips": 1}}
+                         "chips": chips}}
+
+
+def analyze_step(fn, *args, mesh=None, **kwargs) -> dict:
+    """Roofline record of one call ``fn(*args, **kwargs)``, in the JAX
+    package's shape: ``flops``, ``hbm_bytes``, ``collectives``
+    {``bytes_by_kind``, ``counts``, ``total_bytes``} and ``roofline``
+    {``compute_s``, ``memory_s``, ``collective_s``, ``dominant``,
+    ``chips``}; also ``flops_by_type``, ``kernels`` (each dispatcher's
+    calls, flops and bytes) and ``ops`` (each operator's).  ``mesh``: the
+    device mesh the call's DTensors live on (its ranks are the chips);
+    the counts are then this rank's.
+    The call runs once (its outputs are dropped); only integers are
+    counted, so two runs on the same shapes and data give the same
+    record."""
+    counter, _ = count_step(fn, *args, **kwargs)
+    return record(counter, mesh)
 
 
 def model_flops(cfg, shape) -> float:

@@ -27,7 +27,12 @@ An MoE arch's equal-length call keeps each forward's aux losses in
 each {"load_balance_loss", "dropped_fraction"} as () float32 tensors on
 the device (read them after the call; nothing waits on them).
 
-A mesh (sharded serving) waits for ROADMAP Queue 1 item 7b.
+With a ``mesh`` (``launch.mesh.make_serving_mesh``) everything routes
+through the scheduler, whose slot pool shards over the data axes and
+whose params go tensor-parallel (``serve/scheduler.py``): the
+equal-length path is single-device, and dropping the mesh would serve
+unsharded.  An architecture the scheduler gates out, or a request with
+extras, raises under a mesh, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -42,7 +47,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import backbone as bb
 from repro_torch.serve import telemetry as _telemetry
 from repro_torch.serve.scheduler import (
-    MESH_ITEM,
     ContinuousScheduler,
     SchedulerConfig,
     sample_tokens,
@@ -96,9 +100,11 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 256,
                  seed: int = 0, scheduler: Optional[SchedulerConfig] = None,
                  mesh=None, telemetry=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"sharded serving (mesh=) waits for {MESH_ITEM}")
+        if mesh is not None and not supports_continuous_batching(cfg):
+            raise ValueError(
+                f"{cfg.name}: sharded serving runs through the continuous "
+                "scheduler, which this architecture gates out; a meshed "
+                "engine would silently serve unsharded on one device")
         bb.sublayer_specs(cfg)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
@@ -109,6 +115,7 @@ class ServeEngine:
         self.params = params
         self.max_len = max_len
         self.tel = telemetry if telemetry is not None else _telemetry.default()
+        self.mesh = mesh            # scheduler path only
         self._seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._sched_cfg = scheduler or SchedulerConfig()
@@ -122,14 +129,15 @@ class ServeEngine:
         if self._sched is None:
             self._sched = ContinuousScheduler(
                 self.cfg, self.params, sched=self._sched_cfg,
-                max_len=self.max_len, seed=self._seed + 1,
+                max_len=self.max_len, seed=self._seed + 1, mesh=self.mesh,
                 telemetry=self.tel, device=self.device)
         return self._sched
 
     def generate(self, requests: list[Request]) -> list[Completion]:
         """One Completion per request, in submission order.  Equal-length
-        prompts without deadlines take the single-batch path; mixed
-        lengths and deadlines run through the continuous scheduler, or
+        prompts without deadlines take the single-batch path (unless a
+        mesh is set); mixed lengths, deadlines and a mesh run through the
+        continuous scheduler, or
         through equal-length grouping where the architecture rules the
         scheduler out (deadlines then raise ValueError)."""
         if not requests:
@@ -143,7 +151,12 @@ class ServeEngine:
                 "scheduler only; this architecture (or extras-carrying "
                 "batch) routes through the equal-length path, which cannot "
                 "evict mid-decode")
-        if len({len(r.tokens) for r in requests}) == 1 and not deadlines:
+        if self.mesh is not None and not schedulable:
+            raise ValueError(
+                "sharded serving cannot take requests with extras: they route "
+                "through the single-device path, dropping the mesh")
+        if (len({len(r.tokens) for r in requests}) == 1 and not deadlines
+                and self.mesh is None):
             return self._generate_equal(requests)
         if schedulable:
             sched = self.scheduler

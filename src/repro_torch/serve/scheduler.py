@@ -45,8 +45,26 @@ suffixes in page-wide segments attending at the bucket width, one
 inject), a staged one starts its segments past the resident whole
 segments, and every admission pins its shareable pages until its slot is
 released (``suspend`` parks the pins until the resumed admission
-re-pins).  Not ported: the mesh-sharded pool (``mesh=``, ROADMAP Queue 1
-item 7b), which raises NotImplementedError.
+re-pins).
+
+The pool is *mesh-shardable*: given a ``mesh`` (``launch.mesh.
+make_serving_mesh``: one process a rank), params go tensor-parallel by
+the serving partition rules (``launch.partition.param_shardings``, no
+FSDP) and every pool leaf's slot axis shards over the data axes
+(``pool_shardings``), as DTensors.  The decode step runs on them rank by
+rank; the pool's bookkeeping (inject, each step's token, depth and budget
+updates, evict) runs on each rank's own strip of slots, the local rows of
+its block, so a rank writes only the slots it owns and leaves every other
+strip untouched (the JAX package's scatter into a data-sharded pool has
+no DTensor counterpart).  Prefills and staged caches run replicated over
+the data axes, and an inject copies the rows of the slots a rank owns.
+The host's view of done / buf / gen gathers the whole pool once a round
+(a ``gather`` span and the ``sched.pool_gathers`` counter with telemetry
+on).  Host-made tensors (token ids, positions, the active mask) stand
+replicated on every rank (``implicit_replication``).  Every rank runs
+the same rounds, so their collectives meet: deadlines under a mesh need a
+``clock`` that reads the same on every rank.  Greedy tokens and the
+integer pool state are the single-device pool's, bit for bit.
 
 Correctness invariants (tested against one-request-at-a-time decode):
 pad keys are masked out of prefill attention and pad/stale cache slots
@@ -65,7 +83,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharded, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import round_up
 from repro_torch.models import backbone as bb
@@ -73,7 +91,6 @@ from repro_torch.serve import telemetry as _telemetry
 from repro_torch.serve.prefix_cache import PrefixCache
 
 _NULL = nullcontext()     # reentrant: shared no-op for disabled telemetry
-MESH_ITEM = "ROADMAP Queue 1 item 7b (mesh sharding)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,9 +250,6 @@ class ContinuousScheduler:
             raise ValueError(
                 f"{cfg.name}: continuous batching needs a pure-attention "
                 "RoPE decoder (use ServeEngine's equal-length grouping)")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a mesh-sharded slot pool (mesh=) waits for {MESH_ITEM}")
         self.sched = sched or SchedulerConfig()
         self.device = resolve_device(device)
         table = params["embed"]["table"]
@@ -272,7 +286,37 @@ class ContinuousScheduler:
             "temps": torch.zeros((S,), dtype=torch.float32, device=dev),
         }
         self._temps = np.zeros((S,), np.float32)   # host copy of "temps"
-        self._rows = torch.arange(S, device=dev)
+        self.mesh = mesh
+        self._first, self._n_local = 0, S       # this rank's strip of slots
+        if mesh is not None:
+            from repro_torch.launch.mesh import axis_size, axis_sizes, data_axes
+            from repro_torch.launch.partition import (
+                distribute,
+                param_shardings,
+                pool_shardings,
+            )
+            dsize = axis_size(mesh, data_axes(mesh))
+            if S % dsize:
+                raise ValueError(f"max_slots {S} must divide the {dsize}-way data "
+                                 "axes so every data shard owns a fixed strip of "
+                                 "slots")
+            # serving params are tensor-parallel only (weights resident on
+            # the model axis); the pool shards its slot axis over the data
+            # axes, so each rank decodes its own strip of slots
+            self.params = params = distribute(
+                params, param_shardings(params, mesh, cfg=cfg))
+            self._pool = distribute(self._pool, pool_shardings(self._pool, mesh))
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            sizes, r = axis_sizes(mesh), 0
+            for a in data_axes(mesh):
+                r = r * sizes[a] + coord[a]
+            self._n_local = S // dsize
+            self._first = r * self._n_local
+        # the pool's leaves as this rank's plain local blocks (the leaves
+        # themselves without a mesh): the bookkeeping writes through them
+        self._local = tree_map(
+            lambda t: t.to_local() if sharded.is_dtensor(t) else t, self._pool)
+        self._rows = torch.arange(self._n_local, device=dev)
         self.steps_run = 0                          # decode steps dispatched
         self._steps_live = torch.zeros((), dtype=torch.long, device=dev)
         self._count_live = self.tel.enabled
@@ -311,16 +355,31 @@ class ContinuousScheduler:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _whole(self, t):
+        """A DTensor whole on this rank (gathered), a plain tensor as it is."""
+        if not sharded.is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Replicate
+
+        return sharded.local_block(t, [Replicate()] * t.device_mesh.ndim)
+
     def _fetch(self, names=("done", "buf", "gen")) -> dict:
         """Start copies of pool leaves to the host: pinned buffers filled
         without blocking, and an event recorded behind them (on the CPU,
-        clones).  ``_landed`` waits for them."""
+        clones).  ``_landed`` waits for them.  Under a mesh the leaves are
+        gathered whole first."""
+        whole = {n: self._pool[n] for n in names}
+        if self.mesh is not None:
+            with self._span("gather"):
+                whole = {n: self._whole(t) for n, t in whole.items()}
+            if self.tel.enabled:
+                self.tel.counter("sched.pool_gathers").inc()
         if self.device.type != "cuda":
-            return {"arrays": {n: self._pool[n].clone() for n in names},
+            return {"arrays": {n: t.clone() for n, t in whole.items()},
                     "event": None}
         out = {}
         for n in names:
-            src = self._pool[n]
+            src = whole[n]
             out[n] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             out[n].copy_(src, non_blocking=True)
         event = torch.cuda.Event()
@@ -350,17 +409,31 @@ class ContinuousScheduler:
         if not keep.size:
             return
         n = keep.size
-        meta = self._put(np.stack([slots[keep], keep, prompt_lens[keep],
-                                   eos[keep], max_new[keep]]).astype(np.int64))
-        sl, src, lens, eos_d, max_new_d = meta
         temps_k = temps[keep].astype(np.float32)
+        self._temps[slots[keep]] = temps_k
+        # every rank samples the whole group's first tokens (the same
+        # draws) and takes its blocks of the rows (the same collectives),
+        # then writes the rows of the slots it owns
         full = n == len(slots)
-        lg = logits0 if full else logits0[src]
+        lg = self._whole(logits0)
+        lg = lg if full else lg[self._put(keep)]
         if (temps_k <= 0).all():
             tok0 = torch.argmax(lg, dim=-1)
         else:
             tok0 = sample_tokens(lg, self._put(temps_k), self._gen)
-        pool = self._pool
+        rows = {name: self._rows_for(rows[name], name) for name in ("k", "v")}
+        mine = np.flatnonzero((slots[keep] >= self._first)
+                              & (slots[keep] < self._first + self._n_local))
+        if not mine.size:
+            return
+        k2 = keep[mine]
+        meta = self._put(np.stack([slots[k2] - self._first, k2, prompt_lens[k2],
+                                   eos[k2], max_new[k2]]).astype(np.int64))
+        sl, src, lens, eos_d, max_new_d = meta
+        every = mine.size == n
+        if not every:
+            tok0 = tok0[self._put(mine)]
+        pool = self._local
         pool["buf"][sl] = 0
         pool["buf"][sl, 0] = tok0
         pool["gen"][sl] = 1
@@ -369,21 +442,57 @@ class ContinuousScheduler:
         for name in ("k", "v"):
             leaf, r = pool["cache"][name], rows[name]
             W = min(leaf.shape[2], r.shape[2])       # KV-axis capacities
-            r = r[:, :, :W] if full else r[:, src, :W]
+            r = r[:, :, :W] if full and every else r[:, src, :W]
             leaf[:, sl, :W] = r.to(leaf.dtype)
         pool["cache_len"][sl] = lens
         pool["eos"][sl] = eos_d
         pool["max_new"][sl] = max_new_d
-        pool["temps"][sl] = self._put(temps_k)
-        self._temps[slots[keep]] = temps_k
+        pool["temps"][sl] = self._put(temps_k[mine])
+
+    def _rows_for(self, rows, name: str):
+        """Prefilled K / V rows (L, G, W, Hkv, D) as this rank's plain block
+        of the pool leaf ``name``: every row, the heads split as the
+        leaf's."""
+        if not sharded.is_dtensor(rows):
+            return rows
+        from torch.distributed.tensor import Replicate, Shard
+
+        leaf = self._pool["cache"][name]
+        return sharded.local_block(rows, [
+            p if isinstance(p, Shard) and p.dim == 3 else Replicate()
+            for p in leaf.placements])
+
+    def _mine(self, t):
+        """A per-slot DTensor (S, ...) as this rank's strip of slots."""
+        if not sharded.is_dtensor(t):
+            return t
+        return sharded.local_rows(t, self._pool["buf"])
+
+    def _reset_depth(self, slots) -> None:
+        """Evicted slots drop to depth 0 (on the rank that owns each)."""
+        own = [i - self._first for i in slots
+               if self._first <= i < self._first + self._n_local]
+        if own:
+            self._local["cache_len"][self._put(np.asarray(own, np.int64))] = 0
+
+    def _new_cache(self, batch: int, width: int) -> dict:
+        """A zero cache for a staged or prefix admission: replicated over
+        the mesh when there is one."""
+        cache = bb.init_cache(self.cfg, batch, width, device=self.device)
+        if self.mesh is None:
+            return cache
+        from repro_torch.launch.partition import NamedSharding, distribute
+
+        return distribute(cache, tree_map(
+            lambda t: NamedSharding(self.mesh, [None] * t.dim()), cache))
 
     def _run_chunk(self, active: np.ndarray) -> None:
         """``chunk`` decode steps over the whole pool.  A row runs while it
         is active (occupied, not staging) and not done; rows that do not
         run keep their tokens, budget, depth and ``tok``."""
-        pool, rows = self._pool, self._rows
-        L = pool["buf"].shape[1]
-        act = self._put(active)
+        pool, loc, rows = self._pool, self._local, self._rows
+        L = loc["buf"].shape[1]
+        act = self._put(active[self._first:self._first + self._n_local])
         greedy = bool((self._temps[active] <= 0).all())
         for _ in range(self.sched.chunk):
             logits, _ = bb.decode_step(self.cfg, self.params, pool["tok"],
@@ -392,19 +501,28 @@ class ContinuousScheduler:
                 t = torch.argmax(logits, dim=-1)
             else:
                 t = sample_tokens(logits, pool["temps"], self._gen)
-            run = act & ~pool["done"]
-            pos = pool["gen"].clamp(max=L - 1)
-            pool["buf"][rows, pos] = torch.where(run, t, pool["buf"][rows, pos])
-            pool["gen"] += run
-            pool["done"] |= run & ((t == pool["eos"])
-                                   | (pool["gen"] >= pool["max_new"]))
-            pool["tok"][:, 0] = torch.where(run, t, pool["tok"][:, 0])
+            t = self._mine(t)
+            run = act & ~loc["done"]
+            pos = loc["gen"].clamp(max=L - 1)
+            loc["buf"][rows, pos] = torch.where(run, t, loc["buf"][rows, pos])
+            loc["gen"] += run
+            loc["done"] |= run & ((t == loc["eos"])
+                                  | (loc["gen"] >= loc["max_new"]))
+            loc["tok"][:, 0] = torch.where(run, t, loc["tok"][:, 0])
             # only running rows advance their depth: done/free slots keep
             # cache_len frozen (and evict resets it)
-            pool["cache_len"] += run
+            loc["cache_len"] += run
             if self._count_live:
-                self._steps_live += run.any()
+                self._steps_live += self._any_ran(run)
         self.steps_run += self.sched.chunk
+
+    def _any_ran(self, run):
+        """Whether a row of the whole pool ran (over every strip under a
+        mesh)."""
+        if self.mesh is None:
+            return run.any()
+        return sharded.wrap(run.long(), self.mesh, self._pool["done"].placements,
+                            self._pool["done"].shape).sum().full_tensor() > 0
 
     def steps_live(self) -> int:
         """Decode steps dispatched so far in which at least one row ran,
@@ -518,7 +636,8 @@ class ContinuousScheduler:
         if slot is None or slot in self._staging_slots():
             raise ValueError(f"rid {rid} is not pooled (queued/staging rows "
                              "cannot suspend)")
-        host = self._landed(self._fetch())
+        with sharded.host_replicated(self.mesh):
+            host = self._landed(self._fetch())
         if host["done"][slot]:
             return None
         toks = host["buf"][slot, :host["gen"][slot]].astype(np.int32)
@@ -538,7 +657,7 @@ class ContinuousScheduler:
             parked = self.prefix.park(slot, ("suspend", rid))
         self._unpark(rid)                      # resumed-but-never-admitted
         self._slots.release(slot, rid)
-        self._pool["cache_len"][slot] = 0
+        self._reset_depth([slot])
         deadline_at = self._deadlines.pop(rid, None)
         if self.tel.enabled:
             self.tel.counter("sched.evicted", reason="preempted").inc()
@@ -747,11 +866,11 @@ class ContinuousScheduler:
             self.tel.counter("sched.admitted", path="group").inc(
                 int((g["slots"] < self.sched.max_slots).sum()))
         if self.prefix is not None:
+            kw, vw = self._whole(rows["k"]), self._whole(rows["v"])
             for i, (keys, slot) in enumerate(zip(g["pkeys"], g["slots"])):
                 self.prefix.record(len(keys), 0)
                 if keys:
-                    self.prefix.pin(int(slot), keys, rows["k"][:, i],
-                                    rows["v"][:, i])
+                    self.prefix.pin(int(slot), keys, kw[:, i], vw[:, i])
         for rid in g["rids"]:          # after pin: parked pages stay hot
             self._unpark(rid)          # until the new pins hold them
         self._inject(g["slots"], rows, logits0, g["lengths"], g["eos"],
@@ -771,8 +890,7 @@ class ContinuousScheduler:
         page = self.sched.page_size
         Wc = self._copy_width(g["bucket"])
         seeded = H * page
-        cache = bb.init_cache(self.cfg, self.sched.prefill_group, Wc,
-                              device=self.device)
+        cache = self._new_cache(self.sched.prefill_group, Wc)
         for i, (_, _, keys) in enumerate(take):
             kv = self.prefix.fetch(keys[:H])
             cache["k"][:, i, :seeded] = kv["k"].to(cache["k"].dtype)
@@ -792,10 +910,10 @@ class ContinuousScheduler:
                 break
         if self.tel.enabled:
             self.tel.counter("sched.admitted", path="prefix").inc(len(take))
+        kw, vw = self._whole(cache["k"]), self._whole(cache["v"])
         for i, ((rid, _, keys), slot) in enumerate(zip(take, g["slots"])):
             self.prefix.record(len(keys), H)
-            self.prefix.pin(int(slot), keys, cache["k"][:, i],
-                            cache["v"][:, i])
+            self.prefix.pin(int(slot), keys, kw[:, i], vw[:, i])
             self._unpark(rid)          # resumed rows: new pins now hold
         self._inject(rows["slots"], cache, logits0, lengths, rows["eos"],
                      rows["max_new"], rows["temps"])
@@ -817,7 +935,7 @@ class ContinuousScheduler:
         n_segs = round_up(bucket, seg) // seg
         toks = np.zeros((1, n_segs * seg), np.int64)
         toks[0, :T] = np.asarray(req.tokens, np.int64)
-        cache = bb.init_cache(self.cfg, 1, n_segs * seg, device=self.device)
+        cache = self._new_cache(1, n_segs * seg)
         depth, keys = 0, []
         if self.prefix is not None:
             keys, n_hit = self.prefix.lookup(req.tokens)
@@ -864,8 +982,9 @@ class ContinuousScheduler:
         if self.tel.enabled:
             self.tel.counter("sched.admitted", path="staged").inc()
         if self.prefix is not None and st["keys"]:
-            self.prefix.pin(st["slot"], st["keys"], st["cache"]["k"][:, 0],
-                            st["cache"]["v"][:, 0])
+            self.prefix.pin(st["slot"], st["keys"],
+                            self._whole(st["cache"]["k"])[:, 0],
+                            self._whole(st["cache"]["v"])[:, 0])
         self._unpark(st["rid"])        # resumed rows: new pins now hold
         self._inject(np.asarray([st["slot"]]), st["cache"], st["logits0"],
                      np.asarray([st["T"]]), np.asarray([req.eos_id]),
@@ -903,8 +1022,7 @@ class ContinuousScheduler:
             self._results[rid] = Completion(toks, len(toks),
                                             timed_out=timed_out)
             out.append(rid)
-        if fin:
-            self._pool["cache_len"][self._put(np.asarray(fin, np.int64))] = 0
+        self._reset_depth(fin)
         return out
 
     # ------------------------------------------------------ deadlines --
@@ -1043,7 +1161,7 @@ class ContinuousScheduler:
             from repro_torch.serve.faults import EngineCrashError
             raise EngineCrashError(
                 f"scripted engine crash at round {self._round - 1}")
-        with self._span("round"):
+        with self._span("round"), sharded.host_replicated(self.mesh):
             expired = self._expire_deadlines()
             if self.sched.overlap:
                 out = expired + self._step_overlapped()

@@ -90,7 +90,9 @@ def test_seeded_sampling_repeats():
 def test_unported_requests_raise(engines):
     """Mixed prompt lengths and deadlines route through the continuous
     scheduler as in JAX and give JAX's completions; a context past
-    max_len and a mesh still raise, the mesh naming its ROADMAP item."""
+    max_len raises; under a one-rank (1, 1) gloo mesh equal-length
+    prompts route through the scheduler (not the single-device path) and
+    give the mesh-less engine's tokens."""
     jeng, teng, cfg = engines
     rng = np.random.RandomState(3)
     mixed = [(rng.randint(0, cfg.vocab, 5), None),
@@ -108,5 +110,13 @@ def test_unported_requests_raise(engines):
     with pytest.raises(ValueError, match="max_len"):
         teng.generate([Request(tokens=rng.randint(0, cfg.vocab, 60),
                                max_new_tokens=8)])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServeEngine(cfg, teng.params, device="cpu", mesh=object())
+    from repro_torch.launch.mesh import make_serving_mesh, process_group
+
+    equal = [Request(tokens=rng.randint(0, cfg.vocab, 6), max_new_tokens=4)
+             for _ in range(2)]
+    with process_group("gloo"):
+        meshed = ServeEngine(cfg, teng.params, device="cpu", max_len=teng.max_len,
+                             mesh=make_serving_mesh(), scheduler=teng._sched_cfg)
+        got = [c.tokens.tolist() for c in meshed.generate(equal)]
+        assert meshed._sched is not None and meshed._sched.mesh is not None
+    assert got == [c.tokens.tolist() for c in teng.generate(equal)]

@@ -2,8 +2,13 @@
 CPU, against the JAX package's (``repro.launch.serve`` / ``train``).
 
 - The 16 inapplicable-flag argvs of JAX's ``tests/test_frontend.py`` make
-  the port's ``main`` exit 2; ``--mesh``, ``--dry-run`` and ``--multi-pod``
-  raise NotImplementedError naming item 7b before a model is built.
+  the port's ``main`` exit 2.
+- ``--mesh``, ``--dry-run`` and ``--multi-pod`` run: ``--queue 4 --mesh 2``
+  on the CPU spawns 2 gloo ranks and serves every request on the (2, 1)
+  mesh; ``--dry-run`` prints ``launch.dryrun.run_one``'s record (the
+  256-rank mesh, meta tensors) and builds no model; ``--multi-pod``
+  without ``--dry-run`` changes nothing, as in the JAX launchers; on CUDA
+  a mesh of more ranks than visible GPUs raises.
 - Plain mode: ``serve_plain`` on reduced qwen2-0.5b gives the greedy
   tokens of JAX's launcher loop (``serve.py``'s prefill and jitted
   ``decode_step``) on the same prompt and weights.
@@ -25,6 +30,7 @@ The weights are the port's seed-0 init moved to JAX by
 the comparison does not need); the gateway's are JAX's, bridged.
 """
 import argparse
+import ast
 import json
 
 import numpy as np
@@ -93,13 +99,24 @@ def test_launcher_rejects_inapplicable_flags(argv, monkeypatch):
     assert ei.value.code == 2
 
 
-@pytest.fixture
-def no_model(monkeypatch):
-    def refuse(*a, **k):
-        raise AssertionError("a model was built")
+def _meta_only(monkeypatch):
+    """The dry-run draws no weight: only meta params may be built."""
+    real = bb.init_params
 
-    monkeypatch.setattr(bb, "init_params", refuse)
-    monkeypatch.setattr(serve, "init_agile_params", refuse)
+    def init_params(cfg, seed=0, **kw):
+        if kw.get("device") != "meta":
+            pytest.fail("a model was built")
+        return real(cfg, seed, **kw)
+
+    monkeypatch.setattr(bb, "init_params", init_params)
+
+
+def _dry_record(text: str) -> dict:
+    rec = ast.literal_eval(text.strip().splitlines()[-1])
+    assert {"arch", "shape", "mesh", "kind", "lower_s", "strategy", "compile_s",
+            "memory", "collectives", "roofline"} <= set(rec)
+    assert rec["memory"]["argument_bytes"] > 0 and rec["memory"]["peak_bytes"] is None
+    return rec
 
 
 @pytest.mark.parametrize("argv", [
@@ -108,17 +125,43 @@ def no_model(monkeypatch):
     ["--arch", "qwen2-0.5b", "--multi-pod"],
     ["--arch", "qwen2-0.5b", "--shape", "prefill_32k", "--dry-run", "--device", "cpu"],
 ], ids=" ".join)
-def test_mesh_flags_wait_for_7b_before_any_model(argv, no_model):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        serve.main(argv)
+def test_mesh_flags_wait_for_7b_before_any_model(argv, capfd, monkeypatch):
+    """Each argv runs on the CPU: the meshed queue on 2 spawned gloo ranks
+    (rank 0 prints), the dry-runs without a model, and ``--multi-pod``
+    alone as the plain reduced launch."""
+    if "--dry-run" in argv:
+        _meta_only(monkeypatch)
+    extra = [] if "--dry-run" in argv else ["--device", "cpu"]
+    extra += ["--local"] if "--multi-pod" in argv else []
+    assert serve.main(argv + extra) == 0
+    out = capfd.readouterr().out
+    if "--mesh" in argv:
+        assert "served 4 mixed-length requests on a (2,1) mesh (32 tokens)" in out
+    elif "--dry-run" in argv:
+        rec = _dry_record(out)
+        shape = argv[argv.index("--shape") + 1] if "--shape" in argv else "decode_32k"
+        assert (rec["arch"], rec["shape"], rec["mesh"]) == ("qwen2-0.5b", shape, "16x16")
+        assert rec["roofline"]["chips"] == 256 and rec["collectives"]["total_bytes"] > 0
+    else:
+        assert "decoded 8 tokens x 2" in out
 
 
 @pytest.mark.parametrize("argv", [["--arch", "qwen2-0.5b", "--dry-run"],
                                   ["--arch", "qwen2-0.5b", "--local", "--multi-pod"]],
                          ids=" ".join)
-def test_train_dry_run_waits_for_7b(argv, no_model):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        train.main(argv)
+def test_train_dry_run_waits_for_7b(argv, capfd, monkeypatch):
+    """``launch.train --dry-run`` prints train_4k's record on the 256-rank
+    mesh (FSDP + TP) with no model built; ``--multi-pod`` without it trains
+    the reduced config."""
+    if "--dry-run" in argv:
+        _meta_only(monkeypatch)
+        assert train.main(argv) == 0
+        rec = _dry_record(capfd.readouterr().out)
+        assert (rec["shape"], rec["kind"], rec["mesh"]) == ("train_4k", "train", "16x16")
+        assert rec["collectives"]["counts"]["reduce-scatter"] > 0
+    else:
+        assert train.main(argv + ["--steps", "1", "--device", "cpu"]) == 0
+        assert "step 0 loss" in capfd.readouterr().out
 
 
 @pytest.fixture(scope="module")
@@ -270,3 +313,14 @@ def test_train_main_runs_each_family_locally(capsys):
         assert train.main(["--arch", arch, "--local", "--steps", "1", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("step 0 loss") == 2 and "nan" not in out
+
+
+def test_mesh_on_cuda_needs_its_gpus(monkeypatch):
+    """On CUDA ``--mesh D,M`` takes D x M GPUs, one NCCL rank each: with
+    fewer visible it raises, naming the count, before any model is built;
+    it never shrinks the mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(bb, "init_params", lambda *a, **k: pytest.fail("a model was built"))
+    with pytest.raises(RuntimeError, match="needs 4 CUDA devices, 1 are visible"):
+        serve.main(["--arch", "qwen2-0.5b", "--local", "--queue", "4", "--mesh", "2,2"])

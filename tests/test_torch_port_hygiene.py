@@ -294,3 +294,79 @@ def test_rmsnorm_backward_scratch_constants_match_the_kernel(cu_name, py_name):
     from repro_torch.kernels.rmsnorm import kernel
 
     assert _cu_constant("rmsnorm_backward.cu", cu_name) == getattr(kernel, py_name)
+
+
+def test_scan_covers_the_mesh_modules():
+    """... and the mesh: the meshes, the placement rules, the dry-run and
+    the local-block helpers."""
+    src = ROOT / "src" / "repro_torch"
+    for path in (src / "launch" / "mesh.py", src / "launch" / "partition.py",
+                 src / "launch" / "dryrun.py", src / "sharded.py"):
+        assert path in PORT_FILES
+
+
+# every kernel wrapper of kernels/*/kernel.py, called with a DTensor in its
+# first operand and plain tensors elsewhere
+DTENSOR_CALLS = {
+    "rmsnorm_cuda": "rmsnorm_cuda(dt(4, 96), torch.ones(96))",
+    "rmsnorm_backward_cuda": "rmsnorm_backward_cuda(dt(4, 96), torch.ones(96), torch.ones(4, 96))",
+    "flash_attention_cuda": "flash_attention_cuda(dt(2, 5, 4, 64), kv(), kv())",
+    "flash_attention_backward_cuda":
+        "flash_attention_backward_cuda(dt(2, 5, 4, 64), kv(), kv(), q(), q(), torch.zeros(2, 4, 5))",
+    "decode_attention_cuda": "decode_attention_cuda(dt(2, 1, 4, 64), kv(), kv(), 3)",
+    "quantize_cuda": "quantize_cuda(dt(3, 24), torch.linspace(-2, 2, 8))",
+    "offload_fused_cuda":
+        "offload_fused_cuda(dt(3, 24), torch.linspace(-2, 2, 8), perm=tuple(range(24)), k=5)",
+    "channel_permute_cuda": "channel_permute_cuda(dt(3, 24), tuple(range(24)))",
+}
+
+
+@pytest.fixture(scope="module")
+def dtensor_refusals():
+    code = r"""
+import json, sys
+import torch
+from torch.distributed.tensor import DTensor, Replicate
+from repro_torch.launch.mesh import make_serving_mesh, process_group
+from repro_torch.kernels.attention.kernel import flash_attention_backward_cuda, flash_attention_cuda
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.offload_fused.kernel import offload_fused_cuda
+from repro_torch.kernels.quantize.kernel import quantize_cuda
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_backward_cuda, rmsnorm_cuda
+from repro_torch.kernels.topk_split.kernel import channel_permute_cuda
+
+def never(self):
+    raise AssertionError("data_ptr() of a DTensor")
+
+DTensor.data_ptr = never
+out = {}
+with process_group("fake", world_size=1):
+    mesh = make_serving_mesh()
+    dt = lambda *s: DTensor.from_local(torch.zeros(s), mesh, [Replicate(), Replicate()])
+    q = lambda: torch.zeros(2, 5, 4, 64)
+    kv = lambda: torch.zeros(2, 7, 2, 64)
+    for name, call in json.loads(sys.argv[1]).items():
+        try:
+            eval(call)
+            out[name] = "no error"
+        except ValueError as e:
+            out[name] = str(e)
+        except AssertionError as e:
+            out[name] = "AssertionError: " + str(e)
+print(json.dumps(out))
+"""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(DTENSOR_CALLS)], env=env,
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("call", list(DTENSOR_CALLS))
+def test_dtensor_never_reaches_a_kernel(dtensor_refusals, call):
+    """A DTensor handed to a kernel wrapper raises ValueError naming it,
+    before ``data_ptr()`` (which is not its data) is ever read: the
+    dispatchers hand the kernels each rank's local block."""
+    assert "plain tensor, got a DTensor" in dtensor_refusals[call], dtensor_refusals[call]

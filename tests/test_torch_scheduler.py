@@ -17,9 +17,9 @@ one-request-at-a-time path.  Two JAX tests have no counterpart here:
 ``test_long_prompts_bucket_at_page_granularity`` count jit compilations,
 which eager PyTorch has none of (the page-granular buckets are held here
 through the widths that reach ``prefill``), and
-``test_mesh_engine_routes_equal_lengths_through_scheduler`` needs
-``mesh=``, which waits for ROADMAP Queue 1 item 7 (its refusal is held
-here).  The prefix-cache branch is held in tests/test_torch_prefix_cache.py."""
+``test_mesh_engine_routes_equal_lengths_through_scheduler`` fails on the
+JAX side (tests/test_torch_sharded_scheduler.py carries its claim).  The
+prefix-cache branch is held in tests/test_torch_prefix_cache.py."""
 import dataclasses
 
 import jax
@@ -574,13 +574,18 @@ def test_prefix_and_frontend_fields_raise(system, field, value):
 
 
 def test_unported_options_raise(system):
-    """``mesh=``, the one option still to port, raises; ``prefix_cache``,
-    which once raised here, now builds a cache; a request past max_len or
-    with extras is refused."""
+    """``mesh=`` and ``prefix_cache``, which once raised here, now build a
+    sharded pool (on a one-rank gloo mesh: DTensor leaves) and a cache; a
+    request past max_len or with extras is refused."""
+    from repro_torch import sharded, tree_leaves
+    from repro_torch.launch.mesh import make_serving_mesh, process_group
+
     cfg, tp = system["port"]
     assert _make(system, "port", prefix_cache=True).prefix is not None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ContinuousScheduler(cfg, tp, mesh=object(), device="cpu")
+    with process_group("gloo"):
+        meshed = ContinuousScheduler(cfg, tp, mesh=make_serving_mesh(), device="cpu")
+        assert all(sharded.is_dtensor(t) for t in tree_leaves(meshed._pool))
+        assert all(sharded.is_dtensor(t) for t in tree_leaves(meshed.params))
     sched = _make(system, "port", **BASE)
     with pytest.raises(ValueError, match="max_len"):
         sched.submit(Request(tokens=np.zeros(60, np.int64), max_new_tokens=8))
