@@ -32,7 +32,9 @@ Phases, each of which raises on failure:
   dense LLM serving (slice 2):
   6. RMSNorm, flash attention and paged decode attention against their
      plain versions on the card (atol = rtol = 2e-5): ragged row counts
-     and widths; causal, window, q_offset, ragged kv_valid_len (a 0
+     and widths (RMSNorm at every width its kernel branches on, d off 8
+     and off 4, a view off 16 bytes; also at most 2x F.rms_norm's error
+     against float64, two calls bitwise); causal, window, q_offset, ragged kv_valid_len (a 0
      among them), T and S off the tile, T in {1, 15}, D 64 and 128, the
      prefill shapes of qwen2-1.5b and llama3.2-1b; per-row attend_len (a
      0 among them, which must give exactly 0), S off the page, G in {1,
@@ -49,7 +51,8 @@ Phases, each of which raises on failure:
      tokens): prefill logits within 1e-3, greedy tokens equal unless the
      CPU's top-2 margin at the first divergence is within the tolerance;
   9. each LLM kernel's time, its plain version's, the library call's, its
-     bound and its torch.profiler duration (decode attention also with a
+     bound and its torch.profiler duration (RMSNorm also at a decode
+     step's 8 rows, each RMSNorm row held to phase 6's bars; decode attention also with a
      (B,) attend_len, its grid sized from S, and its two kernels' device
      times); prefill and decode tokens/s, the decode step's kernels and
      their summed device time from torch.profiler, and the time by part;
@@ -61,7 +64,8 @@ Phases, each of which raises on failure:
      just before and read just after (one offload_fused per fleet
      build); every request resolved on the ladder; the static logits
      against one batched pass, per-image ``agile_forward`` and pool width
-     2 on the card, and the same fleet on the port's CPU (indices and
+     2 on the card, and the fleet's first 8 clients on the card and on the
+     port's CPU (indices and
      simulated rows equal, logits within 1e-3); the fleet build (device
      pass, LZW sweep), run() and clients/s, ``gateway.codec_ms``, one
      W = 8 Remote-NN batch and its copies, the card's busy share over
@@ -101,13 +105,19 @@ Phases, each of which raises on failure:
      shape, host ms against its kernels' ms; (c) overlap off giving exactly
      the same tokens, every 8th request against its decode alone, a
      deadline eviction under a fake clock (a prefix of its run), a
-     suspend/resume, 3 requests on the card against the port's CPU, and
+     suspend/resume, 3 requests on the card against the port's CPU (the
+     reduced model), and
      a sampled queue repeating itself under one seed.  Token checks pass
      equal or at a near-tie (phase 8's rule).
   the shared-prefix page cache, the streaming frontend and recovery (slice 8):
  13. (a) the quantize kernel at L = 256 (the cold tier's codebook) bitwise
-     against its plain version on a real full-width K page, on the
-     256-grid's midpoints and at a ragged length; flash at a prefix wave's
+     against its plain version (the scan) on a real full-width K page, on
+     the 256-grid's midpoints, at a ragged length, and on adversarial
+     inputs (centers, midpoints and the floats beside them, +-inf, NaN,
+     +-3e38, subnormals) over codebooks with equal-center runs, a
+     same-sign grid that steps down (the scan's branch), a 1e-30-wide
+     grid, one over +-3e38, an inf and a NaN center and L = 16 / 17 / 32;
+     flash at a prefix wave's
      shape (B = 4, T = 32, q_offset 32 / 64 / 96, S = 128, ragged
      kv_valid_len) within 2e-5; (b) qwen2-0.5b at full width through
      ``ServeEngine(max_len=1024, scheduler=PREFIX_CFG).generate`` on 48
@@ -151,7 +161,8 @@ Phases, each of which raises on failure:
      gradient leaf finite and nonzero, step time, tokens/s, peak memory,
      the busy share and each kernel's device ms over a profiled step;
      (c) ``forward_loss`` and every gradient leaf on the card against the
-     port's CPU run on a 2 x 128 batch (1e-4 relative, 1e-3 of scale);
+     port's CPU run on a 2 x 128 batch, the reduced model (1e-4 relative,
+     1e-3 of scale);
      (d) AgileNN on tokens over that backbone (C = 32, k = 6, ig_steps 16),
      B = 16, T = 128 of ``SyntheticTokens``: 3 AdamW steps, launches
      exact, one step's loss and gradients against the CPU, the payload
@@ -201,8 +212,8 @@ Phases, each of which raises on failure:
      and, a 4,096-token prompt, (1, 4096, 16, 128), causal), decode
      attention (the 288-slot cache at attend 257 and 287) and RMSNorm
      ((2048, 2048) and (8, 2048)), each within the JAX package's bf16 bars
-     of its plain version (3e-2, 3e-2, 2e-2); decode attention bitwise the
-     fp32 kernel on the widened inputs, rounded to bf16; flash (on the
+     of its plain version (3e-2, 3e-2, 2e-2); decode attention and RMSNorm
+     bitwise the fp32 kernel on the widened inputs, rounded to bf16; flash (on the
      bf16 tensor cores by wgmma since slice 13) and RMSNorm (16-byte rows
      held in registers) at most 2x the library call's error against
      float64 and two calls bitwise equal; each timed beside the fp32
@@ -265,9 +276,10 @@ Phases, each of which raises on failure:
      the chunked mLSTM against the sequential one on a seeded cell's own
      gates within 2e-4, each cell's full sequence against its one-token
      decode steps (5e-4 mLSTM, 5e-5 sLSTM), the reference's bars; RMSNorm
-     and its backward at the training rows (8192, 1024) against the plain
-     version and float64, two backward calls bitwise, each timed beside its
-     plain version, ``F.rms_norm`` and its bound; (b) the full-size model
+     at (8192 / 2048 / 1024, 1024) to phase 6's bars and its backward at the
+     training rows (1024, 1024) against float64, two calls bitwise, each
+     timed beside its plain version, ``F.rms_norm`` and its bound, the
+     forward also by torch.profiler; (b) the full-size model
      (24 layers, 0.217 B params) through ``ServeEngine(max_len=544)
      .generate``: 8 prompts of 512 tokens, 32 greedy tokens, launches from
      0 and exact (25 RMSNorm a forward, no attention kernel), a second
@@ -551,6 +563,10 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_MAX_LEN = 8, 512, 32, 1024
 # kernel vs plain on the card: the JAX package's own bars for these
 # oracles (atol = rtol = 2e-5, tests/test_decode_attention.py)
 LLM_KERNEL_TOL = 2e-5
+# the fp32 RMSNorm forward against float64 (its rows-in-registers design,
+# slice 20): at most this many times F.rms_norm's fp32 error on the same
+# inputs
+RMS_LIB_FACTOR = 2.0
 # flash on inputs x8, against float64: 3xTF32 products keep about 2^-21 of
 # each product, fp32 2^-24 (tests/test_torch_llm_kernels.py)
 SPLIT_COST = 8
@@ -567,6 +583,10 @@ CPU_BATCH, CPU_PROMPT, CPU_NEW, CPU_MAX_LEN = 2, 128, 8, 256
 # clients, 150 ms deadlines, the chaos schedule)
 GATEWAY_CLIENTS, GATEWAY_REQS, GATEWAY_WIDTH = 32, 6, 8
 FAULT_CLIENTS, FAULT_DEADLINE_MS = 16, 150.0
+# the static fleet's first clients run again on the card and on the port's
+# CPU (the whole fleet on the CPU took 33.1 s of phase 10's 76.4 s on the
+# host of an H100 80GB HBM3 machine; 32 clients until slice 20)
+GATEWAY_CPU_CLIENTS = 8
 GATEWAY_LADDER = {"served", "degraded", "shed", "rejected", "fallback"}
 GATEWAY_TRACE_FIELDS = ("client", "req", "channel", "bits", "keep", "payload_bytes",
                         "attempts", "t_born", "t_sent", "t_arrive", "t_serve",
@@ -613,8 +633,9 @@ SCHED_PROF_FROM, SCHED_PROF_ROUNDS = 30, 8
 # the decode step timed alone at the pool's shape: 16 rows at these depths
 SCHED_STEP_DEPTHS = tuple(range(16, 577, 37))
 # the same scheduler on the card and on the CPU: 3 requests of 16-200
-# tokens, 8 new tokens each, 64-token segments (6 requests of 12 tokens,
-# 25.1 s, until slice 19 cut it to make room for phase 21)
+# tokens, 8 new tokens each, 64-token segments, on the reduced model (6
+# requests of 12 tokens, 25.1 s, until slice 19 cut it to make room for
+# phase 21; full width, 12.8 s of CPU, until slice 20)
 SCHED_CPU_LENS, SCHED_CPU_NEW, SCHED_CPU_SEGMENT = (16, 100, 200), 8, 64
 
 # the shared-prefix page cache: qwen2-0.5b at full width through
@@ -794,6 +815,9 @@ XLSTM_CPU_B, XLSTM_CPU_T, XLSTM_CPU_NEW = 2, 64, 8
 # 9.0-14.1 s, phase 18 took 159 s and the script 951 s of its 1,200); 3
 # steps, the third profiled
 XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_STEPS = 512, 2, 3
+# (a) the fp32 RMSNorm timed at xLSTM's rows of d 1,024: train_4k's 2 x
+# 4,096, a 2 x 1,024 step and (d)'s 2 x 512
+XLSTM_RMS_ROWS = (8192, 2048, 1024)
 # slice 17: jamba-1.5-large-398b, the Mamba hybrid (superblocks of 8 layers:
 # attention at index 0 and 7 Mamba blocks; MoE FFNs at the odd layers, 16
 # experts top-2, dense SwiGLU at the even), in a fresh child process
@@ -1016,10 +1040,13 @@ def sass_counts(libs) -> dict:
     library's SASS."""
     cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_build.find_nvcc())),
                              "cuobjdump")
+    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(libs[name])],
+                                    stdout=subprocess.PIPE, text=True)
+             for name in SASS_EXPECT}          # all at once
     counts = {}
     for name, ops in SASS_EXPECT.items():
-        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])], check=True,
-                              capture_output=True, text=True, timeout=120).stdout
+        sass, _ = procs[name].communicate(timeout=120)
+        check(procs[name].returncode == 0, f"cuobjdump failed on {libs[name]}")
         counts[name] = {op: sass.count(op) for op in ops + SASS_ABSENT.get(name, ())}
         check(all(counts[name][op] for op in ops), f"{name}: SASS lacks {counts[name]}")
         check(not any(counts[name][op] for op in SASS_ABSENT.get(name, ())),
@@ -1280,6 +1307,49 @@ def close_err(out, ref, tol: float, what: str) -> float:
     return err
 
 
+def rms_fp32_bars(x, scale, what: str) -> dict:
+    """The fp32 RMSNorm kernel's bars: within LLM_KERNEL_TOL of its plain
+    version, a max |error| against float64 at most RMS_LIB_FACTOR x
+    ``F.rms_norm``'s in fp32 on the same inputs, two calls bitwise equal.
+    Returns the errors."""
+    got = rmsnorm_cuda(x, scale)
+    check(torch.equal(got, rmsnorm_cuda(x, scale)), f"{what}: two calls differ")
+    err = close_err(got, rmsnorm_ref(x, scale), LLM_KERNEL_TOL, what)
+    exact = rmsnorm64(x, scale)
+    e64 = (got.double() - exact).abs().max().item()
+    lib = torch.nn.functional.rms_norm(x, x.shape[-1:], scale, 1e-6)
+    lib64 = (lib.double() - exact).abs().max().item()
+    check(e64 <= RMS_LIB_FACTOR * lib64,
+          f"{what}: {e64} from float64, F.rms_norm in fp32 {lib64}")
+    return {"max_abs_err": err, "err_float64": e64, "library_err_float64": lib64}
+
+
+def rms_fp32_row(N: int, d: int, gen, tag: str, card) -> dict:
+    """The fp32 RMSNorm kernel at (N, d) on normal draws: its bars
+    (``rms_fp32_bars``), its time by CUDA events beside its plain
+    version's, ``F.rms_norm``'s and its byte bound, and its duration by
+    torch.profiler with the share of the bound it reaches; printed."""
+    x = torch.randn((N, d), generator=gen, device="cuda") * 3
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    bars = rms_fp32_bars(x, scale, f"{tag}: rmsnorm at ({N}, {d})")
+    nbytes, ops = (2 * N * d + d) * 4, 4 * N * d
+    bound_ms, bound_by = bound(nbytes, ops)
+    kern = functools.partial(rmsnorm_cuda, x, scale)
+    row = {"shape": [N, d], **bars, "ms": time_ms(kern),
+           "plain_ms": time_ms(lambda: rmsnorm_ref(x, scale)),
+           "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "profiler": profiled_share(kern, "rmsnorm_kernel<float", bound_ms)}
+    print(f"{tag}: rmsnorm at ({N}, {d}): {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, F.rms_norm {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); by torch.profiler {row['profiler']['us']:.2f} us, "
+          f"{row['profiler']['bound_share']:.1%} of the bound; |err| vs plain "
+          f"{bars['max_abs_err']:.3e}, vs float64 {bars['err_float64']:.3e} "
+          f"(F.rms_norm {bars['library_err_float64']:.3e}, bar x{RMS_LIB_FACTOR}), "
+          f"two calls bitwise  [{card}]")
+    return row
+
+
 def live_mask(B: int, T: int, S: int, *, causal: bool, window: int, q_offset: int,
               kv_valid_len=None, device="cuda"):
     """The flash kernels' live (query, key) pairs, (B, T, S)."""
@@ -1326,11 +1396,20 @@ def phase_llm_kernels():
         errs[name] = max(errs[name], err)
         cases[name] += 1
 
-    for N in (1, 7, 4096 + 3):
-        for d in (128, 896, 2048):
-            x, sc = randn(N, d) * 3, 1 + 0.1 * randn(d)
-            note("rmsnorm", close_err(rmsnorm_cuda(x, sc), rmsnorm_ref(x, sc),
-                                      LLM_KERNEL_TOL, f"rmsnorm N={N} d={d}"))
+    # RMSNorm at each row width its kernel branches on (a warp a row to
+    # 1,024, then 64 / 128 / 256 threads), a d off 8 (fp32: 16-byte
+    # accesses, a half chunk at the end), a d off 4 and a view off 16 bytes
+    # (element by element), each to rms_fp32_bars
+    rms_shapes = [(N, d) for N in (1, 7, 4096 + 3)
+                  for d in (128, 896, 1024, 1536, 2048, 4096, 8192)]
+    for N, d in rms_shapes + [(37, 900), (9, 899), (9, "view")]:
+        if d == "view":
+            d = 896
+            x = (randn(N * d + 1) * 3)[1:].view(N, d)
+        else:
+            x = randn(N, d) * 3
+        note("rmsnorm", rms_fp32_bars(x, 1 + 0.1 * randn(d),
+                                      f"rmsnorm N={N} d={d}")["max_abs_err"])
     # (B, T, S, Hq, Hkv, D, causal, window, q_offset, kv_valid_len)
     flash_cases = [
         (LLM_BATCH, LLM_PROMPT, LLM_PROMPT, 14, 2, 64, True, 0, 0, None),
@@ -1575,7 +1654,7 @@ def phase_llm_timing(cfg, params, launches, errs, card):
     ]
     rows, kernel_us = [], {}
     # the kernels' names in torch.profiler; decode attention is two kernels
-    prof_names = {"rmsnorm": "rmsnorm_kernel",
+    prof_names = {"rmsnorm": "rmsnorm_kernel<float",
                   "flash_attention": "flash_attention_kernel",
                   "decode_attention": "decode_"}
     for name, src, replaces, kern, plain, library, nbytes, ops in specs:
@@ -1593,6 +1672,10 @@ def phase_llm_timing(cfg, params, launches, errs, card):
               f"serving path; by torch.profiler {kernel_us[name]['us']:.2f} us, "
               f"{kernel_us[name]['bound_share']:.1%} of its bound (events a call "
               f"{min(kernel_us[name]['events_per_call'].values()):.2f})  [{card}]")
+    # the fp32 RMSNorm's bars on the timed prefill rows, and a decode
+    # step's B rows timed beside F.rms_norm (its rows in registers, slice 20)
+    rms_rows = {"prefill": rms_fp32_bars(x, scale, f"phase 9: rmsnorm at ({B * T}, {d})"),
+                "decode": rms_fp32_row(B, d, gen, "phase 9", card)}
     # decode attention with a (B,) attend_len: the grid is sized from S and
     # the splits past a row's depth exit at once
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1722,6 +1805,7 @@ def phase_llm_timing(cfg, params, launches, errs, card):
             "decode_tokens_per_s": B / step_s,
             "flash_tensor_core_bound_ms": flash_tc_ms, "flash_d128": flash_d128,
             "decode_grid": decode_grid, "kernel_profiler_us": kernel_us,
+            "rmsnorm_rows": rms_rows,
             "decode_device_idle_share": 1 - step_dev / (step_s * 1e3),
             "decode_step_kernel_ms": step_busy,
             "decode_step_kernels": step_launches,
@@ -1948,22 +2032,27 @@ def phase_gateway(cfg, params, card):
         check(all(int(np.argmax(got[k])) == int(np.argmax(ref[k])) for k in rows_of),
               f"gateway predictions differ from {name}")
 
-    # the same static fleet on the port's CPU
+    # the static fleet's first GATEWAY_CPU_CLIENTS clients on the card and on
+    # the port's CPU
+    f_card = fleet(n_clients=GATEWAY_CPU_CLIENTS)
+    r_card = OffloadGateway(cfg, params, f_card, GatewayConfig(batch_width=W)).run()
     cpu = tree_to(params, "cpu")
     t0 = time.perf_counter()
-    f_cpu = fleet(p=cpu)
+    f_cpu = fleet(n_clients=GATEWAY_CPU_CLIENTS, p=cpu)
     r_cpu = OffloadGateway(cfg, cpu, f_cpu, GatewayConfig(batch_width=W)).run()
     cpu_s = time.perf_counter() - t0
-    flips = int((f_cpu.idx != f0.idx).sum())
-    same_rows = trace_key(r_cpu) == trace_key(static)
-    got_cpu = logits_by_request(r_cpu)
-    cpu_diff = max_delta(got, got_cpu)
-    print(f"phase 10: the static fleet on the port's CPU ({cpu_s:.1f} s): index flips "
-          f"{flips} of {f0.idx.size}, simulated rows equal: {same_rows}, logits "
-          f"|card - CPU| max {cpu_diff:.3e} (bar {LOGIT_TOL} abs + rel)")
+    flips = int((f_cpu.idx != f_card.idx).sum())
+    same_rows = trace_key(r_cpu) == trace_key(r_card)
+    got_card, got_cpu = logits_by_request(r_card), logits_by_request(r_cpu)
+    cpu_diff = max_delta(got_card, got_cpu)
+    print(f"phase 10: the static fleet's first {GATEWAY_CPU_CLIENTS} clients on the card "
+          f"and on the port's CPU ({cpu_s:.1f} s): index flips {flips} of "
+          f"{f_card.idx.size}, simulated rows equal: {same_rows}, logits |card - CPU| "
+          f"max {cpu_diff:.3e} (bar {LOGIT_TOL} abs + rel)")
     check(flips == 0 and same_rows, "the card's fleet differs from the CPU's")
-    check(all(np.allclose(got[k], got_cpu[k], atol=LOGIT_TOL, rtol=LOGIT_TOL)
-              for k in rows_of), f"gateway logits differ from the CPU run by {cpu_diff}")
+    check(got_card.keys() == got_cpu.keys()
+          and all(np.allclose(got_card[k], got_cpu[k], atol=LOGIT_TOL, rtol=LOGIT_TOL)
+                  for k in got_card), f"gateway logits differ from the CPU run by {cpu_diff}")
     return launches, {**numbers, "builds": builds, "logit_deltas": deltas,
                       "bitwise": bitwise, "cpu_index_flips": flips,
                       "cpu_logit_max_abs_diff": cpu_diff, "cpu_run_s": cpu_s}
@@ -2114,30 +2203,45 @@ def kernel_split(prof) -> tuple[dict, int]:
     """Device us of one profiled joint step by the profiler ranges the
     port opens: the IG passes (``xai.integrated_gradients``), the outer
     backward (``value_and_grad.backward`` inside ``joint_step.agile_loss``)
-    and the rest.  A kernel counts where the op that launched it started
-    on the host (the autograd thread's ops run while the main thread waits
-    inside its range).  Returns (split, kernels)."""
-    events = prof.events()
-    ranges = {}
+    and the rest.  A kernel counts where the host call that launched it
+    ran (the autograd thread's ops run while the main thread waits inside
+    its range).  Read from the raw (kineto) events, as ``raw_profile``
+    reads them, without the Python event tree (most of phase 11c's time
+    on the host of an H100 80GB HBM3 machine until slice 20).  Returns
+    (split, kernels)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ns = ((lambda e: e.start_ns(), lambda e: e.end_ns(), lambda e: e.duration_ns())
+          if events and hasattr(events[0], "duration_ns") else
+          (lambda e: e.start_us() * 1000, lambda e: (e.start_us() + e.duration_us()) * 1000,
+           lambda e: e.duration_us() * 1000))
+    start, end, dur = ns
+    ranges = {"xai.integrated_gradients": [], "value_and_grad.backward": [],
+              "joint_step.agile_loss": []}
+    launch, device = {}, []
     for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CPU and e.name in
-                ("xai.integrated_gradients", "value_and_grad.backward",
-                 "joint_step.agile_loss")):
-            ranges.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+        name = e.name()
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                device.append((dur(e), e.correlation_id()))
+        elif name.startswith("cu"):
+            launch[e.correlation_id()] = start(e)
+        elif name in ranges:
+            ranges[name].append((start(e), end(e)))
 
     def inside(t, name):
-        return any(a <= t <= b for a, b in ranges.get(name, ()))
+        return any(a <= t <= b for a, b in ranges[name])
 
     split, n = {"ig_passes": 0.0, "outer_backward": 0.0, "rest": 0.0}, 0
-    for e in events:
-        if not e.kernels:
+    for d, corr in device:
+        if corr not in launch:
             continue
-        t = e.time_range.start
+        t = launch[corr]
         key = ("ig_passes" if inside(t, "xai.integrated_gradients") else
                "outer_backward" if (inside(t, "value_and_grad.backward")
                                     and inside(t, "joint_step.agile_loss")) else "rest")
-        split[key] += sum(k.duration for k in e.kernels)
-        n += len(e.kernels)
+        split[key] += d / 1e3
+        n += 1
     return split, n
 
 
@@ -2635,26 +2739,29 @@ def phase_sched(cfg, params, card):
           f"{len(cut)} of {reqs[long_i].max_new_tokens} tokens (a prefix of its "
           f"run), its neighbour untouched; suspended after "
           f"{len(sus.generated)} tokens and resumed to its run's tokens")
-    # the card against the port's CPU
-    cpu = tree_to(params, "cpu")
+    # the card against the port's CPU, on the reduced model's seed-0 weights
+    rcfg = cfg.reduced()
+    rparams = bb.init_params(rcfg, seed=0)
+    cpu = tree_to(rparams, "cpu")
     cpu_cfg = dataclasses.replace(SCHED_CFG, prefill_segment=SCHED_CPU_SEGMENT)
     rng = np.random.RandomState(SCHED_SEED + 1)
-    small = [Request(tokens=rng.randint(0, cfg.vocab, n), max_new_tokens=SCHED_CPU_NEW)
+    small = [Request(tokens=rng.randint(0, rcfg.vocab, n), max_new_tokens=SCHED_CPU_NEW)
              for n in SCHED_CPU_LENS]
-    on_card = ServeEngine(cfg, params, max_len=LLM_MAX_LEN,
+    on_card = ServeEngine(rcfg, rparams, max_len=LLM_MAX_LEN,
                           scheduler=cpu_cfg).generate(small)
     t0 = time.perf_counter()
-    on_cpu = ServeEngine(cfg, cpu, max_len=LLM_MAX_LEN, scheduler=cpu_cfg,
+    on_cpu = ServeEngine(rcfg, cpu, max_len=LLM_MAX_LEN, scheduler=cpu_cfg,
                          device="cpu").generate(small)
     cpu_s = time.perf_counter() - t0
     same = 0
     for i, (c, h) in enumerate(zip(on_card, on_cpu)):
-        same += near_tie(cfg, cpu, small[i].tokens, h.tokens, c.tokens,
+        same += near_tie(rcfg, cpu, small[i].tokens, h.tokens, c.tokens,
                          f"phase 12c: card vs CPU, request {i}") is None
-    del cpu
+    del cpu, rparams
     print(f"phase 12c: {len(small)} requests ({SCHED_CPU_LENS} tokens, "
-          f"{SCHED_CPU_NEW} new, {SCHED_CPU_SEGMENT}-token segments): the card's "
-          f"greedy tokens equal the port's CPU's ({cpu_s:.1f} s) on {same}")
+          f"{SCHED_CPU_NEW} new, {SCHED_CPU_SEGMENT}-token segments) on the reduced "
+          f"model: the card's greedy tokens equal the port's CPU's ({cpu_s:.1f} s) "
+          f"on {same}")
     # the queue's first SCHED_SAMPLED requests, temperature 0.8 on every
     # other one, twice with one seed
     temps = [0.8 if i % 2 else 0.0 for i in range(SCHED_REQS)]
@@ -2772,23 +2879,93 @@ def expected_launches(cfg, calls) -> dict:
         "decode_attention": L * calls["decode_step"]}
 
 
+def quantize_adversarial(c: np.ndarray) -> np.ndarray:
+    """Inputs where a search of the codebook ``c`` could part from the
+    scan: every center and the floats beside it, every midpoint (rounded
+    in float32 and from float64) and the floats beside it, +-inf, NaN,
+    +-3e38, subnormals, +-0 and points past either end."""
+    f32, inf = np.float32, np.float32(np.inf)
+    c = c.astype(f32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        mids = np.concatenate([(c[:-1] + c[1:]) / f32(2),
+                               ((c[:-1].astype(np.float64) + c[1:]) / 2).astype(f32)])
+        fin = c[np.isfinite(c)]
+        ends = (np.array([fin.min() - 1, fin.max() + 1, fin.min() * 2, fin.max() * 2], f32)
+                if fin.size else np.zeros(0, f32))
+        pool = [c, np.nextafter(c, inf), np.nextafter(c, -inf), mids,
+                np.nextafter(mids, inf), np.nextafter(mids, -inf), ends,
+                np.array([inf, -inf, np.nan, 3e38, -3e38, 1e-45, -1e-45, 1e-40,
+                          -1e-40, 0.0, -0.0], f32)]
+    return np.concatenate(pool).astype(f32)
+
+
+def unsorted_linspace(L: int = 256, seed: int = 30) -> np.ndarray:
+    """A ``linspace_f32`` grid from lo < hi of one sign that steps down
+    somewhere, as narrow ranges do (a relative width of 1e-4: one range in
+    five): the search must leave it to the scan."""
+    rng = np.random.RandomState(seed)
+    while True:
+        a = float(rng.uniform(0.01, 100.0)) * (1 if rng.rand() < 0.5 else -1)
+        lo, hi = sorted([a, a * (1 + 10 ** rng.uniform(-6, -1))])
+        c = linspace_f32(L, lo, hi)
+        if (np.diff(c) < 0).any():
+            return c
+
+
+def quantize_codebooks(x: torch.Tensor) -> list:
+    """Phase 13a's quantize cases beyond the page's own codebook, as
+    (inputs, centers, name): on each codebook its adversarial inputs
+    (``quantize_adversarial``) and the page's values; codebooks with runs
+    of equal centers, a same-sign ``linspace_f32`` grid that steps down
+    (the scan's branch), a 1e-30-wide grid, a grid over +-3e38 (distances
+    overflow), an inf and a NaN center, and L = 16 / 17 / 32 at the
+    search's edge."""
+    lo, hi = (float(v) for v in torch.aminmax(x))
+    rng = np.random.RandomState(31)
+    books = {
+        "runs of 4 equal centers": np.repeat(linspace_f32(64, lo, hi), 4),
+        "runs of random lengths": np.sort(rng.choice(linspace_f32(40, lo, hi), 256)),
+        "a same-sign grid stepping down": unsorted_linspace(),
+        "a 1e-30-wide grid": linspace_f32(256, -5e-31, 5e-31),
+        "a grid over +-3e38": linspace_f32(256, -3e38, 3e38),
+        "an inf center": np.append(linspace_f32(255, lo, hi), np.float32(np.inf)),
+        "a NaN center": np.insert(linspace_f32(255, lo, hi), 100, np.float32(np.nan)),
+        "L = 16": linspace_f32(16, lo, hi),
+        "L = 17": linspace_f32(17, lo, hi),
+        "L = 32": linspace_f32(32, lo, hi),
+    }
+    cases = []
+    for name, c in books.items():
+        adv = torch.from_numpy(quantize_adversarial(c)).cuda()
+        cases.append((torch.cat([adv, x.reshape(-1)]), torch.from_numpy(c).cuda(), name))
+    return cases
+
+
 def prefix_kernel_checks(cfg, page):
     """Phase 13a: the quantize kernel at L = 256, bitwise, over a real
     full-width K page (its own codebook), over inputs on the 256-grid's
-    midpoints and at a ragged length; flash at a prefix wave's shape (B =
-    prefill_group, T = page_size, every q_offset a 128-token bucket seeds,
-    attending at 128, with and without a ragged kv_valid_len)."""
+    midpoints, at a ragged length and on ``quantize_codebooks``' cases
+    (adversarial inputs, equal-center runs, a grid that steps down);
+    flash at a prefix wave's shape (B = prefill_group, T = page_size,
+    every q_offset a 128-token bucket seeds, attending at 128, with and
+    without a ragged kv_valid_len)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"quantize": 0.0, "flash_attention": 0.0}
     x = page.contiguous()
     lo, hi = (float(v) for v in torch.aminmax(x))
-    cases = [(x, torch.from_numpy(linspace_f32(256, lo, hi)).cuda())]
-    cases.append(tie_inputs(768, 128, 256))
+    c_page = linspace_f32(256, lo, hi)
+    cases = [(x, torch.from_numpy(c_page).cuda(), "the page's codebook")]
+    cases.append((torch.cat([torch.from_numpy(quantize_adversarial(c_page)).cuda(),
+                             x.reshape(-1)]), cases[0][1], "adversarial, the page's codebook"))
+    cases.append((*tie_inputs(768, 128, 256), "the 256-grid's midpoints"))
     y = torch.randn(page.numel() + 37, generator=gen, device="cuda") * 4
-    cases.append((y, torch.from_numpy(linspace_f32(256, -9.0, 7.5)).cuda()))
-    for xi, c in cases:
-        errs["quantize"] = max(errs["quantize"],
-                               max_err(quantize_cuda(xi, c), quantize_ref(xi, c)))
+    cases.append((y, torch.from_numpy(linspace_f32(256, -9.0, 7.5)).cuda(), "ragged"))
+    cases += quantize_codebooks(x)
+    for xi, c, name in cases:
+        got, ref = quantize_cuda(xi, c), quantize_ref(xi, c)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"phase 13a: quantize differs from the scan on {name}")
+        errs["quantize"] = max(errs["quantize"], max_err(got, ref))
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G, T, W = PREFIX_CFG.prefill_group, PREFIX_CFG.page_size, PREFIX_CFG.buckets[0]
     offsets = list(range(T, W, T))
@@ -2804,8 +2981,9 @@ def prefix_kernel_checks(cfg, page):
                 LLM_KERNEL_TOL, f"flash_attention prefix wave q_offset={off} "
                 f"kv_valid_len={valid}"))
     print(f"phase 13a: quantize at L = 256 bitwise on a full-width K page "
-          f"{tuple(page.shape)}, 768 x 128 inputs on the grid's midpoints and "
-          f"{page.numel() + 37} ragged; flash at B = {G}, T = {T}, q_offset "
+          f"{tuple(page.shape)}, 768 x 128 inputs on the grid's midpoints, "
+          f"{page.numel() + 37} ragged and adversarial inputs on "
+          f"{[name for _, _, name in cases[4:]]}; flash at B = {G}, T = {T}, q_offset "
           f"{offsets}, S = {W} within {LLM_KERNEL_TOL}: max |err| {errs}")
     return errs
 
@@ -2983,7 +3161,11 @@ def cold_tier(cfg, params, card):
     centers = torch.from_numpy(linspace_f32(256, lo, hi)).cuda()
     x = page.contiguous()
     kern_ms = time_ms(lambda: quantize_cuda(x, centers))
-    b_ms, b_by = bound(x.numel() * 12, x.numel() * 256 * 3)
+    # a sorted 256-grid takes the search: at most log2(257) compares, then
+    # log2(256) distances and compares and two more distances an element
+    sorted_grid = bool((centers[1:] >= centers[:-1]).all())
+    ops = x.numel() * (9 + 3 * 8 + 6 if sorted_grid else 3 * 256)
+    b_ms, b_by = bound(x.numel() * 12, ops)
     rec = {"stats": {k: int(v) for k, v in pc.stats.items()}, "after_wave_a": after[0],
            "pages_compressed": compressed, "cold_pages": int(pc.n_cold),
            "cold_used_bytes": int(pc.cold_used_bytes), "page_blob_bytes": page_bytes,
@@ -2992,7 +3174,8 @@ def cold_tier(cfg, params, card):
            "compress_ms": statistics.median(host["compress"][1:]) * 1e3,
            "decompress_ms": statistics.median(host["decompress"][1:]) * 1e3,
            "quantize_page_ms": kern_ms, "quantize_page_bound_ms": b_ms,
-           "quantize_page_bound_by": b_by}
+           "quantize_page_bound_by": b_by, "quantize_page_search": sorted_grid,
+           "quantize_page_scan_ops_bound_ms": bound(0, x.numel() * 256 * 3)[0]}
     print(f"phase 13c: cold tier at full width, two waves of {COLD_WAVE}: stats "
           f"{rec['stats']}, {compressed} pages compressed in {len(blobs)} quantize "
           f"launches, {pc.n_cold} cold pages in {pc.cold_used_bytes} B "
@@ -3000,7 +3183,9 @@ def cold_tier(cfg, params, card):
           f"{rec['promoted_max_err_over_half_step']:.4f} of half a step; one "
           f"page's compression {rec['compress_ms']:.3f} ms, decompression "
           f"{rec['decompress_ms']:.3f} ms on the host clock; the quantize kernel "
-          f"on it {kern_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by})  [{card}]")
+          f"on it {kern_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}; "
+          f"{'the search' if sorted_grid else 'the scan'}; the scan's operations "
+          f"{rec['quantize_page_scan_ops_bound_ms']:.4f} ms)  [{card}]")
     rec["kernel_errs"] = replay_kernel_calls(kept, "phase 13c")
     return launches, rec
 
@@ -3491,7 +3676,7 @@ def lm_train(cfg, params, card) -> dict:
                             ("rmsnorm_backward", "rmsnorm_backward_kernel"),
                             ("rmsnorm_dscale", "rmsnorm_dscale_kernel"),
                             ("flash_attention", "flash_attention_kernel"),
-                            ("rmsnorm", "rmsnorm_kernel")):
+                            ("rmsnorm", "rmsnorm_kernel<float")):
             if match in key:
                 cur = by.setdefault(name, [0.0, 0])
                 cur[0] += us / 1e3
@@ -3901,7 +4086,8 @@ def phase_lm(cfg, params, card):
         parts["b"] = time.perf_counter() - t0
         launches = dict(train["launches_per_step"])
         t0 = time.perf_counter()
-        vs_cpu = lm_vs_cpu(cfg, params)
+        rcfg = cfg.reduced()   # at full width (c) took 11.3 s, most of it the CPU run
+        vs_cpu = lm_vs_cpu(rcfg, bb.init_params(rcfg, seed=0))
         parts["c"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         agile = agile_lm_run(cfg, card)
@@ -4456,7 +4642,9 @@ def bf16_bars(name: str, kernel, args, kw, what: str) -> dict:
     version; a max |error| against float64 on the widened inputs at most
     BF16_LIB_FACTOR x the library call's in bf16 on the same inputs (SDPA,
     ``F.rms_norm``; rows with a live key); two calls bitwise equal; a row
-    with no live key exactly 0.  Returns the errors."""
+    with no live key exactly 0.  RMSNorm is also bitwise its fp32 kernel on
+    the widened inputs, rounded (one template since slice 20).  Returns the
+    errors."""
     got = kernel(*args, **kw)
     check(torch.equal(got, kernel(*args, **kw)), f"{what}: two calls differ")
     check(got.dtype == torch.bfloat16, f"{what}: {got.dtype} out")
@@ -4475,6 +4663,9 @@ def bf16_bars(name: str, kernel, args, kw, what: str) -> dict:
     else:
         x, scale = args
         eps = kw.get("eps", 1e-6)
+        # one kernel templated on the element type since slice 20: the
+        # fp32 kernel's sums in its order
+        bf16_bitwise(kernel, args, kw, what)
         plain = rmsnorm_ref(x, scale, eps=eps)
         exact_e = rmsnorm64(x, scale, eps)
         got_e, lib_e = got, torch.nn.functional.rms_norm(x, x.shape[-1:], scale, eps)
@@ -4483,7 +4674,8 @@ def bf16_bars(name: str, kernel, args, kw, what: str) -> dict:
     lib64 = (lib_e.double() - exact_e).abs().max().item() if lib_e.numel() else 0.0
     check(e64 <= BF16_LIB_FACTOR * lib64,
           f"{what}: {e64} from float64, the library call in bf16 {lib64}")
-    return {"max_abs_err": err, "err_float64": e64, "library_err_float64": lib64}
+    return {"max_abs_err": err, "err_float64": e64, "library_err_float64": lib64,
+            **({"bitwise_fp32": True} if name == "rmsnorm" else {})}
 
 
 def flash_sweep(gen) -> list:
@@ -4554,10 +4746,12 @@ def bf16_row(name, kern, args, plain, library, nbytes, ops, what, tag: str,
 def print_bf16_rows(out: dict, tag: str, card) -> None:
     for name, cases in out.items():
         for c in cases:
-            held = ("bitwise the fp32 kernel on the widened inputs" if c.get("bitwise_fp32")
-                    else f"|err| vs float64 {c['err_float64']:.3e} (library "
-                         f"{c['library_err_float64']:.3e}, bar x{BF16_LIB_FACTOR}), "
-                         f"two calls bitwise")
+            held = "; ".join(
+                (["bitwise the fp32 kernel on the widened inputs"] if c.get("bitwise_fp32")
+                 else [])
+                + ([f"|err| vs float64 {c['err_float64']:.3e} (library "
+                    f"{c['library_err_float64']:.3e}, bar x{BF16_LIB_FACTOR}), "
+                    f"two calls bitwise"] if "err_float64" in c else []))
             extra = ""
             if "tc_3xtf32_bound_ms" in c:
                 extra = (f", 3xTF32 bound {c['tc_3xtf32_bound_ms']:.4f}; "
@@ -4632,9 +4826,9 @@ def moe_kernels(cfg, card) -> dict:
     shapes (``bf16_kernel_rows``: flash at the prefill's q = k/v (8, 256,
     16, 128) and a 4,096-token prompt's (1, 4096, 16, 128); decode
     attention on the 288-slot cache; RMSNorm at d = 2,048).  Decode
-    attention is bitwise the fp32 kernel on the widened inputs (rounded);
-    flash and RMSNorm, kernels of their own since slice 13, are held to
-    ``bf16_bars``; each within BF16_TOL of its plain version.  Then
+    attention and RMSNorm are bitwise the fp32 kernel on the widened
+    inputs (rounded); flash and RMSNorm are held to ``bf16_bars``; each
+    within BF16_TOL of its plain version.  Then
     flash's contract sweep (``flash_sweep``) and RMSNorm at N in {1, 8,
     2048, 4097} x d in {896, 2048, 8192}, a d off 8 and a view off 16
     bytes, each held to ``bf16_bars``."""
@@ -5296,7 +5490,7 @@ def moe_train(card) -> dict:
             "flash_attention_bf16": "flash_attention_bf16_kernel",
             "rmsnorm_backward_bf16": "rmsnorm_backward_kernel<__nv_bfloat16",
             "rmsnorm_dscale_bf16": "rmsnorm_dscale_kernel<__nv_bfloat16",
-            "rmsnorm_bf16": "rmsnorm_bf16_kernel"}
+            "rmsnorm_bf16": "rmsnorm_kernel<__nv_bfloat16"}
     by = {}
     for key, (us, n) in kernels.items():
         name = next((nm for nm, pat in ours.items() if pat in key), key[:60])
@@ -5459,20 +5653,20 @@ def xlstm_cells(card) -> dict:
 
 
 def xlstm_rms_rows(card) -> dict:
-    """RMSNorm and its backward at the xLSTM training rows (B * T, d) =
-    (XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ, 1,024), fp32: the forward within
-    LLM_KERNEL_TOL of its plain version, the backward within LM_RMS_TOL of
-    float64's scale, two calls bitwise; each timed beside its plain
-    version, the library call (``F.rms_norm``, its backward) and its
-    bound."""
+    """RMSNorm at xLSTM's rows (N, 1,024) for N in XLSTM_RMS_ROWS
+    (``rms_fp32_row``: its bars, times and profiler share) and its backward
+    at the training rows (XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ, 1,024),
+    fp32: within LM_RMS_TOL of float64's scale, two calls bitwise; timed
+    beside its plain version, the library call (``F.rms_norm``'s
+    backward) and its bound."""
     gen = torch.Generator(device="cuda").manual_seed(183)
     N, d = XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ, get_config(XLSTM_ARCH).d_model
+    rows = {f"rmsnorm_{n}": rms_fp32_row(n, d, gen, "phase 18", card)
+            for n in XLSTM_RMS_ROWS}
     x = torch.randn((N, d), generator=gen, device="cuda").requires_grad_()
     scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).requires_grad_()
     g = torch.randn((N, d), generator=gen, device="cuda")
     xd, sd = x.detach(), scale.detach()
-    fwd_err = close_err(rmsnorm_cuda(xd, sd), rmsnorm_ref(xd, sd), LLM_KERNEL_TOL,
-                        "phase 18: rmsnorm at the xLSTM rows")
     dx, ds = rmsnorm_backward_cuda(xd, sd, g)
     dx2, ds2 = rmsnorm_backward_cuda(xd, sd, g)
     check(torch.equal(dx, dx2) and torch.equal(ds, ds2),
@@ -5485,22 +5679,17 @@ def xlstm_rms_rows(card) -> dict:
               f"phase 18: rmsnorm_backward {what} off float64 by {e}")
         bwd_err = max(bwd_err, e)
     y_ref, y_lib = rmsnorm_ref(x, scale), torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)
-    rows = {}
-    for name, kern, plain, library, nbytes, ops, err in (
-            ("rmsnorm", lambda: rmsnorm_cuda(xd, sd), lambda: rmsnorm_ref(xd, sd),
-             lambda: torch.nn.functional.rms_norm(xd, (d,), sd, 1e-6),
-             (2 * N * d + d) * 4, 4 * N * d, fwd_err),
-            ("rmsnorm_backward", lambda: rmsnorm_backward_cuda(xd, sd, g),
-             lambda: torch.autograd.grad(y_ref, (x, scale), g, retain_graph=True),
-             lambda: torch.autograd.grad(y_lib, (x, scale), g, retain_graph=True),
-             (3 * N * d + 2 * d) * 4, 6 * N * d, bwd_err)):
-        bound_ms, bound_by = bound(nbytes, ops)
-        ms, plain_ms, library_ms = (time_ms(fn) for fn in (kern, plain, library))
-        rows[name] = {"shape": (N, d), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"phase 18: {name} at the xLSTM training rows ({N}, {d}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); max |err| {err:.3e}  [{card}]")
+    bound_ms, bound_by = bound((3 * N * d + 2 * d) * 4, 6 * N * d)
+    ms, plain_ms, library_ms = (time_ms(fn) for fn in (
+        lambda: rmsnorm_backward_cuda(xd, sd, g),
+        lambda: torch.autograd.grad(y_ref, (x, scale), g, retain_graph=True),
+        lambda: torch.autograd.grad(y_lib, (x, scale), g, retain_graph=True)))
+    rows["rmsnorm_backward"] = {"shape": (N, d), "max_abs_err": bwd_err, "ms": ms,
+                                "plain_ms": plain_ms, "library_ms": library_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"phase 18: rmsnorm_backward at the xLSTM training rows ({N}, {d}): {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); max |err| {bwd_err:.3e}  [{card}]")
     return rows
 
 
@@ -5782,7 +5971,7 @@ def xlstm_train(cfg, params, card) -> dict:
     check(n_kernels > 0 and busy_us > 0, "phase 18d: torch.profiler recorded no kernel")
     cells = {k: raw["ranges"][f"xlstm.{k}"] for k in ("slstm", "mlstm")}
     ours = {"rmsnorm_backward": "rmsnorm_backward_kernel<float", "rmsnorm_dscale":
-            "rmsnorm_dscale_kernel<float", "rmsnorm": "rmsnorm_kernel"}
+            "rmsnorm_dscale_kernel<float", "rmsnorm": "rmsnorm_kernel<float"}
     by = {}
     for key, (us, n) in kernels.items():
         name = next((nm for nm, pat in ours.items() if pat in key), key[:60])
@@ -5863,8 +6052,8 @@ def phase_xlstm(card) -> tuple:
     launches = {n: xl["serve"]["launches"].get(n, 0)
                 + xl["train"]["launches_per_step"].get(n, 0) * (XLSTM_TRAIN_STEPS + 1)
                 for n in ("rmsnorm", "rmsnorm_backward")}
-    errs = {"rmsnorm": max(xl["rms"]["rmsnorm"]["max_abs_err"],
-                           xl["serve"]["kernel_errs"].get("rmsnorm", 0.0)),
+    errs = {"rmsnorm": max([xl["rms"][f"rmsnorm_{n}"]["max_abs_err"] for n in XLSTM_RMS_ROWS]
+                           + [xl["serve"]["kernel_errs"].get("rmsnorm", 0.0)]),
             "rmsnorm_backward": xl["rms"]["rmsnorm_backward"]["max_abs_err"]}
     print(f"phase 18: {xl['phase_s']:.1f} s in a child process, by part "
           f"{ {k: round(v, 1) for k, v in xl['part_s'].items()} }")
@@ -6881,12 +7070,26 @@ def main() -> int:
     raw = extractor_apply(params["extractor"], torch.as_tensor(images, device="cuda"))
     raw = raw.reshape(-1, cfg.extractor_channels)
 
+    # each phase's seconds, from the end of the one before (phase 2 from
+    # the start, card line and build included; phase 3 with the inputs)
+    phase_s, t_mark = {}, [t_start]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - t_mark[0]
+        t_mark[0] = now
+
+    mark("1-2")
     errs = phase_kernels(raw, centers, perm, k)
+    mark("3")
     launches, path_checks = phase_main_path(cfg, params, images)
+    mark("4")
     rows, path = phase_timing(cfg, params, images, raw, centers, perm, k,
                               launches, errs, card)
+    mark("5")
 
     llm_errs, llm_split = phase_llm_kernels()
+    mark("6")
     llm_cfg = get_config(LLM_ARCH)
     t0 = time.perf_counter()
     llm_params = bb.init_params(llm_cfg, seed=0)
@@ -6894,16 +7097,25 @@ def main() -> int:
     print(f"phase 7: {LLM_ARCH} seed-0 params ({llm_cfg.param_dtype}, drawn on "
           f"the CPU, moved to the card) in {init_s:.1f} s")
     llm_launches, llm_path = phase_llm_path(llm_cfg, llm_params, card)
+    mark("7")
     llm_checks = phase_llm_vs_cpu(llm_cfg, llm_params)
+    mark("8")
     llm_rows, llm_timing = phase_llm_timing(llm_cfg, llm_params, llm_launches,
                                             llm_errs, card)
+    mark("9")
     rows += llm_rows
     gw_launches, gw = phase_gateway(cfg, params, card)
+    mark("10")
     train_launches, train = phase_train(card)
+    mark("11")
     sched_launches, sched = phase_sched(llm_cfg, llm_params, card)
+    mark("12")
     prefix_launches, prefix = phase_prefix(llm_cfg, llm_params, card)
+    mark("13")
     lm_launches, lm_kernel_rows, lm = phase_lm(llm_cfg, llm_params, card)
+    mark("14")
     s11_launches, s11_errs, s11 = phase_slice11(llm_cfg, llm_params, card)
+    mark("15")
     for row in rows:               # the kernels' launches over every path
         row["launches"] += (gw_launches[row["name"]]
                             + train_launches.get(row["name"], 0)
@@ -6919,23 +7131,29 @@ def main() -> int:
         row["launches"] += s11_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], s11_errs.get(row["name"], 0.0))
     moe_rows, moe = phase_moe(card)
+    mark("16")
     rows += moe_rows
     mt_rows, mt_forwards, moe_train_numbers = phase_moe_train(card)
+    mark("17")
     for row in rows:               # the bf16 forwards' launches on slice 14's path
         row["launches"] += mt_forwards.get(row["name"], 0)
     rows += mt_rows
     xl_launches, xl_errs, xlstm_numbers = phase_xlstm(card)
+    mark("18")
     for row in rows:               # the fp32 RMSNorm kernels on slice 16's paths
         row["launches"] += xl_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], xl_errs.get(row["name"], 0.0))
     jb_launches, jb_errs, jamba_numbers = phase_jamba(card)
+    mark("19")
     for row in rows:               # the bf16 forwards and fp32 kernels on slice 17's paths
         row["launches"] += jb_launches.get(row["name"], 0)
         row["max_abs_err"] = max(row["max_abs_err"], jb_errs.get(row["name"], 0.0))
     lc_launches, launch_numbers = phase_launch(llm_cfg, llm_params, card)
+    mark("20")
     for row in rows:               # the launchers' and examples' paths (slice 18)
         row["launches"] += lc_launches.get(row["name"], 0)
     mesh_launches, mesh_numbers = phase_mesh(llm_cfg, llm_params, card, launch_numbers)
+    mark("21")
     for row in rows:               # the meshed queue and decode step (slice 19)
         row["launches"] += mesh_launches.get(row["name"], 0)
 
@@ -6945,6 +7163,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "device": device, "build_s": build_s,
+                       "phase_s": phase_s,
                        "sass": sass,
                        "config": {"image_size": cfg.image_size, "batch": BATCH},
                        "kernels": rows, "path": path, "checks": path_checks,
@@ -6963,12 +7182,8 @@ def main() -> int:
                        "jamba": jamba_numbers, "launch": launch_numbers,
                        "mesh": mesh_numbers},
                       f, indent=1)
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s "
-          f"(phase 12 {sched['phase_s']:.1f} s, phase 15 {s11['phase_s']:.1f} s, "
-          f"phase 16 {moe['phase_s']:.1f} s, phase 17 {moe_train_numbers['phase_s']:.1f} s, "
-          f"phase 18 {xlstm_numbers['phase_s']:.1f} s, phase 19 "
-          f"{jamba_numbers['phase_s']:.1f} s, phase 20 {launch_numbers['phase_s']:.1f} s, "
-          f"phase 21 {mesh_numbers['phase_s']:.1f} s)")
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s, by phase "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

@@ -6,193 +6,134 @@
 // model computes (var + eps) ** -0.5 (repro/nn/norm.py), so this kernel
 // agrees with its plain version to rounding, not bit for bit.
 //
-// Bound: bytes.  Each row is read once and written once, 2 * N * d * 4
-// bytes, against about 4 flops per element; at the prefill shape of the
-// LLM path (N = 8 * 512 rows of qwen2-0.5b, d = 896) that is 29 MB, about
-// 9 us at 3.35 TB/s.
+// Bound: bytes.  Each row is read once and written once, 2 * N * d * E
+// bytes for elements of E bytes (scale is d more), against about 4 flops
+// an element.  In fp32 at the prefill shape of the LLM path (N = 8 * 512
+// rows of qwen2-0.5b, d = 896) that is 29 MB, 0.0088 ms at 3.35 TB/s; at a
+// decode step's 8 rows 57 KB, 0.00002 ms, far under the ~0.005 ms a launch
+// takes.  In bf16 at moonshot-v1-16b-a3b's prefill rows (N = 8 * 256,
+// d = 2048) 16.8 MB, 0.0050 ms.
 //
-// Design: one block of 128 threads per row, grid-stride over rows for any
-// N (the TPU's whole-tile row count becomes a loop bound).  Neighbouring
-// threads read neighbouring elements; the sum of squares goes through warp
-// shuffles and one shared-memory step across the 4 warps.  The second pass
-// re-reads the row, which a block of d <= 8192 floats finds in L1/L2, so
-// every byte crosses HBM once.
-//
-// The bf16 half (x, scale and y bf16, as the TPU kernel takes them) is a
-// kernel of its own.  Bound: bytes, 2 * N * d * 2: 16.8 MB at
-// moonshot-v1-16b-a3b's prefill rows (N = 8 * 256, d = 2048), 0.0050 ms.
-// Design: the row is held in registers, so x crosses HBM once and nothing
-// is read twice.  A row of d <= 2048 goes to one warp (4 rows a block of
-// 128 threads), a wider one to the whole block; each thread takes 16-byte
-// chunks (8 bf16) of x and of scale, at most 8 of each, strided by the
-// threads of the row, so a warp's loads are contiguous 512-byte runs.  It
-// widens to fp32, sums the squares in fp32 (the thread's own chunks, then
-// shuffles, then one shared-memory step across a block's warps), scales
-// in fp32 and rounds each output once (__float2bfloat16_rn), written by
-// 16-byte stores.  A row whose d is not a multiple of 8, or operands off
-// 16 bytes, take the same walk element by element with 2-byte accesses.
-// Its sum is taken in another order than the fp32 kernel's, so it is not
-// bitwise that kernel on the widened inputs: it is held to 2e-2 of the
-// plain version and, against float64, to twice F.rms_norm's bf16 error
-// (chip_smoke.py phase 16a).  x and scale are both loaded before the sum,
-// so a row waits on memory once.
-// Registers (-Xptxas -v, sm_90a): 96 on the 16-byte walks
-// (warp or block per row), 87-88 element by element, no spill; shared
-// memory 16 bytes (the block's partial sums).  The fp32 kernel: 32
-// registers, 16 bytes.
+// Design: one pass over HBM, the row in registers; one kernel templated
+// on the element type, as rmsnorm_backward.cu is (rmsnorm_common.cuh).
+// - A row goes to TPR threads: 32 (a warp, four rows a block of 128) for
+//   d <= 1024, 64 for d <= 2048, 128 for d <= 4096, 256 (a block of 256)
+//   for d <= 8192, so a thread holds at most 4 chunks of 8 columns (32
+//   floats of x and 32 of scale in fp32).  Chunk c of a row goes to thread
+//   c % TPR, so a warp's loads are contiguous runs.
+// - A row's x and its scale chunks are both loaded by 16-byte loads before
+//   the sum (scale by the read-only path, from L2 after the first row), so
+//   a row waits on memory once and x is read once.  Loading scale once a
+//   block before the row loop, or staging it in shared memory, or a
+//   persistent grid that loads the next row during this one's sum, were
+//   each slower on an H100 80GB HBM3 at 700 W.
+// - The sum of squares is taken in fp32: the thread's chunks in order
+//   (explicit fmaf's), then shuffles, then (TPR > 32) one shared-memory
+//   step behind a barrier of the row's warps alone.  r = 1 / sqrt(sum / d
+//   + eps) is formed in double from that fp32 sum and rounded once (a
+//   row's scalar: with rsqrtf's 2 ulp a one-row call at d = 896 came to
+//   2.2x F.rms_norm's error against float64 on an H100).  y = (x * r) * scale
+//   goes out by 16-byte stores from the same registers.
+// - A d that is not a multiple of 8, or an operand off 16 bytes, takes the
+//   same chunks element by element (the columns past d read as 0): the
+//   same columns to the same threads and the same sums in the same order.
+// - The bf16 half widens each value as it is loaded and rounds each output
+//   once (__floats2bfloat162_rn) as it is stored; the fp32 arithmetic is
+//   the fp32 half's, so it is bitwise the fp32 kernel on the widened
+//   inputs, rounded (chip_smoke.py phase 16a).
+// - Any N: the grid is min(ceil(N / rows a block), kMaxBlocks), grid-stride
+//   beyond.
+// Registers (-Xptxas -v, sm_90a): fp32 95-108 on the 16-byte walks, 95-96
+// element by element; bf16 62-71 and 96-114; no spill; shared memory
+// 16-32 bytes (the row's partial sums).
 #include <cstdint>
 
-#include "kernels_common.cuh"
+#include "rmsnorm_common.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 128;
-constexpr int kMaxWidth = 8192;
-
-__global__ void __launch_bounds__(kRowThreads)
-rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               long long n_rows, int d, float eps, float* __restrict__ y) {
-  __shared__ float s_part[kRowThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (long long row = blockIdx.x; row < n_rows; row += gridDim.x) {
-    const float* xr = x + row * d;
-    float ss = 0.0f;
-    for (int i = threadIdx.x; i < d; i += kRowThreads) {
-      const float v = xr[i];
-      ss = fmaf(v, v, ss);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if (lane == 0) s_part[warp] = ss;
-    __syncthreads();
-    float total = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kRowThreads / 32; ++w) total += s_part[w];
-    const float r = rsqrtf(total / (float)d + eps);
-    float* yr = y + row * d;
-    for (int i = threadIdx.x; i < d; i += kRowThreads)
-      yr[i] = (xr[i] * r) * scale[i];
-    __syncthreads();  // s_part is written again for the next row
-  }
-}
-
-// ---------------------------------------------------------------- bf16 ---
-constexpr int kWarpRowMax = 2048;   // widest row one warp takes
-constexpr int kHeld = 64;           // elements a thread holds at most
-
-// the sum of ss over the TPR threads of a row (32: a warp; more: the
-// block, through s_part), in every one of them
-template <int TPR>
-__device__ __forceinline__ float row_sum(float ss, float* s_part) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if constexpr (TPR > 32) {
-    if ((threadIdx.x & 31) == 0) s_part[threadIdx.x >> 5] = ss;
-    __syncthreads();
-    ss = 0.0f;
-#pragma unroll
-    for (int w = 0; w < TPR / 32; ++w) ss += s_part[w];
-    __syncthreads();   // s_part is written again for the next row
-  }
-  return ss;
-}
-
-__device__ __forceinline__ void widen8(const uint4& raw, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 p = __bfloat1622float2(h[e]);
-    f[2 * e] = p.x;
-    f[2 * e + 1] = p.y;
-  }
-}
-
-// one row to TPR threads (32: a warp, 4 rows a block; 128: the block).
-// VEC: 16-byte accesses (d % 8 == 0, operands 16-byte aligned), x and
-// scale both loaded before the sum, so a row waits on memory once; else
-// the same walk element by element, scale read after the sum
-template <int TPR, bool VEC>
-__global__ void __launch_bounds__(kRowThreads)
-rmsnorm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ scale, long long n_rows,
-                    int d, float eps, __nv_bfloat16* __restrict__ y) {
-  constexpr int RPB = kRowThreads / TPR;   // rows a block
-  constexpr int PER = VEC ? 8 : 1;         // elements an access
-  constexpr int NACC = kHeld / PER;        // accesses a thread, at most
-  __shared__ float s_part[kRowThreads / 32];
+template <typename T, int TPR, bool VEC>
+__global__ void __launch_bounds__(TPR < 128 ? 128 : TPR)
+rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+               long long n_rows, int d, float eps, T* __restrict__ y) {
+  constexpr int BT = block_threads<TPR>();
+  constexpr int RPB = BT / TPR;               // rows a block walks at once
+  __shared__ float s_part[BT / 32];
   const int tr = threadIdx.x % TPR, sub = threadIdx.x / TPR;
-  const int n_acc = d / PER;               // accesses a row
-  for (long long row = (long long)blockIdx.x * RPB + sub; row < n_rows;
-       row += (long long)gridDim.x * RPB) {
-    const __nv_bfloat16* xr = x + row * d;
-    __nv_bfloat16* yr = y + row * d;
+  const int n_ch = (d + 7) / 8;               // chunks a row
+  const long long groups = (long long)gridDim.x * RPB;
+  for (long long row = (long long)blockIdx.x * RPB + sub; row < n_rows; row += groups) {
+    const T* xr = x + row * d;
+    Chunk<T> xc[kChunks], sc[kChunks];        // the columns past d read as 0
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = tr + j * TPR;
+      if (c < n_ch) {
+        load_chunk<T, VEC>(xc[j], xr, c, d);
+        load_chunk<T, VEC, true>(sc[j], scale, c, d);
+      }
+    }
     float ss = 0.0f;
-    if constexpr (VEC) {
-      uint4 xv[NACC], sv[NACC];
 #pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        const int c = tr + j * TPR;
-        if (c < n_acc) {
-          xv[j] = *reinterpret_cast<const uint4*>(xr + c * 8);
-          sv[j] = __ldg(reinterpret_cast<const uint4*>(scale) + c);
-        }
+    for (int j = 0; j < kChunks; ++j) {
+      if (tr + j * TPR < n_ch) {
+        float xf[8];
+        widen8(xc[j], xf);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ss = fmaf(xf[i], xf[i], ss);
       }
+    }
+    // 1 / sqrt(mean + eps) from the fp32 sum, in double and rounded once:
+    // rsqrtf's 2 ulp would be most of a short row's error
+    const float r = (float)rsqrt((double)row_sum<TPR>(ss, s_part, sub) / d + eps);
+    T* yr = y + row * d;
 #pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        if (tr + j * TPR < n_acc) {
-          float f[8];
-          widen8(xv[j], f);
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = tr + j * TPR;
+      if (c < n_ch) {
+        float xf[8], sf[8], out[8];
+        widen8(xc[j], xf);
+        widen8(sc[j], sf);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) ss = fmaf(f[e], f[e], ss);
-        }
-      }
-      const float r = rsqrtf(row_sum<TPR>(ss, s_part) / (float)d + eps);
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        const int c = tr + j * TPR;
-        if (c < n_acc) {
-          float f[8], w[8];
-          widen8(xv[j], f);
-          widen8(sv[j], w);
-          uint4 out;
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            h[e] = __floats2bfloat162_rn((f[2 * e] * r) * w[2 * e],
-                                         (f[2 * e + 1] * r) * w[2 * e + 1]);
-          *reinterpret_cast<uint4*>(yr + c * 8) = out;
-        }
-      }
-    } else {
-      float xv[NACC];
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        const int c = tr + j * TPR;
-        if (c < n_acc) {
-          xv[j] = __bfloat162float(xr[c]);
-          ss = fmaf(xv[j], xv[j], ss);
-        }
-      }
-      const float r = rsqrtf(row_sum<TPR>(ss, s_part) / (float)d + eps);
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        const int c = tr + j * TPR;
-        if (c < n_acc)
-          yr[c] = __float2bfloat16_rn((xv[j] * r) * __bfloat162float(scale[c]));
+        for (int i = 0; i < 8; ++i) out[i] = (xf[i] * r) * sf[i];
+        store_chunk<T, VEC>(yr, c, d, out);
       }
     }
   }
 }
 
-template <int TPR, bool VEC>
-void launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* scale,
-                 long long n_rows, int d, float eps, __nv_bfloat16* y,
-                 cudaStream_t stream) {
-  constexpr int RPB = kRowThreads / TPR;
+template <typename T, int TPR, bool VEC>
+void launch_rows(const T* x, const T* scale, long long n_rows, int d, float eps,
+                 T* y, cudaStream_t st) {
+  constexpr int RPB = block_threads<TPR>() / TPR;
   const long long blocks = (n_rows + RPB - 1) / RPB;
-  rmsnorm_bf16_kernel<TPR, VEC>
-      <<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks), kRowThreads, 0, stream>>>(
+  rmsnorm_kernel<T, TPR, VEC>
+      <<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks), block_threads<TPR>(), 0, st>>>(
           x, scale, n_rows, d, eps, y);
+}
+
+template <typename T, bool VEC>
+void launch_vec(const T* x, const T* scale, long long n_rows, int d, float eps,
+                T* y, cudaStream_t st) {
+  // a thread holds at most kChunks chunks: TPR * kChunks * 8 >= d
+  if (d <= 32 * kChunks * 8) launch_rows<T, 32, VEC>(x, scale, n_rows, d, eps, y, st);
+  else if (d <= 64 * kChunks * 8) launch_rows<T, 64, VEC>(x, scale, n_rows, d, eps, y, st);
+  else if (d <= 128 * kChunks * 8) launch_rows<T, 128, VEC>(x, scale, n_rows, d, eps, y, st);
+  else launch_rows<T, 256, VEC>(x, scale, n_rows, d, eps, y, st);
+}
+
+template <typename T>
+int launch(const T* x, const T* scale, long long n_rows, int d, float eps, T* y,
+           void* stream) {
+  if (d < 1 || d > kMaxWidth || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                   reinterpret_cast<uintptr_t>(scale) |
+                                   reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  if (vec) launch_vec<T, true>(x, scale, n_rows, d, eps, y, st);
+  else launch_vec<T, false>(x, scale, n_rows, d, eps, y, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -200,31 +141,12 @@ void launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* scale,
 extern "C" int rmsnorm_launch(const float* x, const float* scale,
                               long long n_rows, int d, float eps, float* y,
                               void* stream) {
-  if (d < 1 || d > kMaxWidth || n_rows < 0) return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return 0;
-  const int grid = (int)(n_rows < kMaxBlocks ? n_rows : kMaxBlocks);
-  rmsnorm_kernel<<<grid, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, scale, n_rows, d, eps, y);
-  return (int)cudaGetLastError();
+  return launch(x, scale, n_rows, d, eps, y, stream);
 }
 
 extern "C" int rmsnorm_bf16_launch(const __nv_bfloat16* x,
                                    const __nv_bfloat16* scale,
                                    long long n_rows, int d, float eps,
                                    __nv_bfloat16* y, void* stream) {
-  if (d < 1 || d > kMaxWidth || n_rows < 0) return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 8 == 0 && ((reinterpret_cast<uintptr_t>(x) |
-                                   reinterpret_cast<uintptr_t>(scale) |
-                                   reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  // a thread holds kHeld elements: a warp takes d <= 2048, a block 8192
-  if (d <= kWarpRowMax) {
-    if (vec) launch_bf16<32, true>(x, scale, n_rows, d, eps, y, st);
-    else launch_bf16<32, false>(x, scale, n_rows, d, eps, y, st);
-  } else {
-    if (vec) launch_bf16<kRowThreads, true>(x, scale, n_rows, d, eps, y, st);
-    else launch_bf16<kRowThreads, false>(x, scale, n_rows, d, eps, y, st);
-  }
-  return (int)cudaGetLastError();
+  return launch(x, scale, n_rows, d, eps, y, stream);
 }

@@ -26,7 +26,8 @@
 // are 8-column chunks (one 16-byte load of bf16, two of fp32), and the
 // explicit fmaf's leave the compiler nothing to contract differently.
 //
-// Design: one pass over HBM, the rows in registers.
+// Design: one pass over HBM, the rows in registers (the chunk walk and
+// the row sum in rmsnorm_common.cuh, shared with the forward).
 // - A row goes to TPR threads: 32 (a warp, four rows a block of 128) for
 //   d <= 1024, 64 for d <= 2048, 128 for d <= 4096, 256 (a block of 256)
 //   for d <= 8192, so a thread holds at most 4 chunks (32 columns) of x, g
@@ -58,100 +59,16 @@
 //   the fold.  rmsnorm_dscale_kernel: 32 registers, 4 KB.
 #include <cstdint>
 
-#include "kernels_common.cuh"
+#include "rmsnorm_common.cuh"
 
 namespace {
 
-constexpr int kMaxWidth = 8192;
-constexpr int kChunks = 4;               // 8-column chunks a thread holds, at most
 constexpr long long kBwdBlocks = 512;    // kernel.py BACKWARD_BLOCKS
 constexpr int kPartialRowsPerBlock = 1;  // kernel.py PARTIAL_ROWS_PER_BLOCK
 constexpr int kSumThreads = 256;         // rmsnorm_dscale_kernel's block
 constexpr int kSumColThreads = 4;        // threads across its 16 columns
 constexpr int kSumGroups = kSumThreads / kSumColThreads;   // row groups
 constexpr int kSumCols = 4 * kSumColThreads;
-
-// an output rounded to the element type as it is stored (widen(), in
-// kernels_common.cuh, is the way in)
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 8 consecutive elements of a row as they are loaded: 16 bytes of bf16,
-// 32 of fp32
-template <typename T>
-struct Chunk {
-  uint4 raw[sizeof(T) / 2];
-};
-
-// chunk c of row p (d elements): 16-byte loads when VEC, else element by
-// element with the columns past d read as 0
-template <typename T, bool VEC>
-__device__ __forceinline__ void load_chunk(Chunk<T>& ch, const T* p, int c, int d) {
-  if constexpr (VEC) {
-    const uint4* src = reinterpret_cast<const uint4*>(p + 8 * c);
-#pragma unroll
-    for (int h = 0; h < (int)(sizeof(T) / 2); ++h) ch.raw[h] = src[h];
-  } else {
-    T* e = reinterpret_cast<T*>(ch.raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = 8 * c + i < d ? p[8 * c + i] : narrow<T>(0.0f);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void widen8(const Chunk<T>& ch, float (&f)[8]) {
-  const T* e = reinterpret_cast<const T*>(ch.raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = widen(e[i]);
-}
-
-// f rounded to T into chunk c of row p (columns past d not written)
-template <typename T, bool VEC>
-__device__ __forceinline__ void store_chunk(T* p, int c, int d, const float (&f)[8]) {
-  if constexpr (VEC) {
-    Chunk<T> ch;
-    T* e = reinterpret_cast<T*>(ch.raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = narrow<T>(f[i]);
-    uint4* dst = reinterpret_cast<uint4*>(p + 8 * c);
-#pragma unroll
-    for (int h = 0; h < (int)(sizeof(T) / 2); ++h) dst[h] = ch.raw[h];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (8 * c + i < d) p[8 * c + i] = narrow<T>(f[i]);
-  }
-}
-
-// the sum of v over the TPR threads of a row, in each of them: shuffles,
-// then across the row's warps through s_part behind a barrier of those
-// warps alone (named barrier 1 + the row's slot in the block)
-template <int TPR>
-__device__ __forceinline__ float row_sum(float v, float* s_part, int sub) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if constexpr (TPR > 32) {
-    constexpr int W = TPR / 32;
-    float* part = s_part + sub * W;
-    const int w = (threadIdx.x % TPR) >> 5;
-    if ((threadIdx.x & 31) == 0) part[w] = v;
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sub), "n"(TPR) : "memory");
-    v = 0.0f;
-#pragma unroll
-    for (int i = 0; i < W; ++i) v += part[i];
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + sub), "n"(TPR) : "memory");
-  }
-  return v;
-}
-
-template <int TPR>
-__host__ __device__ constexpr int block_threads() { return TPR < 128 ? 128 : TPR; }
 
 template <typename T, int TPR, bool VEC>
 __global__ void __launch_bounds__(TPR < 128 ? 128 : TPR)

@@ -2,7 +2,9 @@
 (csrc/quantize.cu).
 
 Replaces ``repro.kernels.quantize.kernel.quantize_tpu``.  The source note
-in the .cu gives its byte bound and design.
+in the .cu gives its byte bound and design: a scan of the codebook below
+SEARCH_MIN_CENTERS centers or when it is not sorted, else a binary search
+that gives the scan's index and value bit for bit.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.kernels._build import CudaKernel, check_operand
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quantize", [_P, _P, ctypes.c_longlong, _I, _P, _P])
 MAX_CENTERS = 256          # kMaxQuantCenters in csrc/quantize.cu
+SEARCH_MIN_CENTERS = 17    # kSearchMinCenters there: the fewest the search takes
 
 
 def quantize_cuda(x: torch.Tensor, centers: torch.Tensor):

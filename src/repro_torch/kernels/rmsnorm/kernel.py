@@ -47,9 +47,12 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6):
     """x: (N, d) contiguous float32 or bfloat16 CUDA rows, any N, d <= 8192;
     scale: (d,) of x's dtype on the same device.  Returns (N, d) in x's
     dtype: bf16 is widened to fp32, normalised in fp32 and rounded once at
-    the end (its own kernel, within 2e-2 of the plain version; the sum of
-    squares in another order than the float32 kernel's).  Bitwise the same
-    from call to call.  Raises ValueError on any other input."""
+    the end, bitwise the float32 kernel on the widened inputs, rounded to
+    bf16 (one kernel templated on the element type: the same sums in the
+    same order).  Each row is held in registers, loaded once (16-byte
+    accesses where d and the operands allow, else element by element, the
+    same sums).  Bitwise the same from call to call.  Raises ValueError on
+    any other input."""
     _check(x, scale)
     y = torch.empty_like(x)
     kernel = KERNEL if x.dtype == torch.float32 else KERNEL_BF16

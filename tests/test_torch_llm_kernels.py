@@ -46,7 +46,11 @@ def _normal(shape, seed):
     return np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1, 128), (7, 896), (3, 5, 256), (33, 64)])
+# the widths the CUDA kernel branches on: a warp a row up to 1,024 (896,
+# 1,024), 64 threads to 2,048 (1,536), 128 to 4,096, 256 to 8,192; and a d
+# off 4, which walks element by element
+@pytest.mark.parametrize("shape", [(1, 128), (7, 896), (3, 5, 256), (33, 64), (3, 1024),
+                                   (5, 1536), (2, 4096), (2, 8192), (3, 901)])
 def test_rmsnorm_matches_jax(shape):
     x = _normal(shape, 0) * 3
     scale = 1 + 0.1 * _normal(shape[-1:], 1)
