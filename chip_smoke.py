@@ -365,10 +365,22 @@ Phases, each of which raises on failure:
      step timed in turns, host ms and card ms; (c) ``python -m
      repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` on the
      256-rank mesh and ``--shape decode_32k --multi-pod`` on the 512-rank
-     one, each a child process (meta tensors over torch's fake process
+     one (since slice 21 also ``--arch mixtral-8x7b --shape decode_32k``,
+     whose MoE computes on its placed experts), each a child process (meta tensors over torch's fake process
      group, no card; started before (a) and waited for after it): each
      exits 0 with its record (per-rank argument and output bytes, the
      roofline terms, the collectives by kind).
+  expert parallelism for the meshed MoE (slice 21), after (b):
+     (d) moonshot-v1-16b-a3b at full width in bf16, cut to its first 2
+     layers (both MoE layers), a greedy generate of 8 x 64-token prompts
+     and 16 new tokens through ``bb.prefill`` / ``bb.decode_step``, twice:
+     mesh-less, and with its params distributed on a (1, 1) NCCL mesh
+     (inside ``host_replicated``), so that each MoE layer runs the meshed
+     ``moe_apply``; the tokens bitwise equal, each run's launches exact
+     and equal, each run's decode steps timed on the host;
+     ``analyze_step`` of one meshed MoE layer at the decode and prefill
+     shapes prints its collectives by kind as context (a one-rank mesh
+     issues none).
 
 Prints the card line, a {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -396,6 +408,7 @@ from torch.profiler import record_function  # noqa: E402
 
 from repro_torch import (  # noqa: E402
     fp32_math,
+    sharded,
     tree_leaves,
     tree_map,
     tree_to,
@@ -885,11 +898,19 @@ ROOF_REPS = 5
 # dry-run (meta tensors over the fake process group, no card) of train_4k
 # on the 256-rank mesh and one 512-rank --multi-pod pair (decode_32k: the
 # multi-pod train_4k runs far longer in DTensor's redistribution planner),
+# and (slice 21) mixtral-8x7b's decode_32k, its MoE on its placed experts,
 # each a child process under DRYRUN_TIMEOUT_S
 MESH_ARGV = ["--mesh", "1,1"]
 MESH_STEP_REPS = 5
+# slice 21: (d) MOE_ARCH at full width, its first MESH_MOE_LAYERS layers,
+# served mesh-less and on a one-rank (1, 1) NCCL mesh: MESH_MOE_BATCH
+# prompts of MESH_MOE_PROMPT tokens, MESH_MOE_NEW greedy tokens each, then
+# MESH_MOE_STEP_REPS decode steps of each timed alone
+MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_PROMPT, MESH_MOE_NEW = 2, 8, 64, 16
+MESH_MOE_STEP_REPS = 5
 DRYRUN_ARGVS = (["--arch", LLM_ARCH, "--shape", "train_4k"],
-                ["--arch", LLM_ARCH, "--shape", "decode_32k", "--multi-pod"])
+                ["--arch", LLM_ARCH, "--shape", "decode_32k", "--multi-pod"],
+                ["--arch", "mixtral-8x7b", "--shape", "decode_32k"])
 DRYRUN_TIMEOUT_S = 400
 # (g) each example's argv (TMP: a temporary directory) and the kernels it
 # must launch
@@ -6894,6 +6915,114 @@ def mesh_decode_step(cfg, params, card, plain_rec) -> dict:
     return out
 
 
+def mesh_moe_serve(cfg, params, tokens, max_len: int) -> dict:
+    """One run of 21d: a greedy generate of MESH_MOE_NEW tokens after a
+    prefill of ``tokens`` through ``bb.prefill`` / ``bb.decode_step``
+    (inside ``host_replicated`` where ``params`` are DTensors), launches
+    from 0 (exact); each decode step synchronised and timed on the host."""
+    L, steps = cfg.n_layers, MESH_MOE_NEW
+    aux = [{}]
+    host = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with sharded.host_replicated(sharded.mesh_of(params)):
+        logits, cache, T = bb.prefill(cfg, params, {"tokens": tokens}, max_len=max_len,
+                                      aux=aux[0])
+        out = []
+        for i in range(steps):
+            if sharded.is_dtensor(logits):
+                logits = logits.full_tensor()
+            tok = torch.argmax(logits, -1)
+            out.append(tok)
+            if i == steps - 1:
+                break
+            aux.append({})
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            logits, cache = bb.decode_step(cfg, params, tok[:, None], cache, T + i,
+                                           aux=aux[-1])
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - s0) * 1e3)
+    toks = torch.stack(out, 1).tolist()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    check_launches(launches, {"flash_attention_bf16": L,
+                              "decode_attention_bf16": L * (steps - 1),
+                              "rmsnorm_bf16": (2 * L + 1) * steps}, "21d")
+    dropped = [float(a["dropped_fraction"].full_tensor() if sharded.is_dtensor(
+        a["dropped_fraction"]) else a["dropped_fraction"]) for a in aux]
+    return {"tokens": toks, "generate_s": wall, "tokens_per_s": len(toks) * steps / wall,
+            "launches": launches, "dropped_fraction": dropped, "decode_step_host_ms": host,
+            "decode_step_host_ms_median": statistics.median(host)}
+
+
+def mesh_moe(card) -> dict:
+    """21d: MOE_ARCH at full width in bf16, cut to MESH_MOE_LAYERS layers,
+    served mesh-less and with its params on a one-rank (1, 1) NCCL mesh
+    (the meshed ``moe_apply`` in every layer): the same tokens bitwise and
+    the same launches.  One meshed MoE layer counted by ``analyze_step``
+    at a decode step's rows and at the prefill's is printed as context: a
+    one-rank mesh issues no collective, so it shows none."""
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import make_serving_mesh, process_group
+    from repro_torch.nn.moe import moe_apply
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+    m = cfg.moe
+    params = bb.init_params(cfg, seed=0, gen_device="cuda")
+    rng = np.random.RandomState(211)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab, (MESH_MOE_BATCH, MESH_MOE_PROMPT)),
+                             device="cuda")
+    max_len = MESH_MOE_PROMPT + MESH_MOE_NEW
+    runs = {"plain": mesh_moe_serve(cfg, params, tokens, max_len)}
+    with process_group("nccl"):
+        mesh = make_serving_mesh()
+        mp = partition.distribute(params, partition.param_shardings(params, mesh, cfg=cfg))
+        runs["meshed"] = mesh_moe_serve(cfg, mp, tokens, max_len)
+        check(runs["meshed"]["tokens"] == runs["plain"]["tokens"],
+              "21d: the meshed MoE's tokens differ from the mesh-less run's")
+        check(runs["meshed"]["launches"] == runs["plain"]["launches"],
+              f"21d: launches {nonzero(runs['meshed']['launches'])}, mesh-less "
+              f"{nonzero(runs['plain']['launches'])}")
+        cap = m.n_experts / m.top_k if m.n_experts <= 8 else min(4.0, m.n_experts / m.top_k)
+        layer = functools.partial(moe_apply, top_k=m.top_k, capacity_factor=cap)
+        gen = torch.Generator(device="cuda").manual_seed(212)
+        counted = {}
+        for name, T in (("decode", 1), ("prefill", MESH_MOE_PROMPT)):
+            h = torch.randn((MESH_MOE_BATCH, T, cfg.d_model), generator=gen, device="cuda",
+                            dtype=cfg.dtype)
+            h = partition.batch_spec(mesh, 3).distribute(h)
+            with sharded.host_replicated(mesh):
+                rec = roof.analyze_step(layer, mp["blocks"][0]["moe"], h, mesh=mesh)
+            coll = rec["collectives"]
+            counted[name] = {"counts": {k: n for k, n in coll["counts"].items() if n},
+                             "bytes_by_kind": {k: b for k, b in coll["bytes_by_kind"].items()
+                                               if b},
+                             "flops": rec["flops"]}
+    del params, mp
+    torch.cuda.empty_cache()
+    launches = runs["meshed"]["launches"]
+    out = {"layers": MESH_MOE_LAYERS, "equal": True, "layer_collectives": counted,
+           "launches": {n: runs["plain"]["launches"][n] + launches[n] for n in launches},
+           **{k: {f: v for f, v in r.items() if f != "tokens"} for k, r in runs.items()},
+           "tokens_row0": runs["plain"]["tokens"][0]}
+    for k in ("plain", "meshed"):
+        r = runs[k]
+        print(f"phase 21d: {MOE_ARCH} (full width, bf16, first {MESH_MOE_LAYERS} layers) "
+              f"{k}: tokens {r['tokens']}; generate {r['generate_s']:.3f} s "
+              f"({r['tokens_per_s']:.1f} tokens/s); decode steps on the host "
+              f"{[round(x, 2) for x in r['decode_step_host_ms']]} ms (median "
+              f"{r['decode_step_host_ms_median']:.2f}); launches {nonzero(r['launches'])}; "
+              f"dropped fractions {[round(f, 4) for f in r['dropped_fraction']]}  [{card}]")
+    print(f"phase 21d: the (1, 1) mesh's tokens equal the mesh-less run's: True; one "
+          f"meshed MoE layer (analyze_step, {MESH_MOE_BATCH} rows; context only: a "
+          f"one-rank mesh issues no collective): collectives "
+          f"{ {n: c['counts'] for n, c in counted.items()} }, bytes "
+          f"{ {n: c['bytes_by_kind'] for n, c in counted.items()} }  [{card}]")
+    return out
+
+
 def start_dryruns(tmp) -> list:
     """21c, started: each DRYRUN_ARGVS run of ``python -m
     repro_torch.launch.dryrun`` as a child process writing its record."""
@@ -6986,8 +7115,11 @@ def phase_mesh(cfg, params, card, launch_numbers) -> tuple:
         t0 = time.perf_counter()
         numbers["b"] = mesh_decode_step(cfg, params, card, launch_numbers["f"]["full"]["decode"])
         part["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numbers["d"] = mesh_moe(card)
+    part["d"] = time.perf_counter() - t0
     launches = dict.fromkeys(_build.KERNELS, 0)
-    for rec in (numbers["a"], numbers["b"]):
+    for rec in (numbers["a"], numbers["b"], numbers["d"]):
         for n, c in rec["launches"].items():
             launches[n] += c
     numbers["part_s"] = part
@@ -7154,7 +7286,7 @@ def main() -> int:
         row["launches"] += lc_launches.get(row["name"], 0)
     mesh_launches, mesh_numbers = phase_mesh(llm_cfg, llm_params, card, launch_numbers)
     mark("21")
-    for row in rows:               # the meshed queue and decode step (slice 19)
+    for row in rows:               # the meshed queue, decode step (slice 19) and MoE (21)
         row["launches"] += mesh_launches.get(row["name"], 0)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ nothing is allocated.  The mesh is a cuda mesh, as the card's NCCL ranks
 are, so that DTensor plans their collectives (an all-to-all where a cpu
 mesh gathers the whole tensor and keeps a chunk), and no card is needed.  The memory block holds one rank's argument and
 output bytes (its local blocks); the temporaries and the peak, which
-torch does not know without running, are null.
+torch does not know without running, are null.  ``collectives_by_shape``
+lists the collectives' calls and bytes by kind and output shape and dtype,
+which name what they moved (an expert block, a cache, a row of
+activations).
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec["memory"] = compiled.memory_analysis()
     a = compiled.analysis
     rec.update({"flops": a["flops"], "hbm_bytes": a["hbm_bytes"],
-                "collectives": a["collectives"], "roofline": a["roofline"]})
+                "collectives": a["collectives"], "roofline": a["roofline"],
+                "collectives_by_shape": a["collectives_by_shape"]})
     return rec
 
 

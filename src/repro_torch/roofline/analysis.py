@@ -148,6 +148,7 @@ class _Counter(TorchDispatchMode):
         self.flops_by_type: dict[str, int] = {}
         self.collectives = {"bytes_by_kind": dict.fromkeys(_COLLECTIVES, 0),
                             "counts": dict.fromkeys(_COLLECTIVES, 0)}
+        self.collective_shapes: dict[tuple, dict] = {}
 
     @staticmethod
     def _add(table: dict, name: str, flops: int, nbytes: int) -> None:
@@ -180,8 +181,17 @@ class _Counter(TorchDispatchMode):
         if func.namespace in _COLLECTIVE_NAMESPACES:
             kind = _COLLECTIVE_KIND.get(func._opname)
             if kind is not None:       # counted inside reported calls too
-                self.collectives["bytes_by_kind"][kind] += _nbytes(_tensors(out))
+                res = _tensors(out)
+                self.collectives["bytes_by_kind"][kind] += _nbytes(res)
                 self.collectives["counts"][kind] += 1
+                for t in res:
+                    dtype = str(t.dtype).replace("torch.", "")
+                    row = self.collective_shapes.setdefault(
+                        (kind, tuple(t.shape), dtype),
+                        {"kind": kind, "shape": list(t.shape), "dtype": dtype,
+                         "calls": 0, "bytes": 0})
+                    row["calls"] += 1
+                    row["bytes"] += _nbytes([t])
             return out
         if self.hidden:
             return out
@@ -225,6 +235,7 @@ def record(counter, mesh=None) -> dict:
     return {"flops": flops, "hbm_bytes": hbm_bytes,
             "flops_by_type": dict(counter.flops_by_type),
             "kernels": counter.kernels, "ops": counter.ops, "collectives": coll,
+            "collectives_by_shape": [dict(r) for r in counter.collective_shapes.values()],
             "roofline": {**terms, "dominant": max(terms, key=terms.get),
                          "chips": chips}}
 
@@ -235,7 +246,10 @@ def analyze_step(fn, *args, mesh=None, **kwargs) -> dict:
     {``bytes_by_kind``, ``counts``, ``total_bytes``} and ``roofline``
     {``compute_s``, ``memory_s``, ``collective_s``, ``dominant``,
     ``chips``}; also ``flops_by_type``, ``kernels`` (each dispatcher's
-    calls, flops and bytes) and ``ops`` (each operator's).  ``mesh``: the
+    calls, flops and bytes), ``ops`` (each operator's) and
+    ``collectives_by_shape`` (a list of {``kind``, ``shape``, ``dtype``,
+    ``calls``, ``bytes``}: the tensors the collectives returned, tallied
+    by kind, shape and dtype, which name what they moved).  ``mesh``: the
     device mesh the call's DTensors live on (its ranks are the chips);
     the counts are then this rank's.
     The call runs once (its outputs are dropped); only integers are

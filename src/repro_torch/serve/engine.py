@@ -32,7 +32,8 @@ through the scheduler, whose slot pool shards over the data axes and
 whose params go tensor-parallel (``serve/scheduler.py``): the
 equal-length path is single-device, and dropping the mesh would serve
 unsharded.  An architecture the scheduler gates out, or a request with
-extras, raises under a mesh, as in the JAX package.
+extras, raises under a mesh, as in the JAX package; so do params already
+distributed (DTensors) with no ``mesh``.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharded
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import backbone as bb
 from repro_torch.serve import telemetry as _telemetry
@@ -105,6 +106,10 @@ class ServeEngine:
                 f"{cfg.name}: sharded serving runs through the continuous "
                 "scheduler, which this architecture gates out; a meshed "
                 "engine would silently serve unsharded on one device")
+        if mesh is None and sharded.mesh_of(params) is not None:
+            raise ValueError(
+                "params are distributed on a mesh: pass it as mesh= (the "
+                "continuous scheduler serves them), or pass plain tensors")
         bb.sublayer_specs(cfg)
         self.device = resolve_device(device)
         table = params["embed"]["table"]

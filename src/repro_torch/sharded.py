@@ -5,8 +5,9 @@ operators DTensor propagates rank by rank.  Some code must not see one:
 the hand kernels, which launch through ctypes on ``data_ptr()``; writes
 by row index into a tensor sharded along its rows (the decode caches and
 the scheduler's pool); the layers whose operators have no sharding
-strategy (the MoE routing, the Mamba and xLSTM recurrences:
-``run_local``); a lookup along a split vocabulary (``embedding``); host
+strategy (the Mamba and xLSTM recurrences: ``run_local``; the MoE, whose
+routing has none either, computes on its placed local blocks itself:
+``nn/moe.py``); a lookup along a split vocabulary (``embedding``); host
 reads.  ``local_block`` redistributes a DTensor to the placements such
 code can work on (explicitly, so that what it moves is stated where it is
 needed) and returns its local block; ``wrap`` makes a DTensor of a local
@@ -151,20 +152,19 @@ def whole_groups(t, dim: int, groups: int):
     return t.redistribute(t.device_mesh, placements)
 
 
-def run_local(fn, params, x, *args, rows: bool = True, **kw):
+def run_local(fn, params, x, *args, **kw):
     """``fn(params, x, *args, **kw)`` of a layer on plain tensors, for a
     DTensor ``x`` (B, ...): every DTensor param gathered whole (explicitly;
     its gradient a partial sum over the ranks that split the rows), and
-    with ``rows`` each rank's rows of x and of the tensors in ``args``
-    (states (B, ...)), else the whole batch on every rank.  The tensors of
-    the result (a tensor or a tuple / dict of them, each leading with the
-    batch, or () scalars over the whole batch) come back as DTensors at
-    x's row split, or replicated."""
+    each rank's rows of x and of the tensors in ``args`` (states (B, ...)).
+    The tensors of the result (a tensor or a tuple / dict of them, each
+    leading with the batch, or () scalars over the whole batch) come back
+    as DTensors at x's row split, or replicated."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.utils._pytree import tree_map as map_any
 
     mesh = x.device_mesh
-    place = keep_dims(x, {0}) if rows else [Replicate()] * mesh.ndim
+    place = keep_dims(x, {0})
     whole = [Replicate()] * mesh.ndim
     grad = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
 
@@ -181,7 +181,7 @@ def run_local(fn, params, x, *args, rows: bool = True, **kw):
     def back(t):
         if not isinstance(t, torch.Tensor):
             return t
-        if t.dim() == 0 or not rows:
+        if t.dim() == 0:
             return wrap(t, mesh, whole, t.shape)
         return wrap(t, mesh, place, (x.shape[0],) + tuple(t.shape[1:]))
 

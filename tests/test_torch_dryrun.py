@@ -14,6 +14,10 @@ runs the step once (``Lowered.compile``):
   ``cache_shardings``; the decode step's depth an int32 scalar);
 - the pure-DP strategy issues fewer all-gathers, or fewer collectives,
   than the baseline, as JAX's test asserts;
+- the mixtral decode step's MoE computes on its placed experts: no
+  all-gather carries an expert block, and the step gathers what its dense
+  twin (the same config with a dense FFN) gathers plus, in each MoE
+  layer, the decode step's rows, which every rank routes as one group;
 - the collectives are counted by JAX's kinds, and the roofline's
   collective term is their bytes over ranks x NVLink;
 - the counter sees the collectives that DTensor issues inside an
@@ -102,7 +106,14 @@ with process_group("fake", world_size=8):
         out["records"].append({"kind": meta["kind"], "memory": compiled.memory_analysis(),
                                "comm": kinds(comm),
                                **{k: compiled.analysis[k] for k in
-                                  ("flops", "hbm_bytes", "collectives", "roofline")}})
+                                  ("flops", "hbm_bytes", "collectives", "roofline",
+                                   "collectives_by_shape")}})
+    # the mixtral decode case's dense twin: its FFN dense, the rest the same
+    cfg = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=None, family="dense")
+    lowered, _ = lower_step(cfg, dataclasses.replace(get_shape("decode_32k"), global_batch=8,
+                                                     seq_len=64), mesh)
+    out["dense_twin"] = lowered.compile().analysis["collectives"]
     # by hand: x (8, 64) rows over data; w (64, 32) split over data (FSDP,
     # its rows) and model (its columns); w2 (32, 64) split over model (its
     # rows: row-parallel).  x @ w gathers w's FSDP split (one all-gather,
@@ -266,6 +277,28 @@ def test_collectives_equal_comm_debug_mode(port):
     for rec in port["records"]:
         counted = {k: n for k, n in rec["collectives"]["counts"].items() if n}
         assert counted == rec["comm"]
+
+
+def test_moe_decode_gathers_no_expert_block(port):
+    """The meshed MoE computes on its placed experts (E = 4 over the model
+    axis): no all-gather carries an expert block, whole or in part, and
+    the step gathers what its dense twin gathers (the attention's and the
+    readout's) plus, in each MoE layer, the decode step's B x d rows, which
+    the data ranks gather to route them as one group."""
+    rec = port["records"][CASES.index(("mixtral-8x7b", "decode_32k", False))]
+    cfg = jax_get_config("mixtral-8x7b").reduced()
+    d, ff = cfg.d_model, cfg.moe.expert_d_ff
+    pieces = {(d // i, ff // j) for i in (1, 2, 4, 8) for j in (1, 2, 4, 8)}
+    pieces |= {(b, a) for a, b in pieces}
+    gathers = [r for r in rec["collectives_by_shape"] if r["kind"] == "all-gather"]
+    assert gathers
+    assert not [r for r in gathers
+                if len(r["shape"]) == 3 and tuple(r["shape"][1:]) in pieces]
+    assert sum(r["bytes"] for r in rec["collectives_by_shape"]) == \
+        rec["collectives"]["total_bytes"]
+    rows = (cfg.n_layers // cfg.moe.every) * 8 * d * 4      # B = 8, float32
+    assert rec["collectives"]["bytes_by_kind"]["all-gather"] == \
+        port["dense_twin"]["bytes_by_kind"]["all-gather"] + rows
 
 
 def test_collectives_by_hand(port):
