@@ -908,6 +908,32 @@ MESH_STEP_REPS = 5
 # MESH_MOE_STEP_REPS decode steps of each timed alone
 MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_PROMPT, MESH_MOE_NEW = 2, 8, 64, 16
 MESH_MOE_STEP_REPS = 5
+# slice 22: (e) the meshed layers' per-rank work on one card, as
+# MESH_SPLIT_RANKS model ranks do it.  (a) the decode kernel's
+# log-sum-exp (B, Hq) at row 4's, row 4 bf16's and jamba's G = 8 shapes
+# (B, S, Hq, Hkv, D, dtype, attend), against its plain version, and its
+# output bitwise the kernel's without it; (b) jamba's decode_32k cache as
+# 16 model ranks split its 32,768 slots: (8, 32,768, 8, 128) bf16 in 16
+# blocks, each launched with its live count and combined by the ranks'
+# rule, against the unsplit kernel, both timed; (c) one Mamba layer of
+# jamba at full width (B 8, T 256, then 8 decode steps) and one mLSTM and
+# one sLSTM layer of xlstm-350m (B 8, T 256) as 16 ranks compute them in
+# turn (``mamba_by_ranks`` and the rest), against the unsplit layer in
+# fp32 at tests/test_torch_jamba.py's bar (1e-5 abs + rel) and
+# tests/test_torch_xlstm.py's (1e-5 of the scale or XLSTM_ULP_SPREAD x
+# the layer's own spread with every weight one ulp away, whichever is
+# wider: the cells are ill-conditioned, and a rank's column block of q /
+# k / v rounds as the whole product does not); jamba's layer in bf16 too,
+# within the bf16 flash bar of the unsplit layer and at most
+# BF16_LIB_FACTOR x its error against fp32
+MESH_SPLIT_RANKS = 16
+MESH_LSE_SHAPES = ((8, 1024, 14, 2, 64, torch.float32, 528),
+                   (8, 288, 16, 16, 128, torch.bfloat16, 287),
+                   (8, 288, 64, 8, 128, torch.bfloat16, 287))
+MESH_CUT = (8, 32768, 64, 8, 128)
+MESH_CUT_ROWS = (32768, 30001, 20000, 16384, 9000, 2048, 1, 0)
+MESH_LAYER_B, MESH_LAYER_T, MESH_LAYER_DECODE = 8, 256, 8
+MESH_LAYER_TOL, XLSTM_ULP_SPREAD = 1e-5, 8
 DRYRUN_ARGVS = (["--arch", LLM_ARCH, "--shape", "train_4k"],
                 ["--arch", LLM_ARCH, "--shape", "decode_32k", "--multi-pod"],
                 ["--arch", "mixtral-8x7b", "--shape", "decode_32k"])
@@ -7023,6 +7049,303 @@ def mesh_moe(card) -> dict:
     return out
 
 
+def mesh_lse(card) -> dict:
+    """21e (a): the decode kernel with ``return_lse`` at MESH_LSE_SHAPES,
+    an int and a per-row attend_len (a row at 0 among them): its output
+    bitwise the kernel's without the lse, the lse within LLM_KERNEL_TOL
+    (fp32) / BF16_LSE_TOL (bf16) abs + rel of the plain version's (-inf on
+    the empty row), both timed."""
+    out, errs = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(220)
+    for B, S, Hq, Hkv, D, dtype, attend in MESH_LSE_SHAPES:
+        q = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        rows = torch.tensor([attend, 0] + [attend - 3 * i for i in range(2, B)],
+                            dtype=torch.int32, device="cuda")
+        page = auto_page_size(S) or DEFAULT_PAGE
+        name = "decode_attention" if dtype == torch.float32 else "decode_attention_bf16"
+        tol = LLM_KERNEL_TOL if dtype == torch.float32 else BF16_LSE_TOL
+        out_tol = LLM_KERNEL_TOL if dtype == torch.float32 else BF16_TOL["decode_attention"]
+        worst = out_err = 0.0
+        for live in (attend, rows):
+            o, lse = decode_attention_cuda(q, k, v, live, page_size=page, return_lse=True)
+            check(torch.equal(o, decode_attention_cuda(q, k, v, live, page_size=page)),
+                  f"21e: the output with return_lse differs from the kernel's without "
+                  f"({name}, {tuple(q.shape)})")
+            ro, rl = decode_attention_ref(q, k, v, live, return_lse=True)
+            check(torch.equal(torch.isneginf(lse), torch.isneginf(rl)),
+                  f"21e: {name} lse -inf where the plain version's is not")
+            fin = torch.isfinite(rl)
+            worst = max(worst, close_err(lse[fin], rl[fin], tol, f"21e: {name} lse"))
+            out_err = max(out_err, close_err(o, ro, out_tol, f"21e: {name} output"))
+        errs[name] = max(errs.get(name, 0.0), worst, out_err)
+        key = f"{name} {(B, S, Hq, Hkv, D)} attend {attend}"
+        out[key] = {
+            "lse_err": worst, "out_err": out_err,
+            "ms": time_ms(lambda: decode_attention_cuda(q, k, v, attend, page_size=page)),
+            "lse_ms": time_ms(lambda: decode_attention_cuda(q, k, v, attend, page_size=page,
+                                                            return_lse=True))}
+        print(f"phase 21e (a): {key}: out bitwise with and without the lse; lse vs plain "
+              f"max |err| {worst:.3e} (bar {tol} abs + rel), out {out_err:.3e} (bar "
+              f"{out_tol}); {out[key]['ms']:.4f} ms, with the lse {out[key]['lse_ms']:.4f} "
+              f"ms  [{card}]")
+    return {"shapes": out, "errs": errs}
+
+
+def mesh_cut(card) -> dict:
+    """21e (b): MESH_CUT's cache in MESH_SPLIT_RANKS blocks of its slots,
+    as the model ranks of jamba's decode_32k hold it: each block launched
+    with its live count (``block_attend``) and the lse, the blocks combined
+    (``combine_blocks``); at a full cache and at per-row depths
+    (MESH_CUT_ROWS, an empty row among them) the combined output's error
+    against the fp32 plain version at most BF16_LIB_FACTOR x the unsplit
+    kernel's.  The bar scales with the output (typically 0.01, at most
+    about 0.04 here); tests/test_torch_decode_split.py holds it on the
+    CPU's plain version, where a dropped block or blocks combined without
+    their exp(lse - max) weights exceed it tenfold.  Both timed at the
+    full cache."""
+    B, S, Hq, Hkv, D = MESH_CUT
+    k_blocks = MESH_SPLIT_RANKS
+    size = S // k_blocks
+    gen = torch.Generator(device="cuda").manual_seed(221)
+    q = torch.randn((B, 1, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    blocks = [(k[:, i * size:(i + 1) * size].contiguous(),
+               v[:, i * size:(i + 1) * size].contiguous()) for i in range(k_blocks)]
+    page = auto_page_size(size) or DEFAULT_PAGE
+
+    def split(live):
+        outs, lses = zip(*(decode_attention_cuda(q, kb, vb, decode_ops.block_attend(
+            live, i * size, size), page_size=page, return_lse=True)
+            for i, (kb, vb) in enumerate(blocks)))
+        return decode_ops.combine_blocks(torch.stack(outs), torch.stack(lses))
+
+    rows = torch.tensor(MESH_CUT_ROWS, dtype=torch.int32, device="cuda")
+    errs, split_f32, whole_f32 = [], [], []
+    for live in (S, rows):
+        whole = decode_attention_cuda(q, k, v, live, page_size=auto_page_size(S) or DEFAULT_PAGE)
+        got = split(live)
+        errs.append((got.double() - whole.double()).abs().max().item())
+        # both against the fp32 plain version: the split's error at most
+        # BF16_LIB_FACTOR x the unsplit kernel's (a dropped block, a wrong
+        # live count or unweighted blocks part by far more, see mesh_cut)
+        ref = decode_attention_ref(q.float(), k.float(), v.float(), live).double()
+        split_f32.append((got.double() - ref).abs().max().item())
+        whole_f32.append((whole.double() - ref).abs().max().item())
+        del ref
+        check(split_f32[-1] <= BF16_LIB_FACTOR * whole_f32[-1],
+              f"21e: the 16-block decode {split_f32[-1]:.3e} from fp32, the unsplit kernel "
+              f"{whole_f32[-1]:.3e} (bar x{BF16_LIB_FACTOR})")
+    nbytes = 2 * B * S * Hkv * D * 2 + 2 * B * Hq * D * 2
+    bound_ms, bound_by = bf16_bound(nbytes, 4 * B * Hq * S * D)
+    out = {"shape": list(MESH_CUT), "blocks": k_blocks, "err_full": errs[0],
+           "err_rows": errs[1], "split_vs_fp32": split_f32, "unsplit_vs_fp32": whole_f32,
+           "unsplit_ms": time_ms(lambda: decode_attention_cuda(
+               q, k, v, S, page_size=auto_page_size(S) or DEFAULT_PAGE)),
+           "split_ms": time_ms(lambda: split(S)), "bound_ms": bound_ms, "bound_by": bound_by,
+           "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, S))}
+    # the library call: SDPA in bf16 on the full cache, kv heads expanded
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(Hq // Hkv, 2).transpose(1, 2) for t in (k, v))
+    live = torch.ones((1, 1, 1, S), dtype=torch.bool, device="cuda")
+    out["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=live))
+    print(f"phase 21e (b): jamba decode_32k's cache (B, S, Hq, Hkv, D) = {MESH_CUT} bf16 "
+          f"in {k_blocks} blocks of {size} slots: combined vs fp32 max |err| "
+          f"{split_f32[0]:.3e} full, {split_f32[1]:.3e} at rows {list(MESH_CUT_ROWS)}; the "
+          f"unsplit kernel {whole_f32[0]:.3e} / {whole_f32[1]:.3e} (bar x{BF16_LIB_FACTOR}); "
+          f"combined vs unsplit {errs[0]:.3e} / {errs[1]:.3e}; unsplit {out['unsplit_ms']:.4f} ms, "
+          f"{k_blocks} launches + combine {out['split_ms']:.4f} ms; bound {bound_ms:.4f} "
+          f"ms ({bound_by}); plain {out['plain_ms']:.4f} ms; SDPA bf16 (mask, heads "
+          f"expanded) {out['library_ms']:.4f} ms  [{card}]")
+    del q, k, v, blocks, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut(t, axis: int, r: int, k: int):
+    """Block r of k of plain ``t`` along ``axis``: rank r's under a split
+    of that axis over k model ranks."""
+    n = t.shape[axis] // k
+    return t.narrow(axis, r * n, n)
+
+
+def _added(parts):
+    """The ranks' partial products summed in float32 and rounded once to
+    their dtype, as the meshed layers' all-reduces sum them."""
+    return sum(p.float() for p in parts).to(parts[0].dtype)
+
+
+def mamba_by_ranks(params, x, state, k: int, *, d_state: int, d_conv: int,
+                   chunk: int = 128):
+    """``mamba_apply(return_state=True)`` (``state`` None) or
+    ``mamba_decode_apply`` of plain x as k model ranks compute it under the
+    mesh (``nn/ssm.py``'s ``_mamba_meshed``), one rank after another on x's
+    device: each rank's d_inner blocks of the params through the layer's
+    rank functions (``_mix_in`` / ``_mix_out``, ``_step_in`` /
+    ``_step_out``); in_proj's all-to-all and the two all-reduces done by
+    hand.  Returns (y, state)."""
+    kw = {"d_state": d_state, "dt_rank": ssm_nn._rank(x.shape[-1], None)}
+    blocks = [ssm_nn._blocks(params, lambda t, axis, r=r: _cut(t, axis, r, k))
+              for r in range(k)]
+    # in_proj's column blocks hold [x_in | z]; realigned to each rank's channels
+    x_in, z = torch.cat([dense(b["in_proj"], x) for b in blocks], -1).chunk(2, dim=-1)
+    halves = [(_cut(x_in, -1, r, k), _cut(z, -1, r, k)) for r in range(k)]
+    if state is None:
+        mids = [ssm_nn._mix_in(b, xi, d_conv=d_conv) for b, (xi, _) in zip(blocks, halves)]
+        proj = _added([m[2] for m in mids])
+        outs = [ssm_nn._mix_out(b, m[1], zr, proj, chunk=chunk, **kw)
+                for b, m, (_, zr) in zip(blocks, mids, halves)]
+        convs = [m[0][:, x.shape[1]:] for m in mids]
+    else:
+        mids = [ssm_nn._step_in(b, xi, _cut(state["conv"], -1, r, k))
+                for r, (b, (xi, _)) in enumerate(zip(blocks, halves))]
+        proj = _added([m[2] for m in mids])
+        outs = [ssm_nn._step_out(b, m[1], zr, proj, _cut(state["ssm"], 1, r, k), **kw)
+                for r, (b, m, (_, zr)) in enumerate(zip(blocks, mids, halves))]
+        convs = [m[0][:, 1:] for m in mids]
+    return _added([o for o, _ in outs]), {"conv": torch.cat(convs, -1),
+                                          "ssm": torch.cat([h for _, h in outs], 1)}
+
+
+def mlstm_by_ranks(params, x, k: int, *, n_heads: int, chunk: int = 64):
+    """``mlstm_apply`` of plain x as k model ranks compute it under the mesh
+    (``nn/xlstm.py``'s ``_mlstm_meshed``), in turn: each rank's column
+    blocks of q / k / v through ``_mlstm_rank_in``, its value columns of
+    every head through ``mlstm_chunked``, the GroupNorm from the ranks'
+    ``_head_sums``, its rows of ``out``; the gathers, the all-to-alls and
+    the sums done by hand."""
+    B, T, d = x.shape
+    H, D = n_heads, d // n_heads
+    parts = [xlstm_nn._mlstm_rank_in(
+        {name: {"w": _cut(params[name]["w"], 1, r, k)} for name in ("wq", "wk", "wv")},
+        params, x) for r in range(k)]
+    q, kk, v = (torch.cat([p[i] for p in parts], -1).reshape(B, T, H, D) for i in range(3))
+    li, lf = parts[0][3:]
+    ys = [xlstm_nn.mlstm_chunked(q / math.sqrt(D), kk, _cut(v, -1, r, k), li, lf,
+                                 chunk=chunk)[0].to(x.dtype) for r in range(k)]
+    mu = sum(xlstm_nn._head_sums(y) for y in ys) / D
+    var = sum(xlstm_nn._head_sums(y, mu) for y in ys) / D
+    norm = {key: t.reshape(H, D) for key, t in params["norm"].items()}
+    y = torch.cat([xlstm_nn._value_norm({key: _cut(t, -1, r, k) for key, t in norm.items()},
+                                        y, mu, var) for r, y in enumerate(ys)], -1)
+    y = y.reshape(B, T, d)
+    return _added([dense({"w": _cut(params["out"]["w"], 0, r, k)}, _cut(y, -1, r, k))
+                   for r in range(k)])
+
+
+def slstm_by_ranks(params, x, k: int, *, n_heads: int):
+    """``slstm_apply`` of plain x as k model ranks compute it under the mesh
+    (``_slstm_meshed``), in turn: each rank's gate columns of ``wx`` /
+    ``wr`` through ``_slstm_pre``, realigned by hand to its d / k channels
+    every token for ``_slstm_update``, h gathered by hand."""
+    B, T, d = x.shape
+    wx = [{key: _cut(t, -1, r, k) for key, t in params["wx"].items()} for r in range(k)]
+    wr = [{"w": _cut(params["wr"]["w"], 1, r, k)} for r in range(k)]
+    xw = [dense(w, x) for w in wx]
+    init = xlstm_nn.slstm_decode_init_state(B, d // k, x.dtype, device=x.device)
+    states = [tuple(init[key] for key in "hcnm") for _ in range(k)]
+    hs = []
+    for t in range(T):
+        h = torch.cat([st[0] for st in states], -1)
+        gates = torch.cat([xlstm_nn._slstm_pre(wr[r], xw[r][:, t], h) for r in range(k)],
+                          -1).float().chunk(4, dim=-1)
+        states = [xlstm_nn._slstm_update([_cut(g, -1, r, k) for g in gates], *states[r][1:],
+                                         x.dtype) for r in range(k)]
+        hs.append(torch.cat([st[0] for st in states], -1))
+    return groupnorm(params["norm"], torch.stack(hs, dim=1), groups=n_heads)
+
+
+def mesh_ranks(card) -> dict:
+    """21e (c): the meshed layers' per-rank work at full width, the
+    MESH_SPLIT_RANKS model ranks in turn on this card (their collectives
+    done by hand), against the unsplit layer: jamba's Mamba block (fp32
+    and bf16; the prefill's output and state, then MESH_LAYER_DECODE
+    decode steps), xlstm-350m's mLSTM and sLSTM cells (fp32)."""
+    k = MESH_SPLIT_RANKS
+    B, T, n = MESH_LAYER_B, MESH_LAYER_T, MESH_LAYER_DECODE
+    out = {}
+    jcfg = get_config(JAMBA_ARCH)
+    h = jcfg.hybrid
+    kw = {"d_state": h.d_state, "d_conv": h.d_conv}
+    gen = torch.Generator(device="cuda").manual_seed(222)
+    p = ssm_nn.mamba_init(gen, jcfg.d_model, expand=h.expand, device="cuda", **kw)
+    x = 0.5 * torch.randn((B, T + n, jcfg.d_model), generator=gen, device="cuda")
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pd = {name: leaf if name in ("dt_bias", "A_log", "D")     # float32 always
+              else tree_map(lambda t: t.to(dtype), leaf) for name, leaf in p.items()}
+        xd = x.to(dtype)
+        t0 = time.perf_counter()
+        y, st = ssm_nn.mamba_apply(pd, xd[:, :T], return_state=True, **kw)
+        ys, sts = mamba_by_ranks(pd, xd[:, :T], None, k, **kw)
+        steps, steps_r = [], []
+        a, b = st, sts
+        for t in range(T, T + n):
+            ya, a = ssm_nn.mamba_decode_apply(pd, xd[:, t:t + 1], a, **kw)
+            yb, b = mamba_by_ranks(pd, xd[:, t:t + 1], b, k, **kw)
+            steps.append(ya)
+            steps_r.append(yb)
+        runs[dtype] = {"whole": (y, st["ssm"], torch.cat(steps, 1)),
+                       "ranks": (ys, sts["ssm"], torch.cat(steps_r, 1)),
+                       "s": time.perf_counter() - t0}
+    names = ("prefill", "state", "decode")
+    f32 = runs[torch.float32]
+    out["mamba_fp32"] = {name: close_err(r, w, MESH_LAYER_TOL, f"21e: mamba {name} fp32")
+                         for name, r, w in zip(names, f32["ranks"], f32["whole"])}
+    bf = runs[torch.bfloat16]
+    out["mamba_bf16"] = {}
+    for name, r, w, ref in zip(names, bf["ranks"], bf["whole"], f32["whole"]):
+        err = close_err(r, w, BF16_TOL["flash_attention"], f"21e: mamba {name} bf16")
+        e_r = (r.double() - ref.double()).abs().max().item()
+        e_w = (w.double() - ref.double()).abs().max().item()
+        check(e_r <= BF16_LIB_FACTOR * e_w,
+              f"21e: mamba {name} bf16 by ranks {e_r:.3e} from fp32, unsplit {e_w:.3e}")
+        out["mamba_bf16"][name] = {"vs_unsplit": err, "vs_fp32": e_r, "unsplit_vs_fp32": e_w}
+    del p, x, runs, f32, bf, y, st, ys, sts, steps, steps_r, a, b, pd, xd
+    torch.cuda.empty_cache()
+
+    xcfg = get_config(XLSTM_ARCH)
+    H = xcfg.n_heads
+    x = torch.randn((B, T, xcfg.d_model), generator=gen, device="cuda")
+    for kind, init, whole, ranks in (
+            ("mlstm", xlstm_nn.mlstm_init, xlstm_nn.mlstm_apply, mlstm_by_ranks),
+            ("slstm", xlstm_nn.slstm_init, xlstm_nn.slstm_apply, slstm_by_ranks)):
+        pc = init(gen, xcfg.d_model, H, device="cuda")
+        want = whole(pc, x, n_heads=H)
+        nudged = whole(tree_map(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)), pc),
+                       x, n_heads=H)
+        bar = max(MESH_LAYER_TOL * want.abs().max().item(),
+                  XLSTM_ULP_SPREAD * (nudged - want).abs().max().item())
+        err = (ranks(pc, x, k, n_heads=H) - want).abs().max().item()
+        check(err <= bar, f"21e: {kind} by ranks {err:.3e} from the unsplit layer, bar {bar:.3e}")
+        out[kind] = {"err": err, "bar": bar}
+    del pc, x, want, nudged
+    torch.cuda.empty_cache()
+    print(f"phase 21e (c): as {k} model ranks in turn against the unsplit layer: "
+          f"{JAMBA_ARCH}'s Mamba block (B {B}, T {T}, d {jcfg.d_model}, then {n} decode "
+          f"steps) fp32 max |err| {out['mamba_fp32']} (bar {MESH_LAYER_TOL} abs + rel), "
+          f"bf16 {out['mamba_bf16']} (bar {BF16_TOL['flash_attention']}, and at most "
+          f"{BF16_LIB_FACTOR} x the unsplit layer's error against fp32); {XLSTM_ARCH}'s "
+          f"mLSTM {out['mlstm']['err']:.3e} (bar {out['mlstm']['bar']:.3e}), sLSTM "
+          f"{out['slstm']['err']:.3e} (bar {out['slstm']['bar']:.3e}): {MESH_LAYER_TOL} of "
+          f"the layer's scale or {XLSTM_ULP_SPREAD} x its own spread one ulp away, "
+          f"whichever is wider  [{card}]")
+    return out
+
+
+def mesh_split(card) -> dict:
+    """21e: (a) ``mesh_lse``, (b) ``mesh_cut``, (c) ``mesh_ranks``."""
+    t0 = time.perf_counter()
+    lse = mesh_lse(card)
+    out = {"lse": lse["shapes"], "errs": lse["errs"], "cut": mesh_cut(card),
+           "ranks": mesh_ranks(card)}
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def start_dryruns(tmp) -> list:
     """21c, started: each DRYRUN_ARGVS run of ``python -m
     repro_torch.launch.dryrun`` as a child process writing its record."""
@@ -7118,6 +7441,9 @@ def phase_mesh(cfg, params, card, launch_numbers) -> tuple:
     t0 = time.perf_counter()
     numbers["d"] = mesh_moe(card)
     part["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numbers["e"] = mesh_split(card)
+    part["e"] = time.perf_counter() - t0
     launches = dict.fromkeys(_build.KERNELS, 0)
     for rec in (numbers["a"], numbers["b"], numbers["d"]):
         for n, c in rec["launches"].items():
@@ -7288,6 +7614,8 @@ def main() -> int:
     mark("21")
     for row in rows:               # the meshed queue, decode step (slice 19) and MoE (21)
         row["launches"] += mesh_launches.get(row["name"], 0)
+        row["max_abs_err"] = max(row["max_abs_err"],   # 21e's lse checks (slice 22)
+                                 mesh_numbers["e"]["errs"].get(row["name"], 0.0))
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -286,7 +286,7 @@ decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
                       const int* __restrict__ attend_rows, int attend_all,
                       int B, int S, int Hkv, int G, int split, int n_splits,
-                      Elt* __restrict__ o) {
+                      Elt* __restrict__ o, float* __restrict__ lse) {
   constexpr int D4 = D / 4, SUBS = 32 / D4;
   // launched early (programmatic dependent launch): wait for the split
   // kernel to finish and its partials to be visible
@@ -342,13 +342,16 @@ decode_combine_kernel(const float* __restrict__ part_acc,
     store4(o + (bh * G + g) * D + 4 * c,
            make_float4(num.x / l, num.y / l, num.z / l, num.w / l));
   }
+  // the head's log-sum-exp over its live slots, -inf with none
+  if (lse != nullptr && lane == 0)
+    lse[bh * G + g] = live > 0 ? m + logf(den) : -CUDART_INF_F;
 }
 
 template <typename Elt, int D>
 int launch(const Elt* q, const Elt* k, const Elt* v,
            const int* attend_rows, int attend_all, int B, int S, int Hkv,
            int G, int split, int n_splits, float scale, float* part,
-           Elt* o, cudaStream_t stream) {
+           Elt* o, float* lse, cudaStream_t stream) {
   float* part_ml = part + (long long)B * Hkv * n_splits * G * D;
   if (n_splits > 0) {
     constexpr int bytes = (int)sizeof(SplitSmem<Elt, D>);
@@ -380,7 +383,7 @@ int launch(const Elt* q, const Elt* k, const Elt* v,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_combine_kernel<Elt, D>, (const float*)part,
       (const float*)part_ml, attend_rows, attend_all, B, S, Hkv, G, split,
-      n_splits, o);
+      n_splits, o, lse);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -389,7 +392,7 @@ template <typename Elt>
 int dispatch(const Elt* q, const Elt* k, const Elt* v, const int* attend_rows,
              int attend_all, int B, int S, int Hkv, int G, int D, int page,
              int split, int n_splits, float scale, float* part, Elt* o,
-             void* stream) {
+             float* lse, void* stream) {
   if (B < 0 || S < 0 || Hkv < 1 || Hkv > 65535 || B > 65535 || G < 1 ||
       G > kMaxGroup || page < 1 || page > kMaxPage || split < kTile ||
       split % kTile || n_splits < 0 ||
@@ -400,10 +403,10 @@ int dispatch(const Elt* q, const Elt* k, const Elt* v, const int* attend_rows,
   switch (D) {
     case 64:
       return launch<Elt, 64>(q, k, v, attend_rows, attend_all, B, S, Hkv, G,
-                             split, n_splits, scale, part, o, st);
+                             split, n_splits, scale, part, o, lse, st);
     case 128:
       return launch<Elt, 128>(q, k, v, attend_rows, attend_all, B, S, Hkv, G,
-                              split, n_splits, scale, part, o, st);
+                              split, n_splits, scale, part, o, lse, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -412,22 +415,25 @@ int dispatch(const Elt* q, const Elt* k, const Elt* v, const int* attend_rows,
 }  // namespace
 
 // part: B * Hkv * n_splits * G * (D + 2) floats of scratch, 16-byte
-// aligned: every split's acc, then every split's (m, l).
+// aligned: every split's acc, then every split's (m, l).  lse: null, or
+// B * Hq floats that take each (row, query head)'s log-sum-exp of its
+// scaled scores over the live slots (-inf where attend_len is 0), so that
+// blocks of one cache run apart can be combined.
 extern "C" int decode_attention_launch(const float* q, const float* k,
                                        const float* v, const int* attend_rows,
                                        int attend_all, int B, int S, int Hkv,
                                        int G, int D, int page, int split,
                                        int n_splits, float scale, float* part,
-                                       float* o, void* stream) {
+                                       float* o, float* lse, void* stream) {
   return dispatch(q, k, v, attend_rows, attend_all, B, S, Hkv, G, D, page,
-                  split, n_splits, scale, part, o, stream);
+                  split, n_splits, scale, part, o, lse, stream);
 }
 
 extern "C" int decode_attention_bf16_launch(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const int* attend_rows, int attend_all, int B, int S, int Hkv, int G,
     int D, int page, int split, int n_splits, float scale, float* part,
-    __nv_bfloat16* o, void* stream) {
+    __nv_bfloat16* o, float* lse, void* stream) {
   return dispatch(q, k, v, attend_rows, attend_all, B, S, Hkv, G, D, page,
-                  split, n_splits, scale, part, o, stream);
+                  split, n_splits, scale, part, o, lse, stream);
 }

@@ -25,7 +25,7 @@ from repro_torch.kernels._build import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P]
+_ARGS = [_P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P, _P, _P]
 KERNEL = CudaKernel("decode_attention", _ARGS)
 KERNEL_BF16 = CudaKernel("decode_attention_bf16", _ARGS,
                          library="decode_attention")
@@ -56,7 +56,7 @@ def _sm_count(device_index: int) -> int:
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, attend_len, *,
-                          page_size: int = 64):
+                          page_size: int = 64, return_lse: bool = False):
     """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); contiguous, 16-byte
     aligned, all float32 or all bfloat16, on one CUDA device, D in (64,
     128), G = Hq / Hkv <= 16.
@@ -66,7 +66,11 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     shape the work: the kernel cuts each row into ``split_slots`` splits.
     Returns (B, 1, Hq, D) in q's dtype (bf16: the float32 kernel's
     arithmetic on the widened inputs, bitwise, rounded at the end), 0 on a
-    row with attend_len = 0.  Raises
+    row with attend_len = 0.  With ``return_lse`` also each (row, query
+    head)'s log-sum-exp of its scaled scores over the live slots, (B, Hq)
+    float32, -inf on a row with attend_len = 0 (the output is the same
+    bits either way): blocks of one cache's slots run apart combine by it
+    (``ops.combine_blocks``).  Raises
     ValueError on any other input; a misaligned view is refused, not
     copied."""
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -105,10 +109,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     part = torch.empty(B * Hkv * n_splits * G * (D + 2), dtype=torch.float32,
                        device=q.device)
     o = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     kernel = KERNEL if q.dtype == torch.float32 else KERNEL_BF16
     with torch.cuda.device(q.device):
         kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       rows_ptr, attend_all, B, S, Hkv, G, D, page_size, split,
                       n_splits, 1.0 / math.sqrt(D), part.data_ptr(),
-                      o.data_ptr(), stream=torch.cuda.current_stream().cuda_stream)
-    return o
+                      o.data_ptr(), None if lse is None else lse.data_ptr(),
+                      stream=torch.cuda.current_stream().cuda_stream)
+    return (o, lse) if return_lse else o

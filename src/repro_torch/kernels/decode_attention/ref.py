@@ -15,10 +15,13 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_attention_ref(q, k_cache, v_cache, attend_len):
+def decode_attention_ref(q, k_cache, v_cache, attend_len, *, return_lse: bool = False):
     """q: (B, 1, Hq, D); k/v_cache: (B, S, Hkv, D); attend_len: an int or a
     () / (B,) tensor, the count of valid cache slots per row.  Returns
-    (B, 1, Hq, D) in q.dtype; 0 on a row with attend_len = 0."""
+    (B, 1, Hq, D) in q.dtype; 0 on a row with attend_len = 0.  With
+    ``return_lse`` also the log-sum-exp of each (row, query head)'s scaled
+    scores over its valid slots, (B, Hq) float32, -inf on a row with
+    attend_len = 0."""
     B, _, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -37,4 +40,8 @@ def decode_attention_ref(q, k_cache, v_cache, attend_len):
     live = attend > 0
     out = torch.where(live if live.dim() == 0 else live[:, None, None, None, None],
                       out, 0.0)
-    return out.reshape(B, 1, Hq, D).to(q.dtype)
+    out = out.reshape(B, 1, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid, s, -math.inf), dim=-1)    # (B, Hkv, G, 1)
+    return out, lse.reshape(B, Hq)

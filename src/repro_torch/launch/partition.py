@@ -354,6 +354,24 @@ def _cache_view(path: str, shape, cfg):
     return tuple(shape), list(range(len(shape)))
 
 
+def cache_model_axis(shape, size: int, *, start: int = 0, kv: bool = False,
+                     taken=()) -> int | None:
+    """The axis of a decode-cache leaf ``shape`` that the model axes
+    (``size`` ranks) split: for a K / V leaf its kv heads, then its
+    slots; then the first axis from the end that ``size`` divides, down to
+    ``start`` (the axis after the batch's), skipping ``taken``; None where
+    none divides.  ``cache_shardings``' rule, and the placement a meshed
+    layer writes a prefill's state in (``sharded.state_out``)."""
+    ndim = len(shape)
+    cand = list(range(ndim - 1, start - 1, -1))
+    if kv and ndim >= 3:
+        cand = [ndim - 2, ndim - 3] + cand  # heads first, then sequence
+    for i in cand:
+        if i not in taken and shape[i] % size == 0 and shape[i] >= size:
+            return i
+    return None
+
+
 def cache_shardings(cache, mesh, *, batch: int, cfg, strategy=None):
     """Shardings for a decode cache tree: batch dim over the batch axes
     when divisible; one model-parallel dim chosen by divisibility
@@ -377,14 +395,11 @@ def cache_shardings(cache, mesh, *, batch: int, cfg, strategy=None):
         if b_idx is not None and daxes and batch % dsize == 0 and batch >= dsize:
             spec[b_idx] = daxes
         start = (b_idx + 1) if b_idx is not None else 0
-        cand = list(range(ndim - 1, start - 1, -1))
-        if re.search(r"(^|/)(k|v|ck|cv)$", path) and ndim >= 3:
-            cand = [ndim - 2, ndim - 3] + cand  # heads first, then sequence
-        if model_val is not None:
-            for i in cand:
-                if spec[i] is None and shape[i] % msize == 0 and shape[i] >= msize:
-                    spec[i] = model_val
-                    break
+        i = cache_model_axis(shape, msize, start=start,
+                             kv=bool(re.search(r"(^|/)(k|v|ck|cv)$", path)),
+                             taken={j for j, e in enumerate(spec) if e is not None})
+        if model_val is not None and i is not None:
+            spec[i] = model_val
         port: list = [None] * leaf.dim()
         for i, (entry, port_axis) in enumerate(zip(spec, axes)):
             if entry is None:

@@ -162,33 +162,51 @@ def attention_decode_apply(params, x, k_cache, v_cache, cache_len, *,
         k = apply_rope(k, pos_b, rope_theta)
     if per_row:
         slot = pos_b[:, 0] % S
-        _put_rows(k_cache, slot, k[:, 0])
-        _put_rows(v_cache, slot, v[:, 0])
         attend_len = torch.clamp(pos_b[:, 0] + 1, max=S)
     else:
         slot = int(cache_len) % S
-        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
         attend_len = min(int(cache_len) + 1, S)
+    _put_slot(k_cache, slot, k[:, 0])
+    _put_slot(v_cache, slot, v[:, 0])
     out = decode_attention(q, k_cache, v_cache, attend_len)
     out = dense(params["wo"], merge_heads(out))
     return out, k_cache, v_cache
 
 
-def _put_rows(cache, slot, new) -> None:
-    """cache[b, slot[b]] = new[b] for every row b, IN PLACE.  A DTensor
-    cache is written on each rank's block of rows (DTensor has no sharding
-    strategy for a write by row index along a split row axis): its rows'
-    slots and new values, the heads split as the cache's."""
+def _put_slot(cache, slot, new) -> None:
+    """cache[b, slot_b] = new[b] for every row b, IN PLACE; ``slot`` an int
+    (every row's) or a (B,) tensor.  A DTensor cache is written on the
+    blocks its ranks hold (DTensor has no sharding strategy for a write by
+    index along a split axis, and a write into a gathered copy would be
+    lost): each rank takes its rows and heads of ``new`` and writes the
+    slots that fall in its block of the sequence, so a cache split along
+    its slots is written by the one rank that holds the slot."""
     if sharded.is_dtensor(cache):
         from torch.distributed.tensor import Replicate, Shard
 
+        mesh = cache.device_mesh
         place = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
-                 else p if isinstance(p, Shard) else Replicate()
+                 else p if isinstance(p, Shard) and p.dim == 0 else Replicate()
                  for p in cache.placements]
-        new = sharded.local_block(new, place) if sharded.is_dtensor(new) else new
-        slot = sharded.local_rows(slot, cache)
-        _put_rows(cache.to_local(), slot, new)
+        if not sharded.is_dtensor(new):
+            new = sharded.wrap(new, mesh, [Replicate()] * mesh.ndim, new.shape)
+        new = sharded.local_block(new, place)
+        local = cache.to_local()
+        size = local.shape[1]
+        start = sharded.Group(mesh, sharded.split_dims(cache, 1)).index * size
+        if isinstance(slot, int):
+            if start <= slot < start + size:
+                local[:, slot - start] = new.to(local.dtype)
+            return
+        at = sharded.local_rows(slot, cache) - start
+        rows = torch.arange(local.shape[0], device=local.device)
+        # the rows whose slot another rank holds write their own value back
+        inside = ((at >= 0) & (at < size))[:, None, None]
+        at = torch.clamp(at, 0, size - 1)
+        local[rows, at] = torch.where(inside, new.to(local.dtype), local[rows, at])
+        return
+    if isinstance(slot, int):
+        cache[:, slot] = new.to(cache.dtype)
         return
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, slot] = new.to(cache.dtype)

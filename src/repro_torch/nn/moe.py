@@ -218,7 +218,7 @@ def moe_apply(params, x, *, top_k: int, capacity_factor: float = 1.25,
 # The aux sums (density, router probabilities, kept slots) are summed over
 # the dims that split the rows.  Gradients: where y is a partial sum, the
 # gradients of the dispatched x and of the gates are summed over those
-# dims (``_SumGrad``, Megatron's f), so that x, the router and the routing
+# dims (``sharded.SumGrad``, Megatron's f), so that x, the router and the routing
 # get whole gradients on every rank there; an expert block's gradient is a
 # partial sum only over the dims that split the rows and not the experts.
 
@@ -233,25 +233,6 @@ class _Slab:
 
     def __init__(self, slot, slot_count: int, group):
         self.slot, self.slot_count, self.group = slot, slot_count, group
-
-
-class _SumGrad(torch.autograd.Function):
-    """The identity, whose gradient is summed over the mesh dims ``dims``
-    (an all-reduce each)."""
-
-    @staticmethod
-    def forward(ctx, t, mesh, dims):
-        ctx.mesh, ctx.dims = mesh, dims
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        from torch.distributed import _functional_collectives as fc
-
-        g = g.contiguous()
-        for i in ctx.dims:
-            g = fc.wait_tensor(fc.all_reduce(g, "sum", (ctx.mesh, i)))
-        return g, None, None
 
 
 def _expert_roles(params, rows: set, ndim: int) -> list:
@@ -301,13 +282,8 @@ def _slab(mesh, roles: list, E: int, device) -> "_Slab | None":
         for i in e_dims:
             b = b * mesh.size(i) + where.get(i, coord[i])
         slot[b * per:(b + 1) * per] = range(j * per, (j + 1) * per)
-    group = None
-    if len(a_dims) == 1:
-        group = (mesh, a_dims[0])
-    elif a_dims:
-        names = tuple(mesh.mesh_dim_names[i] for i in a_dims)
-        group = (mesh[names]._flatten(), 0)
-    return _Slab(torch.tensor(slot, device=device), per * n_a, group)
+    return _Slab(torch.tensor(slot, device=device), per * n_a,
+                 sharded.Group(mesh, a_dims).spec)
 
 
 def _exchange_ffn(weights, xe, slab: _Slab):
@@ -372,8 +348,9 @@ def _moe_meshed(params, x, *, top_k: int, capacity_factor: float,
         raise ValueError(f"local groups of {r['S']} tokens, the layer's are {S}")
     xd = xl
     if partial:
-        xd = _SumGrad.apply(xl, mesh, partial)
-        r = dict(r, gates=_SumGrad.apply(r["gates"], mesh, partial))
+        group = sharded.Group(mesh, partial)
+        xd = sharded.SumGrad.apply(xl, group)
+        r = dict(r, gates=sharded.SumGrad.apply(r["gates"], group))
     y = _dispatch_combine(weights, xd, r, top_k=top_k,
                           slab=_slab(mesh, roles, E, xl.device))
     y_place = [Shard(0) if i in rows else Partial() if i in partial else Replicate()

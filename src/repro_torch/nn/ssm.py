@@ -23,6 +23,27 @@ Decode carries (conv, ssm): the last ``d_conv - 1`` pre-conv inputs in
 the model's dtype (zeros before the first token) and the SSM state in
 float32.  ``dt_bias``, ``A_log`` and ``D`` are float32 whatever the
 model's dtype, as in the JAX package.
+
+Under a mesh (a DTensor x) the block computes on the params' placed
+blocks (``launch/partition.py``: every param splits d_inner over the
+model axis, ``in_proj`` its 2 * d_inner columns), as GSPMD lowers the JAX
+package's layer: the scan is per channel, so each rank runs it on its
+d_inner block.  A rank's work is ``_mix_in`` and ``_mix_out`` (and their
+one-token forms) on plain tensors, with the collectives between them in
+``_mamba_meshed``: ``in_proj``'s column block holds [x_in | z] columns of
+other ranks' channels, so the projected activations are realigned by an
+all-to-all (never the weight); ``x_proj``'s rows split, so its output is
+summed (an all-reduce of (B, T, r + 2 * d_state)); ``out_proj``'s rows
+split, so the output is too (both sums in float32, rounded once, as the
+unsplit products accumulate).  The decode state's ``ssm`` leaf splits
+d_state in the cache (``cache_shardings``' first dividing axis from the
+end), so a step moves the rank's block to its d_inner channels and back
+(an all-to-all each way of (B, d_inner / k, d_state / k) blocks, 1 MB a
+layer at jamba's decode_32k, as against gathering dt and x_c and summing
+y, 1.5 MB, plus ``A_log``); prefill writes it so once.  The rank
+functions take plain tensors, so the k ranks' work can also be run in
+turn on one device with the collectives done by hand (chip_smoke.py's
+phase 21e does, at full width, on the blocks ``_blocks`` cuts).
 """
 from __future__ import annotations
 
@@ -69,10 +90,10 @@ def mamba_init(gen: torch.Generator, d_model: int, *, expand: int = 2,
     return p
 
 
-def _ssm_params(params, x_in, *, d_state: int, dt_rank: int):
-    """Per-token SSM parameters of the post-conv activations x_in (B, T,
-    d_inner): dt (B, T, d_inner), B and C (B, T, d_state), all float32."""
-    proj = dense(params["x_proj"], x_in)
+def _ssm_params(params, proj, *, d_state: int, dt_rank: int):
+    """Per-token SSM parameters from x_proj's output proj (B, T, r + 2 *
+    d_state): dt (B, T, d_inner) (d_inner: dt_proj's columns), B and C
+    (B, T, d_state), all float32."""
     dt_low, B_mat, C_mat = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
     z = dense(params["dt_proj"], dt_low).float() + params["dt_bias"]
     dt = torch.logaddexp(z, torch.zeros_like(z))   # JAX's softplus (F.softplus cuts off at 20)
@@ -106,6 +127,29 @@ def mamba_scan(dt, A_log, B_mat, C_mat, x, h0, *, chunk: int = 128):
     return torch.cat(ys, 1)[:, :T], h
 
 
+def _mix_in(params, x_in, *, d_conv: int):
+    """A rank's work before x_proj's sum: the padded pre-conv input, the
+    post-conv activations x_c and x_proj's product (a partial sum over the
+    ranks that split d_inner) of x_in (B, T, d_inner), d_inner the rank's
+    channels."""
+    x_pad = F.pad(x_in, (0, 0, d_conv - 1, 0))
+    x_c = silu(conv1d({"w": params["conv_w"], "b": params["conv_b"]}, x_pad,
+                      padding="VALID", groups=x_in.shape[-1]))
+    return x_pad, x_c, dense(params["x_proj"], x_c)
+
+
+def _mix_out(params, x_c, z, proj, *, d_state: int, dt_rank: int, chunk: int):
+    """A rank's work after x_proj's sum: the scan of its channels and
+    out_proj's product (a partial sum, as ``_mix_in``'s).  Returns (the
+    product, the final state (B, d_inner, d_state))."""
+    dt, B_mat, C_mat = _ssm_params(params, proj, d_state=d_state, dt_rank=dt_rank)
+    h0 = torch.zeros((x_c.shape[0], x_c.shape[-1], d_state), dtype=torch.float32,
+                     device=x_c.device)
+    y, h_final = mamba_scan(dt, params["A_log"], B_mat, C_mat, x_c, h0, chunk=chunk)
+    y = y + params["D"] * x_c.float()
+    return dense(params["out_proj"], y.to(z.dtype) * silu(z)), h_final
+
+
 def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
                 dt_rank: int | None = None, chunk: int = 128,
                 return_state: bool = False):
@@ -113,27 +157,15 @@ def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
     also the decode state after the last token: {"conv": the last d_conv -
     1 pre-conv inputs (B, d_conv - 1, d_inner), zeros where T is shorter,
     "ssm": (B, d_inner, d_state) float32}."""
+    kw = {"d_state": d_state, "dt_rank": _rank(x.shape[-1], dt_rank)}
     if sharded.is_dtensor(x):
-        # the recurrence runs on plain tensors (DTensor has no sharding
-        # strategy for its loop's writes), params gathered, over each
-        # rank's rows (rows are independent)
-        return sharded.run_local(mamba_apply, params, x, d_state=d_state,
-                                 d_conv=d_conv, dt_rank=dt_rank, chunk=chunk,
-                                 return_state=return_state)
-    B, T, d_model = x.shape
-    d_inner = params["conv_b"].shape[0]
-    r = _rank(d_model, dt_rank)
+        return _mamba_meshed(params, x, None, d_conv=d_conv, chunk=chunk,
+                             return_state=return_state, **kw)
     x_in, z = dense(params["in_proj"], x).chunk(2, dim=-1)
-    x_pad = F.pad(x_in, (0, 0, d_conv - 1, 0))
-    x_c = silu(conv1d({"w": params["conv_w"], "b": params["conv_b"]}, x_pad,
-                      padding="VALID", groups=d_inner))
-    dt, B_mat, C_mat = _ssm_params(params, x_c, d_state=d_state, dt_rank=r)
-    h0 = torch.zeros((B, d_inner, d_state), dtype=torch.float32, device=x.device)
-    y, h_final = mamba_scan(dt, params["A_log"], B_mat, C_mat, x_c, h0, chunk=chunk)
-    y = y + params["D"] * x_c.float()
-    out = dense(params["out_proj"], y.to(x.dtype) * silu(z))
+    x_pad, x_c, proj = _mix_in(params, x_in, d_conv=d_conv)
+    out, h_final = _mix_out(params, x_c, z, proj, chunk=chunk, **kw)
     if return_state:
-        return out, {"conv": x_pad[:, T:], "ssm": h_final}
+        return out, {"conv": x_pad[:, x.shape[1]:], "ssm": h_final}
     return out
 
 
@@ -144,27 +176,37 @@ def mamba_decode_init_state(batch: int, d_inner: int, d_state: int, d_conv: int,
                                device=device)}
 
 
+def _step_in(params, x_in, conv):
+    """``_mix_in`` of one token x_in (B, 1, d_inner) from the conv state:
+    (the conv buffer (B, d_conv, d_inner), x_c (B, 1, d_inner), x_proj's
+    partial product)."""
+    conv_buf = torch.cat([conv, x_in], dim=1)
+    x_c = torch.einsum("bkd,dk->bd", conv_buf, params["conv_w"][:, 0, :]) + params["conv_b"]
+    x_c = silu(x_c)[:, None, :]
+    return conv_buf, x_c, dense(params["x_proj"], x_c)
+
+
+def _step_out(params, x_c, z, proj, h, *, d_state: int, dt_rank: int):
+    """``_mix_out`` of one token from the SSM state h (B, d_inner,
+    d_state): (out_proj's partial product, the new state)."""
+    dt, B_mat, C_mat = _ssm_params(params, proj, d_state=d_state, dt_rank=dt_rank)
+    dA = torch.exp(dt[:, 0, :, None] * -torch.exp(params["A_log"]))
+    dBx = (dt[:, 0] * x_c[:, 0].float())[..., None] * B_mat[:, 0, None, :]
+    h = torch.addcmul(dBx, dA, h)
+    y = torch.einsum("bds,bs->bd", h, C_mat[:, 0]) + params["D"] * x_c[:, 0].float()
+    return dense(params["out_proj"], y[:, None, :].to(z.dtype) * silu(z)), h
+
+
 def mamba_decode_apply(params, x, state, *, d_state: int = 16, d_conv: int = 4,
                        dt_rank: int | None = None):
     """One token x (B, 1, d_model) from ``state``.  Returns (y (B, 1,
     d_model), the new state)."""
+    kw = {"d_state": d_state, "dt_rank": _rank(x.shape[-1], dt_rank)}
     if sharded.is_dtensor(x):
-        # the recurrence runs on plain tensors (DTensor has no sharding
-        # strategy for its loop's writes), params gathered, over each
-        # rank's rows (rows are independent)
-        return sharded.run_local(mamba_decode_apply, params, x, state,
-                                 d_state=d_state, d_conv=d_conv, dt_rank=dt_rank)
-    r = _rank(x.shape[-1], dt_rank)
+        return _mamba_meshed(params, x, state, d_conv=d_conv, **kw)
     x_in, z = dense(params["in_proj"], x).chunk(2, dim=-1)          # (B, 1, di)
-    conv_buf = torch.cat([state["conv"], x_in], dim=1)               # (B, d_conv, di)
-    x_c = torch.einsum("bkd,dk->bd", conv_buf, params["conv_w"][:, 0, :]) + params["conv_b"]
-    x_c = silu(x_c)[:, None, :]
-    dt, B_mat, C_mat = _ssm_params(params, x_c, d_state=d_state, dt_rank=r)
-    dA = torch.exp(dt[:, 0, :, None] * -torch.exp(params["A_log"]))
-    dBx = (dt[:, 0] * x_c[:, 0].float())[..., None] * B_mat[:, 0, None, :]
-    h = torch.addcmul(dBx, dA, state["ssm"])
-    y = torch.einsum("bds,bs->bd", h, C_mat[:, 0]) + params["D"] * x_c[:, 0].float()
-    out = dense(params["out_proj"], y[:, None, :].to(x.dtype) * silu(z))
+    conv_buf, x_c, proj = _step_in(params, x_in, state["conv"])
+    out, h = _step_out(params, x_c, z, proj, state["ssm"], **kw)
     return out, {"conv": conv_buf[:, 1:], "ssm": h}
 
 
@@ -181,3 +223,70 @@ def mamba_reference(params, x, *, d_state: int = 16, d_conv: int = 4,
                                       d_conv=d_conv, dt_rank=dt_rank)
         ys.append(y)
     return torch.cat(ys, 1)
+
+
+# ---------------------------------------------------------------- meshed ---
+# d_inner axis of each param (port layout; ``in_proj`` splits its 2 *
+# d_inner columns)
+_CHANNEL_AXIS = {"in_proj": 1, "conv_w": 0, "conv_b": 0, "x_proj": 0, "dt_proj": 1,
+                 "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+
+
+def _weight(params, name):
+    return params[name]["w"] if isinstance(params[name], dict) else params[name]
+
+
+def _blocks(params, cut):
+    """The params with each leaf (a dense's ``w`` for the projections) as
+    ``cut(leaf, its d_inner axis)``."""
+    out = {}
+    for name, axis in _CHANNEL_AXIS.items():
+        leaf = cut(_weight(params, name), axis)
+        out[name] = {"w": leaf} if isinstance(params[name], dict) else leaf
+    return out
+
+
+def _total(proj, group):
+    """x_proj's partial products summed over ``group`` in float32 (an
+    all-reduce), rounded once to their dtype: the unsplit product's
+    float32 accumulation."""
+    return sharded.all_reduce(proj.float(), group).to(proj.dtype)
+
+
+def _mamba_meshed(params, x, state, *, d_state: int, d_conv: int, dt_rank: int,
+                  chunk: int = 128, return_state: bool = False):
+    """``mamba_apply`` (``state`` None) or ``mamba_decode_apply`` of a
+    DTensor x on params at their placements (the module docstring): each
+    rank's rows of x, its d_inner block of every param (FSDP's data-axis
+    splits gathered), the state's blocks moved to its channels and back.
+    Returns y as a DTensor at x's split of the rows (replicated
+    elsewhere) [, the state as DTensors: in ``state``'s placements, or
+    for a prefill the cache's (``sharded.state_out``)]."""
+    mesh = x.device_mesh
+    place = sharded.keep_dims(x, {0})
+    rows = sharded.split_dims(x, 0)
+    group = sharded.layer_group(mesh, params["conv_b"], 0, rows)
+
+    pl = _blocks(params, lambda t, axis: sharded.param_block(t, group, axis, rows))
+    xl = sharded.SumGrad.apply(sharded.local_block(x, place), group)
+    x_in, z = group.realign(dense(pl["in_proj"], xl), 2)
+    kw = {"d_state": d_state, "dt_rank": dt_rank}
+    if state is None:
+        x_pad, x_c, proj = _mix_in(pl, x_in, d_conv=d_conv)
+        out, h = _mix_out(pl, x_c, z, _total(proj, group), chunk=chunk, **kw)
+        conv = x_pad[:, x.shape[1]:]
+    else:
+        conv_l = sharded.state_block(state["conv"], rows, group, 2)
+        h_l = sharded.state_block(state["ssm"], rows, group, 1)
+        conv_buf, x_c, proj = _step_in(pl, x_in, conv_l)
+        out, h = _step_out(pl, x_c, z, _total(proj, group), h_l, **kw)
+        conv = conv_buf[:, 1:]
+    y = sharded.reduce_out(out.float(), group).to(out.dtype)
+    y = sharded.wrap(y, mesh, place, x.shape)
+    if state is None and not return_state:
+        return y
+    B, di = x.shape[0], params["conv_b"].shape[0]
+    like = state or {"conv": (B, d_conv - 1, di), "ssm": (B, di, d_state)}
+    new = {"conv": sharded.state_out(conv, like["conv"], rows, group, 2),
+           "ssm": sharded.state_out(h, like["ssm"], rows, group, 1)}
+    return y, new

@@ -3,19 +3,32 @@
 Under a mesh (``launch/mesh.py``) the model runs on DTensors, whose
 operators DTensor propagates rank by rank.  Some code must not see one:
 the hand kernels, which launch through ctypes on ``data_ptr()``; writes
-by row index into a tensor sharded along its rows (the decode caches and
-the scheduler's pool); the layers whose operators have no sharding
-strategy (the Mamba and xLSTM recurrences: ``run_local``; the MoE, whose
-routing has none either, computes on its placed local blocks itself:
-``nn/moe.py``); a lookup along a split vocabulary (``embedding``); host
-reads.  ``local_block`` redistributes a DTensor to the placements such
-code can work on (explicitly, so that what it moves is stated where it is
-needed) and returns its local block; ``wrap`` makes a DTensor of a local
-result.
+by row or slot index into a tensor sharded along that axis (the decode
+caches and the scheduler's pool); the layers that compute on their
+placed blocks themselves, because their operators have no sharding
+strategy or would gather what they need whole (the Mamba and xLSTM
+recurrences, ``nn/ssm.py`` and ``nn/xlstm.py``; the MoE, ``nn/moe.py``;
+decode attention on a cache split along its slots,
+``kernels/decode_attention/ops.py``); a lookup along a split vocabulary
+(``embedding``); host reads.  ``local_block`` redistributes a DTensor to
+the placements such code can work on (explicitly, so that what it moves
+is stated where it is needed) and returns its local block; ``wrap`` makes
+a DTensor of a local result.
 
 A DTensor's rows are independent along a batch axis, and attention's heads
 along the head axis with their KV group, so a kernel run on each rank's
 block computes that rank's block of the whole result.
+
+The layers that compute on placed blocks talk over the mesh dims that
+split them through the functional collectives below (``Group``).  Inside
+such a layer a value that every rank of the group holds whole carries,
+on each rank, that rank's share of its gradient (the ranks' shares add
+up to it), since each rank computes its own block of the output from
+it: ``SumGrad`` (the identity, its gradient summed) takes a layer's input
+into that convention, ``all_reduce`` sums partial values whose gradient
+is itself a share, and ``reduce_out`` (a sum whose gradient is taken
+whole) hands a partial output back to DTensor, whose replicated values
+carry whole gradients on every rank.
 """
 from __future__ import annotations
 
@@ -152,40 +165,254 @@ def whole_groups(t, dim: int, groups: int):
     return t.redistribute(t.device_mesh, placements)
 
 
-def run_local(fn, params, x, *args, **kw):
-    """``fn(params, x, *args, **kw)`` of a layer on plain tensors, for a
-    DTensor ``x`` (B, ...): every DTensor param gathered whole (explicitly;
-    its gradient a partial sum over the ranks that split the rows), and
-    each rank's rows of x and of the tensors in ``args`` (states (B, ...)).
-    The tensors of the result (a tensor or a tuple / dict of them, each
-    leading with the batch, or () scalars over the whole batch) come back
-    as DTensors at x's row split, or replicated."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.utils._pytree import tree_map as map_any
+class Group:
+    """The process group of the mesh dims ``dims`` (their joint group,
+    major to minor, for several) for the functional collectives: ``size``
+    ranks, this rank at ``index``."""
 
-    mesh = x.device_mesh
-    place = keep_dims(x, {0})
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
+    def __init__(self, mesh, dims):
+        self.mesh, self.dims = mesh, tuple(dims)
+        coord = mesh.get_coordinate()
+        self.size, self.index = 1, 0
+        for i in self.dims:
+            self.size *= mesh.size(i)
+            self.index = self.index * mesh.size(i) + coord[i]
+        if len(self.dims) == 1:
+            self.spec = (mesh, self.dims[0])
+        elif self.dims:
+            names = tuple(mesh.mesh_dim_names[i] for i in self.dims)
+            self.spec = (mesh[names]._flatten(), 0)
+        else:
+            self.spec = None
 
-    def local(t, placements, grad_placements=None):
-        if is_dtensor(t):
-            return local_block(t, placements, grad_placements=grad_placements)
-        return t
+    def sum(self, t, op: str = "sum"):
+        """The all-reduce of a plain tensor (no gradient)."""
+        from torch.distributed import _functional_collectives as fc
 
-    pl = map_any(lambda t: local(t, whole, grad), params)
-    xl = local(x, place)
-    al = map_any(lambda t: local(t, place), args)
-    out = fn(pl, xl, *al, **kw)
-
-    def back(t):
-        if not isinstance(t, torch.Tensor):
+        if self.size == 1:
             return t
-        if t.dim() == 0:
-            return wrap(t, mesh, whole, t.shape)
-        return wrap(t, mesh, place, (x.shape[0],) + tuple(t.shape[1:]))
+        return fc.wait_tensor(fc.all_reduce(t.contiguous(), op, self.spec))
 
-    return map_any(back, out)
+    def gather(self, t, dim: int, *, whole_grad: bool = False):
+        """The blocks of ``t`` along ``dim``, in the group's order.  The
+        gradient of each block is the sum of the ranks' shares of it (a
+        reduce-scatter), or with ``whole_grad`` (the gathered value leaves
+        the layer replicated, its gradient whole on every rank) this
+        rank's block of it."""
+        from torch.distributed import _functional_collectives as fc
+
+        if self.size == 1:
+            return t
+        if whole_grad:
+            return _GatherWhole.apply(t, dim, self)
+        out = fc.all_gather_tensor_autograd(t.movedim(dim, 0).contiguous(), 0, self.spec)
+        return fc.wait_tensor(out).movedim(0, dim)
+
+    def exchange(self, t, send: list, recv: list):
+        """``all_to_all_single`` along axis 0 of ``t``: ``send[j]`` rows to
+        rank j, ``recv[j]`` rows from rank j (the gradient goes back the
+        same way)."""
+        from torch.distributed import _functional_collectives as fc
+
+        if self.size == 1:
+            return t
+        return fc.wait_tensor(fc.all_to_all_single_autograd(
+            t.contiguous(), list(recv), list(send), self.spec))
+
+    def _routes(self, parts: int):
+        """``realign``'s all-to-all: the order that sorts this rank's
+        ``parts`` blocks by the rank each goes to, the blocks sent to each
+        rank and those received from each."""
+        k, j = self.size, self.index
+        dest = [(parts * j + i) % k for i in range(parts)]
+        order = sorted(range(parts), key=lambda i: (dest[i], i))
+        recv = [sum(1 for g in range(parts) if (g * k + j) // parts == r) for r in range(k)]
+        return order, [dest.count(r) for r in range(k)], recv
+
+    def realign(self, t, parts: int):
+        """This rank's block of each of ``parts`` equal parts, from its
+        block ``t`` (..., parts * w) of their concatenation [part 0 | part 1
+        | ...] split over the group in order (as a column-parallel weight
+        of stacked halves or gates gives it): (parts, ..., w), an
+        all-to-all of blocks of w columns."""
+        blocks = t.reshape(t.shape[:-1] + (parts, t.shape[-1] // parts)).movedim(-2, 0)
+        if self.size == 1:
+            return blocks
+        order, send, recv = self._routes(parts)
+        return self.exchange(blocks[order], send, recv)
+
+    def unalign(self, blocks, parts: int):
+        """``realign``'s inverse: this rank's block of each part, (parts,
+        ..., w), back to its block (..., parts * w) of their concatenation
+        split over the group in order."""
+        if self.size > 1:
+            order, send, recv = self._routes(parts)
+            blocks = self.exchange(blocks, recv, send)[[order.index(i) for i in range(parts)]]
+        return blocks.movedim(0, -2).reshape(blocks.shape[1:-1] + (parts * blocks.shape[-1],))
+
+    def reshard(self, t, src: int, dst: int):
+        """``t``, this rank's block along axis ``src`` (axis ``dst`` whole),
+        as its block along axis ``dst`` (axis ``src`` whole): an
+        all-to-all."""
+        k = self.size
+        if k == 1:
+            return t
+        shape = t.shape
+        chunks = t.reshape(shape[:dst] + (k, shape[dst] // k) + shape[dst + 1:]).movedim(dst, 0)
+        out = self.exchange(chunks, [1] * k, [1] * k).movedim(0, src)
+        return out.reshape(out.shape[:src] + (k * out.shape[src + 1],) + out.shape[src + 2:])
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        from torch.distributed import _functional_collectives as fc
+
+        ctx.dim, ctx.group, ctx.n = dim, group, t.shape[dim]
+        out = fc.all_gather_tensor(t.movedim(dim, 0).contiguous(), 0, group.spec)
+        return fc.wait_tensor(out).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.group.index * ctx.n, ctx.n), None, None
+
+
+class SumGrad(torch.autograd.Function):
+    """The identity, whose gradient is summed over ``group`` (an
+    all-reduce): where ranks compute their own blocks from a value they
+    all hold, each holds only its share of the value's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum(g), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, whole_grad):
+        ctx.group, ctx.whole_grad = group, whole_grad
+        return group.sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.whole_grad else ctx.group.sum(g)), None, None
+
+
+def all_reduce(t, group):
+    """The sum over ``group`` of each rank's partial ``t``, used by every
+    rank for its own block: its gradient, a share on each rank, is summed
+    too."""
+    return t if group.size == 1 else _AllReduce.apply(t, group, False)
+
+
+def reduce_out(t, group):
+    """The sum over ``group`` of each rank's partial ``t``, leaving the
+    layer as a replicated value: its gradient arrives whole on every rank
+    and passes to each partial as it is."""
+    return t if group.size == 1 else _AllReduce.apply(t, group, True)
+
+
+def param_block(t, group, axis, rows, *, share: bool = False):
+    """The local block of param ``t`` for a layer computing on ``group``'s
+    blocks: its split of ``axis`` over the group's dims kept (``axis``
+    None: whole), every other split gathered (FSDP's, over the data
+    axes).  Its gradient is a partial sum over ``rows`` (the dims that
+    split the batch) and, with ``share`` (a whole param each rank uses for
+    its own block of the output), over the group's dims too."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    at = [Shard(axis) if axis is not None and i in group.dims else Replicate()
+          for i in range(mesh.ndim)]
+    grad = [p if isinstance(p, Shard) else
+            Partial() if i in rows or (share and i in group.dims) else Replicate()
+            for i, p in enumerate(at)]
+    return local_block(t, at, grad_placements=grad)
+
+
+def _state_place(ndim: int, rows, group, axis) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if i in rows else
+            Shard(axis) if axis is not None and i in group.dims else Replicate()
+            for i in range(ndim)]
+
+
+def _moves_split(placements, group, want, avoid) -> int | None:
+    """The axis that ``placements`` split over every one of the group's
+    dims (one axis, not ``avoid``) where they equal ``want`` elsewhere;
+    else None."""
+    from torch.distributed.tensor import Shard
+
+    axes = {p.dim for i, p in enumerate(placements) if i in group.dims and isinstance(p, Shard)}
+    if group.size == 1 or len(axes) != 1 or avoid in axes or any(
+            (not isinstance(p, Shard)) if i in group.dims else p != want[i]
+            for i, p in enumerate(placements)):
+        return None
+    return axes.pop()
+
+
+def state_block(t, rows, group, axis):
+    """This rank's block of a decode-state leaf ``t`` (B, ...) for a layer
+    computing on ``group``'s blocks: its rows, and its block of ``axis``
+    over the group (``axis`` None: whole).  A leaf the cache splits along
+    another axis over the group is moved by an all-to-all; anything else
+    is redistributed explicitly."""
+    want = _state_place(t.device_mesh.ndim, rows, group, axis)
+    src = _moves_split(t.placements, group, want, axis) if axis is not None else None
+    if src is not None:
+        return group.reshard(t.to_local(), src, axis)
+    return local_block(t, want)
+
+
+def state_out(local, like, rows, group, axis):
+    """The new state leaf from its block ``local`` (``state_block``'s
+    layout) as a DTensor at ``like``'s placements (the leaf passed in),
+    or, where ``like`` is the leaf's shape (a prefill), at the cache's
+    (``launch/partition.py::cache_model_axis`` over the group's dims): one
+    all-to-all where only the split axis differs, else an explicit
+    redistribution (slicing, where the block is whole over the group)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.partition import cache_model_axis
+
+    mesh = group.mesh
+    have = _state_place(mesh.ndim, rows, group, axis)
+    if is_dtensor(like):
+        shape, target = tuple(like.shape), list(like.placements)
+    else:
+        shape, split = tuple(like), cache_model_axis(like, group.size, start=1)
+        cut = Replicate() if split is None else Shard(split)
+        target = [cut if i in group.dims else p for i, p in enumerate(have)]
+    if target == have:
+        return wrap(local, mesh, have, shape)
+    dst = _moves_split(target, group, have, axis) if axis is not None else None
+    if dst is not None:
+        return wrap(group.reshard(local, axis, dst), mesh, target, shape)
+    return wrap(local, mesh, have, shape).redistribute(mesh, target)
+
+
+def layer_group(mesh, param, axis: int, rows) -> "Group":
+    """The group of a layer that computes on the blocks of ``param``'s
+    ``axis``: the mesh dims that split it and not the rows (FSDP's
+    data-axis split of a param is gathered, not computed on); none for a
+    plain param."""
+    dims = split_dims(param, axis) if is_dtensor(param) else []
+    return Group(mesh, [i for i in dims if i not in rows])
+
+
+def split_dims(t, dim: int) -> list:
+    """The mesh dims that split DTensor ``t``'s axis ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim]
 
 
 def mesh_of(tree):
